@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (ssak_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result):
+  1. build   compile csrc/*.cu with nvcc for sm_90a (one process per source)
+  2. kernels each kernel's wrapper at the main path's shapes against its
+             plain PyTorch version on the card, with CUDA-event timings of
+             the kernel, the plain version and one library call, and the
+             least time the card could take (bytes or operations bound)
+  3. slice   seeded Whisper large-v3 greedy transcription of synthetic wav
+             files listed in a Kaldi dir, bf16 and --load_in_8bit, with the
+             kernels' launch counters checked against the path exactly
+  4. parity  teacher-forced logits of the port on the card against the port
+             on the CPU in f32 (large-v3 widths, 2+2 layers), same weights
+
+TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
+torch.backends.cudnn.allow_tf32 = False): f32 products on the card are full
+f32, as on the CPU. The line before the last is the card's name and power
+limit from nvidia-smi; before it, one JSON line lists every ported kernel.
+The last line is {"ok": true, "device": {...}}.
+"""
+
+import gc
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+MAX_TOKENS = 32
+N_FILES = 24
+FILE_SECONDS = 29.0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+L2_BYTES = 50 * 2**20
+SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's clock: longer than queueing 64 calls
+
+
+def log(msg):
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def bound(n_bytes, n_flops):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, arg_sets, min_iters=20):
+    """Mean ms per call over CUDA events, cycling through `arg_sets` (copies
+    whose total exceeds the L2 cache, so each call reads device memory as
+    the decode loop does). A spin kernel ahead of the first event lets the
+    host queue every call before the card starts them, so the events time
+    the card's work and not the host's rate of launching it."""
+    for a in arg_sets[:2]:
+        fn(*a)
+    iters = max(min_iters, len(arg_sets))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def n_copies(bytes_per_set):
+    return max(1, min(64, math.ceil(2 * L2_BYTES / max(1, bytes_per_set))))
+
+
+# --- phase 2: kernels against their plain versions ---------------------------
+
+
+def check_matmul_int8(torch, dev):
+    from ssak_tpu_torch.models.quant import quantize_kernel
+    from ssak_tpu_torch.ops import int8_matmul as IM
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows, worst = [], 0.0
+    shapes = [(m, k, n) for m in (24, 40) for (k, n) in ((1280, 1280), (1280, 5120), (5120, 1280))]
+    for M, K, N in shapes + [(5, 1280, 1288)]:  # last: odd M and a partial 64-column tile
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        q8, scale = quantize_kernel(torch.randn(K, N, generator=g, device=dev) * 0.05)
+        y = IM.matmul_int8(x, q8, scale)
+        ref = IM.matmul_int8_reference(x, q8, scale)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"matmul_int8 M={M} K={K} N={N}: max|err| {err} > {tol}")
+        worst = max(worst, err)
+        if (M, K, N) not in shapes:
+            continue
+        sets = [(x, q8.clone(), scale.clone()) for _ in range(n_copies(K * N))]
+        wdq = [(x, a[1].to(torch.bfloat16), a[2]) for a in sets]  # the dequantized bf16 weight
+        row = dict(
+            M=M, K=K, N=N, max_abs_err=err,
+            ms=time_ms(torch, IM.matmul_int8, sets),
+            plain_ms=time_ms(torch, IM.matmul_int8_reference, sets),
+            library_ms=time_ms(torch, lambda a, w, s: torch.matmul(a, w) * s, wdq),
+        )
+        row["bound_ms"], row["bound_by"] = bound(M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N)
+        rows.append(row)
+        log(f"matmul_int8 {row}")
+    return rows, worst
+
+
+def _rand_kv(torch, g, dev, B, H, Dh, T, int8):
+    from ssak_tpu_torch.models.layers import quantize_decode_kv
+
+    q = (torch.randn(B, H, Dh, generator=g, device=dev) * 0.125).to(torch.bfloat16)
+    k = torch.randn(B, H, Dh, T, generator=g, device=dev)
+    v = torch.randn(B, H, Dh, T, generator=g, device=dev)
+    if int8:
+        kv = quantize_decode_kv(k, v)
+        return q, (kv["k8"], kv["v8"], kv["ks"], kv["vs"])
+    return q, (k.to(torch.bfloat16), v.to(torch.bfloat16))
+
+
+def check_flash_decode(torch, dev, int8):
+    import torch.nn.functional as F
+
+    from ssak_tpu_torch.ops import flash_decode as FD
+
+    g = torch.Generator(device=dev).manual_seed(2 + int8)
+    H, Dh = 20, 64
+    rows, worst = [], 0.0
+    for B in (24, 40):
+        for T in (448, 1500):
+            q, kv = _rand_kv(torch, g, dev, B, H, Dh, T, int8)
+            # ragged ranges for the check; the timed call uses the main
+            # path's full cross-attention range
+            lo = torch.randint(0, T // 4, (B,), generator=g, device=dev, dtype=torch.int32)
+            hi = torch.randint(T // 2, T, (B,), generator=g, device=dev, dtype=torch.int32)
+            lo[0], hi[0] = 0, T - 1
+            lo[1], hi[1] = 5, 5
+            args = (q, kv[0], kv[1], lo, hi) + tuple(kv[2:])
+            out = FD.flash_decode_attention(*args)
+            ref = FD.flash_decode_reference(*args)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if not err <= 2e-2:
+                raise AssertionError(f"flash_decode int8={int8} B={B} T={T}: max|err| {err} > 2e-2")
+            worst = max(worst, err)
+            full_lo = torch.zeros(B, dtype=torch.int32, device=dev)
+            full_hi = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+            elt = 1 if int8 else 2
+            kv_bytes = 2 * B * H * Dh * T * elt + (2 * B * H * T * 2 if int8 else 0)
+            sets = [(q, *(a.clone() for a in kv[:2]), full_lo, full_hi, *(a.clone() for a in kv[2:]))
+                    for _ in range(n_copies(kv_bytes))]
+            # library yardstick: SDPA on bf16 K/V in (B, H, T, Dh), range mask
+            mask = torch.ones(B, 1, 1, T, dtype=torch.bool, device=dev)
+            if int8:
+                kb = (kv[0].float() * kv[2].float()).to(torch.bfloat16)
+                vb = (kv[1].float() * kv[3].float()).to(torch.bfloat16)
+            else:
+                kb, vb = kv
+            lib_sets = [(q[:, :, None], kb.transpose(-1, -2).contiguous(), vb.transpose(-1, -2).contiguous(), mask)
+                        for _ in range(n_copies(2 * B * H * Dh * T * 2))]
+            row = dict(
+                B=B, T=T, max_abs_err=err,
+                ms=time_ms(torch, FD.flash_decode_attention, sets),
+                plain_ms=time_ms(torch, FD.flash_decode_reference, sets),
+                library_ms=time_ms(torch, lambda a, k, v, m: F.scaled_dot_product_attention(a, k, v, attn_mask=m, scale=1.0), lib_sets),
+            )
+            row["bound_ms"], row["bound_by"] = bound(kv_bytes + B * H * Dh * (2 + 4) + 8 * B, 4 * B * H * Dh * T)
+            rows.append(row)
+            log(f"flash_decode_{'int8' if int8 else 'bf16'} {row}")
+            del sets, lib_sets
+    return rows, worst
+
+
+# --- phase 3: the slice at full width ------------------------------------------
+
+
+def write_corpus(root):
+    """N_FILES synthetic FILE_SECONDS-long 16 kHz wav files and a Kaldi dir."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import save_audio
+
+    rng = np.random.RandomState(0)
+    n = int(FILE_SECONDS * 16000)
+    t = np.arange(n) / 16000.0
+    ids = []
+    with open(os.path.join(root, "wav.scp"), "w", encoding="utf-8") as f:
+        for i in range(N_FILES):
+            tones = sum(0.1 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t) for _ in range(3))
+            audio = (tones + 0.02 * rng.randn(n)).astype(np.float32)
+            path = os.path.join(root, f"utt{i:03d}.wav")
+            save_audio(path, audio, 16000)
+            utt = f"utt{i:03d}"
+            f.write(f"{utt} {path}\n")
+            ids.append(utt)
+    return ids
+
+
+def run_slice(torch, kaldi_dir, ids, quantize_bits):
+    from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
+    from ssak_tpu_torch.models.whisper import make_config
+    from ssak_tpu_torch.ops import flash_decode as FD
+    from ssak_tpu_torch.ops import int8_matmul as IM
+
+    cfg = make_config("large-v3")
+    batch = auto_window_batch(cfg, quantize_bits)
+    groups = math.ceil(len(ids) / batch)
+    steps = groups * (2 + MAX_TOKENS - 1)  # prompt [sot, no_timestamps] + budget - 1 per group
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    it = whisper_infer(None, kaldi_dir, seeded_test_config="whisper:large-v3", quantize_bits=quantize_bits,
+                       max_tokens=MAX_TOKENS, output_ids=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in IM.LAUNCHES:
+        IM.LAUNCHES[k] = 0
+    for k in FD.LAUNCHES:
+        FD.LAUNCHES[k] = 0
+    out = list(it)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {**IM.LAUNCHES, **FD.LAUNCHES}
+    del it
+    tag = "int8" if quantize_bits else "bf16"
+    if [i for i, _ in out] != ids:
+        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
+    for i, text in out:
+        toks = [int(x) for x in text.split()]
+        if not all(0 <= x < cfg.n_vocab for x in toks) or len(toks) > MAX_TOKENS:
+            raise AssertionError(f"{tag}: bad transcript for {i}: {text!r}")
+    want = {
+        "matmul_int8": 256 * steps if quantize_bits else 0,  # 8 dense per layer x 32 layers
+        "flash_decode_int8": 64 * steps if quantize_bits else 0,  # 32 self + 32 cross sites
+        "flash_decode_bf16": 0 if quantize_bits else 64 * steps,
+    }
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counters {launches} != expected {want} ({steps} decode steps)")
+    audio_s = len(ids) * FILE_SECONDS
+    res = dict(config=tag, files=len(ids), batch_size=batch, decode_steps=steps, load_s=t1 - t0, run_s=t2 - t1,
+               audio_s_per_s=audio_s / (t2 - t1), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, sample=out[0][1][:80])
+    log(f"slice {json.dumps(res)}")
+    return res
+
+
+# --- phase 4: the whole path, card against CPU -----------------------------------
+
+
+def seeded_tree(cfg, seed=0):
+    """An ssak_tpu-layout Whisper parameter tree with numpy leaves (dense
+    kernels (in, out), conv kernels (K, Cin, Cout)), random from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def lin(d_in, d_out, bias=True):
+        p = {"kernel": (rng.standard_normal((d_in, d_out), dtype=np.float32) / np.float32(math.sqrt(d_in)))}
+        if bias:
+            p["bias"] = (rng.standard_normal(d_out, dtype=np.float32) * np.float32(0.02))
+        return p
+
+    def ln(d):
+        return {"scale": 1 + 0.1 * rng.standard_normal(d, dtype=np.float32), "bias": 0.1 * rng.standard_normal(d, dtype=np.float32)}
+
+    def attn(d):
+        return {"query": lin(d, d), "key": lin(d, d, bias=False), "value": lin(d, d), "out": lin(d, d)}
+
+    def block(d, cross):
+        p = {"attn_ln": ln(d), "attn": attn(d), "mlp_ln": ln(d), "mlp": {"fc1": lin(d, 4 * d), "fc2": lin(4 * d, d)}}
+        if cross:
+            p["cross_attn_ln"], p["cross_attn"] = ln(d), attn(d)
+        return p
+
+    def conv(k, c_in, c_out):
+        return {"kernel": rng.standard_normal((k, c_in, c_out), dtype=np.float32) / np.float32(math.sqrt(k * c_in)),
+                "bias": np.zeros(c_out, np.float32)}
+
+    d = cfg.n_audio_state
+    return {
+        "encoder": {"conv1": conv(3, cfg.n_mels, d), "conv2": conv(3, d, d),
+                    "blocks": [block(d, False) for _ in range(cfg.n_audio_layer)], "ln_post": ln(d)},
+        "decoder": {"token_embedding": rng.standard_normal((cfg.n_vocab, d), dtype=np.float32) * np.float32(0.02),
+                    "positional_embedding": rng.standard_normal((cfg.n_text_ctx, d), dtype=np.float32) * np.float32(0.01),
+                    "blocks": [block(d, True) for _ in range(cfg.n_text_layer)], "ln": ln(d)},
+    }
+
+
+def teacher_forced_logits(torch, model, cfg, mel, tokens):
+    from ssak_tpu_torch.models import whisper as W
+
+    with torch.inference_mode():
+        af = W.encode(model, mel, cfg)
+        kv = W.precompute_cross_kv(model, af, cfg)
+        caches = W.init_cache(cfg, mel.shape[0], device=mel.device)
+        out = []
+        for pos, tok in enumerate(tokens):
+            token = torch.full((mel.shape[0], 1), tok, dtype=torch.int64, device=mel.device)
+            logits, caches = W._decode_step(model, token, pos, caches, kv, cfg)
+            out.append(logits.float().cpu())
+    return torch.stack(out)
+
+
+def check_card_vs_cpu(torch, dev):
+    import dataclasses
+
+    import numpy as np
+
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.models.convert import whisper_from_tree
+    from ssak_tpu_torch.models.quant import quantize_params
+    from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
+
+    cfg32 = W.make_config("large-v3", n_audio_layer=2, n_text_layer=2, dtype="float32")
+    tree = seeded_tree(cfg32)
+    rng = np.random.RandomState(1)
+    audio = torch.from_numpy((0.1 * rng.randn(2, 480000)).astype(np.float32))
+    mel = log_mel_spectrogram(audio, n_mels=cfg32.n_mels)
+    tokens = [cfg32.sot, cfg32.no_timestamps, 440, 1000, 25000, 7]
+    res = {}
+    for bits in (0, 8):
+        cpu_model = whisper_from_tree(tree, "cpu")
+        card_model = whisper_from_tree(tree, dev)
+        cfg_cpu, cfg_card = cfg32, dataclasses.replace(cfg32, dtype="bfloat16")
+        if bits:
+            quantize_params(cpu_model)
+            quantize_params(card_model)
+            cfg_cpu = dataclasses.replace(cfg_cpu, kv_int8=True)
+            cfg_card = dataclasses.replace(cfg_card, kv_int8=True)
+        else:
+            card_model.to(torch.bfloat16)
+        W.fuse_decode_qkv(card_model)
+        ref = teacher_forced_logits(torch, cpu_model, cfg_cpu, mel, tokens)
+        got = teacher_forced_logits(torch, card_model, cfg_card, mel.to(dev), tokens)
+        if not (torch.isfinite(got).all() and got.shape == ref.shape == (len(tokens), 2, cfg32.n_vocab)):
+            raise AssertionError(f"card logits bad: shape {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        corr = float(np.corrcoef(got.flatten().numpy(), ref.flatten().numpy())[0, 1])
+        need = 0.99 if bits else 0.999
+        tag = "int8" if bits else "bf16"
+        log(f"card vs cpu {tag}: correlation {corr:.6f} (need >= {need}), max|diff| {float((got - ref).abs().max()):.4g}")
+        if not corr >= need:
+            raise AssertionError(f"card vs cpu {tag}: correlation {corr} < {need}")
+        res[tag] = corr
+        del cpu_model, card_model
+        gc.collect()
+    return res
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 3
+    try:
+        from ssak_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the ssak_tpu_torch package is not beside this script ({e})", file=sys.stderr)
+        return 4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; tf32 off")
+    log(f"card: {card}")
+
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s for {sorted(paths)}")
+    for name, (_sec, report) in _build.build_log.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("phase 2: kernels against their plain versions")
+    k2_rows, k2_err = check_matmul_int8(torch, dev)
+    fd_rows = {v: check_flash_decode(torch, dev, v == "int8") for v in ("bf16", "int8")}
+
+    log("phase 3: seeded large-v3 greedy transcription (bf16, int8)")
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
+    try:
+        ids = write_corpus(tmp)
+        slices = {r["config"]: r for r in (run_slice(torch, tmp, ids, 0), run_slice(torch, tmp, ids, 8))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    log("phase 4: card against CPU, large-v3 widths at 2+2 layers")
+    corr = check_card_vs_cpu(torch, dev)
+
+    def head(rows, **shape):
+        return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
+
+    kernels = []
+    specs = [
+        ("matmul_int8", "ssak_tpu_torch/csrc/int8_matmul.cu", "ssak_tpu/ops/int8_matmul.py:45",
+         k2_rows, k2_err, dict(M=24, K=1280, N=5120), slices["int8"]["launches"]["matmul_int8"]),
+        ("flash_decode_bf16", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:38",
+         *fd_rows["bf16"], dict(B=24, T=1500), slices["bf16"]["launches"]["flash_decode_bf16"]),
+        ("flash_decode_int8", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:58",
+         *fd_rows["int8"], dict(B=24, T=1500), slices["int8"]["launches"]["flash_decode_int8"]),
+    ]
+    for name, source, replaces, rows, err, shape, launches in specs:
+        h = head(rows, **shape)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            max_abs_err=err, ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by=h["bound_by"],
+            library_ms=h["library_ms"], max_err=err, kernel_ms=h["ms"], shape=shape, shapes=rows,
+        ))
+    log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr}))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

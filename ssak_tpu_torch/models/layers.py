@@ -1,0 +1,361 @@
+"""Shared layers in PyTorch (counterpart of ssak_tpu.models.layers): the
+subset on the Whisper serving path.
+
+Parameters live in small `nn.Module`s (Linear, QuantLinear, LayerNorm,
+Conv1d, MultiHeadAttention, MLP); the layer math is plain functions on
+tensors that follow the JAX functions step by step, dtype casts included.
+Conventions kept from ssak_tpu so the tests compare like with like:
+activations (B, T, D), heads (B, T, H, Dh), decode caches (B, H, Dh, T)
+with time minor, and "a product in `dtype` with f32 accumulation".
+
+How that product is formed here: attention products cast the
+`dtype`-rounded operands to f32 and multiply in f32 — bf16 values and
+their products are exact in f32, so this is JAX's
+`preferred_element_type=f32` exactly, up to the order of the sums. Dense
+layers multiply in `dtype` (a bf16 GEMM accumulates in f32 and rounds its
+result to bf16 once, before the bias; JAX rounds once, after it) because
+they carry most of the encoder's operations.
+"""
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ssak_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_supported
+from ssak_tpu_torch.ops.int8_matmul import int8_dense_supported, matmul_int8
+
+_NEG = -1e30
+
+
+# --- parameter containers ---------------------------------------------------
+
+
+def _param(t):
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Linear(nn.Module):
+    """Dense layer in torch layout: weight (out, in), optional bias (out,)."""
+
+    def __init__(self, weight, bias=None):
+        super().__init__()
+        self.weight = _param(weight)
+        self.bias = None if bias is None else _param(bias)
+
+
+class QuantLinear(nn.Module):
+    """Weight-only int8 dense layer: q8 int8 (in, out) and scale f32
+    (1, out) buffers in ssak_tpu's layout (the kernel reads q8 along out),
+    optional float bias (out,)."""
+
+    def __init__(self, q8, scale, bias=None):
+        super().__init__()
+        self.register_buffer("q8", q8)
+        self.register_buffer("scale", scale)
+        self.bias = None if bias is None else _param(bias)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, scale, bias):
+        super().__init__()
+        self.scale = _param(scale)
+        self.bias = _param(bias)
+
+
+class Conv1d(nn.Module):
+    """weight in torch layout (Cout, Cin/groups, K), optional bias."""
+
+    def __init__(self, weight, bias=None):
+        super().__init__()
+        self.weight = _param(weight)
+        self.bias = None if bias is None else _param(bias)
+
+
+class MultiHeadAttention(nn.Module):
+    """query/key/value/out projections; fuse_qkv_params replaces the first
+    three by one `qkv`."""
+
+    def __init__(self, out, query, key, value):
+        super().__init__()
+        self.out = out
+        self.query, self.key, self.value = query, key, value
+
+
+class MLP(nn.Module):
+    def __init__(self, fc1, fc2):
+        super().__init__()
+        self.fc1, self.fc2 = fc1, fc2
+
+
+# --- functions ----------------------------------------------------------------
+
+
+def _round_scalar(v: float, dtype) -> float:
+    """The Python float `v` rounded to `dtype` (JAX's jnp.asarray(v, dtype))."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
+
+
+def _f32(x, dtype):
+    """x rounded to `dtype`, then widened to f32 for an exact f32 product."""
+    return x.to(dtype).to(torch.float32)
+
+
+def layer_norm(x, p, eps: float = 1e-5):
+    """Statistics and affine in f32, output in the input dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale + p.bias).to(x.dtype)
+
+
+def dense(x, p, dtype=None):
+    """Linear or QuantLinear layer. With `dtype` the product runs and
+    returns in that dtype; the bias is added to the f32 result. A
+    QuantLinear on a decode-shaped CUDA activation goes through the fused
+    int8 kernel (K2); elsewhere its weight is dequantized first."""
+    y = None
+    if isinstance(p, QuantLinear):
+        if int8_dense_supported(x, p.q8):
+            if dtype is not None:
+                x = x.to(dtype)
+            y = matmul_int8(x.reshape(-1, x.shape[-1]), p.q8, p.scale).reshape(*x.shape[:-1], -1)
+        else:
+            from ssak_tpu_torch.models.quant import dequantize_kernel
+
+            w = dequantize_kernel(p, dtype if dtype is not None else x.dtype)
+    else:
+        w = p.weight.t()
+    if y is None:
+        dt = dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
+        x = x.to(dt)
+        y = torch.matmul(x, w.to(dt)).to(torch.float32)
+    out_dtype = x.dtype
+    if p.bias is not None:
+        y = y + p.bias
+    return y.to(out_dtype)
+
+
+def gelu(x):
+    return F.gelu(x, approximate="none")
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoid_position_embedding(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
+    """Whisper-style sinusoids (length, channels): [sin | cos] halves.
+    The cached array is shared: do not modify it."""
+    assert channels % 2 == 0
+    log_timescale_increment = math.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(np.float32)
+
+
+def split_heads(x, n_heads: int):
+    B, T, D = x.shape
+    return x.reshape(B, T, n_heads, D // n_heads)
+
+
+def merge_heads(x):
+    B, T, H, Dh = x.shape
+    return x.reshape(B, T, H * Dh)
+
+
+def attention(q, k, v, mask=None, dtype=torch.bfloat16, scale=None):
+    """q: (B, Tq, H, Dh), k/v: (B, Tk, H, Dh). mask broadcastable to
+    (B, H, Tq, Tk), True = attend. Softmax in f32."""
+    Dh = q.shape[-1]
+    scale = scale if scale is not None else Dh**-0.5
+    qh = q.to(dtype) * _round_scalar(scale, dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", _f32(qh, dtype), _f32(k, dtype))
+    if mask is not None:
+        logits = torch.where(mask, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", _f32(probs, dtype), _f32(v, dtype))
+    return out.to(dtype)
+
+
+def decode_attention(q, kT, vT, mask=None, dtype=torch.bfloat16, scale=None):
+    """Attention against decode-cache-layout K/V. q: (B, Tq, H, Dh);
+    kT/vT: (B, H, Dh, Tk); mask broadcastable to (B, H, Tq, Tk)."""
+    Dh = q.shape[-1]
+    scale = scale if scale is not None else Dh**-0.5
+    qh = q.to(dtype) * _round_scalar(scale, dtype)
+    logits = torch.einsum("bqhd,bhdt->bhqt", _f32(qh, dtype), _f32(kT, dtype))
+    if mask is not None:
+        logits = torch.where(mask, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqt,bhdt->bqhd", _f32(probs, dtype), _f32(vT, dtype))
+    return out.to(dtype)
+
+
+def to_decode_kv(x, n_heads: int):
+    """(B, T, D) merged K or V -> (B, H, Dh, T) decode-cache layout (a view)."""
+    return split_heads(x, n_heads).permute(0, 2, 3, 1)
+
+
+def _quant_per_position(x):
+    """(B, H, Dh, T) -> int8 values + per-(b, h, t) bf16 scales (B, H, 1, T)."""
+    xf = x.to(torch.float32)
+    s = torch.clamp(torch.amax(torch.abs(xf), dim=2, keepdim=True), min=1e-8) / 127.0
+    x8 = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return x8.contiguous(), s.to(torch.bfloat16).contiguous()
+
+
+def quantize_decode_kv(kT, vT):
+    """Decode-layout K/V -> the int8 dict with per-position scales
+    ({"k8", "ks", "v8", "vs"}), the one int8 KV format."""
+    k8, ks = _quant_per_position(kT)
+    v8, vs = _quant_per_position(vT)
+    return {"k8": k8, "ks": ks, "v8": v8, "vs": vs}
+
+
+def init_int8_cache(batch: int, n_heads: int, head_dim: int, length: int, device=None):
+    """Empty int8 self-attention decode cache with per-position scales."""
+    return {
+        "k8": torch.zeros((batch, n_heads, head_dim, length), dtype=torch.int8, device=device),
+        "ks": torch.zeros((batch, n_heads, 1, length), dtype=torch.bfloat16, device=device),
+        "v8": torch.zeros((batch, n_heads, head_dim, length), dtype=torch.int8, device=device),
+        "vs": torch.zeros((batch, n_heads, 1, length), dtype=torch.bfloat16, device=device),
+    }
+
+
+def update_int8_cache(cache, kT_new, vT_new, index: int):
+    """Quantize this step's k/v (B, H, Dh, Tnew) per position and write
+    values and scales at time `index`. Unlike ssak_tpu (pure functions),
+    the port writes into the preallocated cache IN PLACE and returns it."""
+    k8n, ksn = _quant_per_position(kT_new)
+    v8n, vsn = _quant_per_position(vT_new)
+    n = k8n.shape[-1]
+    for key, val in (("k8", k8n), ("ks", ksn), ("v8", v8n), ("vs", vsn)):
+        cache[key][..., index : index + n].copy_(val)
+    return cache
+
+
+def self_attention_int8(q, cache, mask=None, dtype=torch.bfloat16, scale=None):
+    """Decode attention over an int8 cache with per-position scales, q and
+    probabilities quantized to int8 as in ssak_tpu. PyTorch has no int8
+    einsum on CPU or CUDA: the integer products run in f64 on the integer
+    values, which is exact (|sums| < 2**53)."""
+    Dh = q.shape[-1]
+    scale = scale if scale is not None else Dh**-0.5
+    f32, f64 = torch.float32, torch.float64
+    qf = q.to(f32)
+    qs = torch.clamp(torch.amax(torch.abs(qf), dim=-1, keepdim=True), min=1e-8) / 127.0  # (B,Tq,H,1)
+    q8 = torch.clamp(torch.round(qf / qs), -127, 127)
+    dots = torch.einsum("bqhd,bhdt->bhqt", q8.to(f64), cache["k8"].to(f64))
+    mult = (scale * qs.permute(0, 2, 1, 3)) * cache["ks"]  # (B,H,Tq,1) x (B,H,1,T)
+    logits = dots.to(f32) * mult
+    if mask is not None:
+        logits = torch.where(mask, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1)
+    pv = probs * cache["vs"]  # fold the per-position V scale
+    ps = torch.clamp(torch.amax(pv, dim=-1, keepdim=True), min=1e-12) / 127.0
+    p8 = torch.clamp(torch.round(pv / ps), 0, 127)
+    acc = torch.einsum("bhqt,bhdt->bqhd", p8.to(f64), cache["v8"].to(f64))
+    out = acc.to(f32) * ps.permute(0, 2, 1, 3)
+    return out.to(dtype)
+
+
+def decode_attention_bounded(q, kv, lo, hi, dtype=torch.bfloat16, scale=None):
+    """Single-query decode attention with an inclusive index-range mask.
+
+    q: (B, 1, H, Dh). kv: {"k", "v"} bf16 decode layout or the int8 dict.
+    lo/hi: ints or (B,) int tensors. On CUDA this is the fused flash-decode
+    kernel (K4), always — ssak_tpu gates it behind SSAK_FLASH_DECODE only
+    for its TPU runtime's launch floor. On the CPU it takes the mask paths
+    (decode_attention / self_attention_int8), as ssak_tpu does off the TPU.
+    Returns (B, 1, H, Dh)."""
+    B, Tq, H, Dh = q.shape
+    scale = scale if scale is not None else Dh**-0.5
+    is_int8 = "k8" in kv
+    T = (kv["k8"] if is_int8 else kv["k"]).shape[-1]
+    lo = torch.as_tensor(lo, dtype=torch.int32, device=q.device).expand(B)
+    hi = torch.as_tensor(hi, dtype=torch.int32, device=q.device).expand(B)
+    if Tq == 1 and flash_decode_supported(q, Dh, T):
+        qs = (q[:, 0].to(torch.bfloat16) * _round_scalar(scale, torch.bfloat16)).contiguous()  # (B, H, Dh)
+        if is_int8:
+            o = flash_decode_attention(qs, kv["k8"], kv["v8"], lo, hi, kv["ks"], kv["vs"])
+        else:
+            o = flash_decode_attention(qs, kv["k"], kv["v"], lo, hi)
+        return o[:, None].to(dtype)
+    t = torch.arange(T, device=q.device)
+    mask = ((t[None, :] >= lo[:, None]) & (t[None, :] <= hi[:, None]))[:, None, None, :]
+    if is_int8:
+        return self_attention_int8(q, kv, mask=mask, dtype=dtype, scale=scale)
+    return decode_attention(q, kv["k"], kv["v"], mask=mask, dtype=dtype, scale=scale)
+
+
+def mha(x, p, n_heads: int, mask=None, cache=None, cache_index=None,
+        dtype=torch.bfloat16, lengths=None, attn_bounds=None):
+    """Multi-head self-attention. Without a cache: full attention over x,
+    with an optional mask or padding `lengths`. With a decode cache ({k, v}
+    (B, H, Dh, L) or the int8 dict), cache_index and attn_bounds=(lo, hi):
+    the step's k/v are written into the cache IN PLACE at cache_index and
+    attention runs over [lo, hi] (decode_attention_bounded). Returns
+    (y, cache)."""
+    if hasattr(p, "qkv"):
+        qkv = dense(x, p.qkv, dtype)
+        D = qkv.shape[-1] // 3
+        q = split_heads(qkv[..., :D], n_heads)
+        km, vm = qkv[..., D : 2 * D], qkv[..., 2 * D :]
+    else:
+        q = split_heads(dense(x, p.query, dtype), n_heads)
+        km = dense(x, p.key, dtype)
+        vm = dense(x, p.value, dtype)
+    if cache is not None:
+        if cache_index is None or attn_bounds is None:
+            raise ValueError("a decode cache needs cache_index and attn_bounds (decode-step use only)")
+        kT = to_decode_kv(km, n_heads)
+        vT = to_decode_kv(vm, n_heads)
+        if "k8" in cache:
+            update_int8_cache(cache, kT, vT, cache_index)
+        else:
+            n = kT.shape[-1]
+            cache["k"][..., cache_index : cache_index + n].copy_(kT)
+            cache["v"][..., cache_index : cache_index + n].copy_(vT)
+        y = decode_attention_bounded(q, cache, attn_bounds[0], attn_bounds[1], dtype=dtype)
+        return dense(merge_heads(y), p.out, dtype), cache
+    k = split_heads(km, n_heads)
+    v = split_heads(vm, n_heads)
+    if mask is None and lengths is not None:
+        mask = (torch.arange(k.shape[1], device=x.device)[None, :] < lengths[:, None])[:, None, None, :]
+    y = attention(q, k, v, mask=mask, dtype=dtype)
+    return dense(merge_heads(y), p.out, dtype), None
+
+
+def fuse_qkv_params(attn):
+    """Fuse one attention module's query/key/value projections into a
+    single `qkv` Linear ((3D, D) weight, zeros where a projection had no
+    bias), IN PLACE, dropping the three originals. Skipped when any
+    projection is quantized. Returns the module."""
+    projs = [attn.query, attn.key, attn.value]
+    if not all(isinstance(pr, Linear) for pr in projs):
+        return attn
+    w0 = projs[0].weight
+    biases = [pr.bias if pr.bias is not None else torch.zeros(w0.shape[0], dtype=w0.dtype, device=w0.device) for pr in projs]
+    attn.qkv = Linear(torch.cat([pr.weight for pr in projs], dim=0), torch.cat(biases))
+    del attn.query, attn.key, attn.value
+    return attn
+
+
+def mlp(x, p, dtype=torch.bfloat16):
+    return dense(gelu(dense(x, p.fc1, dtype)), p.fc2, dtype)
+
+
+def conv1d(x, p, stride: int = 1, padding=(0, 0), groups: int = 1, dtype=torch.bfloat16):
+    """x: (B, T, Cin) -> (B, T', Cout); explicit (left, right) padding.
+    The channel transposes happen here, not at the API."""
+    xt = x.to(dtype).transpose(1, 2)
+    left, right = padding
+    if left != right:
+        xt = F.pad(xt, (left, right))
+        left = 0
+    y = F.conv1d(xt, p.weight.to(dtype), stride=stride, padding=left, groups=groups).transpose(1, 2)
+    if p.bias is not None:
+        y = y + p.bias.to(y.dtype)
+    return y

@@ -1,0 +1,125 @@
+"""Guards of the port's rules: ssak_tpu_torch (and chip_smoke.py) import
+neither JAX nor ssak_tpu; every module imports with both blocked; entry
+points default to the GPU and raise without one instead of running on the
+CPU; the CLI runs on the CPU only when asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "ssak_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "ssak_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_no_jax_or_ssak_tpu_imports_by_ast():
+    bad = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and _forbidden(node.module or ""):
+                bad.append((path, node.module))
+    assert len(_port_files()) > 15
+    assert not bad, bad
+
+
+_BLOCKED_IMPORT = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCK = ("jax", "jaxlib", "ssak_tpu")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import: " + name)
+        return None
+for m in list(sys.modules):
+    if m.split(".")[0] in BLOCK:
+        del sys.modules[m]
+sys.meta_path.insert(0, Block())
+import ssak_tpu_torch
+names = [i.name for i in pkgutil.walk_packages(ssak_tpu_torch.__path__, "ssak_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def _need_gpu_less_host():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA device")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _need_gpu_less_host()
+    from ssak_tpu_torch.infer.general import from_tree, load_model
+    from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+    from ssak_tpu_torch.utils.env import resolve_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(None, seeded_test_config="whisper")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(None, seeded_test_config="whisper", quantize_bits=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        whisper_infer(None, [np.zeros(1600, np.float32)], seeded_test_config="whisper")  # raises at the call
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_tree({}, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_whisper_infer_on_cpu_when_asked():
+    from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+
+    rng = np.random.RandomState(0)
+    audios = [(rng.randn(n) * 0.1).astype(np.float32) for n in (8000, 16000, 4000)]
+    out = list(whisper_infer(None, audios, seeded_test_config="whisper", output_ids=True, max_tokens=4,
+                             batch_size=2, device="cpu"))
+    assert [i for i, _ in out] == ["audio000", "audio001", "audio002"]
+    assert all(len(t.split()) >= 1 for _, t in out)
+
+
+def test_cli_prints_one_line_per_file(tmp_path):
+    _need_gpu_less_host()
+    from ssak_tpu_torch.audio import save_audio
+
+    rng = np.random.RandomState(1)
+    with open(tmp_path / "wav.scp", "w") as f:
+        for i in range(3):
+            p = tmp_path / f"utt{i}.wav"
+            save_audio(str(p), (rng.randn(12000) * 0.1).astype(np.float32), 16000)
+            f.write(f"utt{i} {p}\n")
+    cmd = [sys.executable, "-m", "ssak_tpu_torch.infer.whisper_infer", str(tmp_path), "none",
+           "--seeded_test_config", "whisper"]
+    out = subprocess.run(cmd + ["--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [ln.split()[0] for ln in lines] == ["utt0", "utt1", "utt2"]
+    refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()

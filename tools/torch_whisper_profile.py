@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's Whisper greedy path, on one CUDA card.
+
+    python3 tools/torch_whisper_profile.py [--configs bf16 int8] [--batch 24] [--max_tokens 32]
+
+For each configuration: a seeded large-v3 model prepared as whisper_infer
+prepares it (bf16 cast or int8 quantization, fused decoder q/k/v), a batch
+of 30 s windows of random audio, then
+  - phase times with CUDA events: log-mel, encoder, cross-attention K/V,
+    one decode step (mean of 8), and the whole greedy_decode; beside the
+    encoder and the decode step, the host time to enqueue them;
+  - 8 decode steps, then one greedy_decode, under torch.profiler: the
+    device busy share (union of kernel intervals / wall time), the time
+    the host was blocked on a full command queue, and device time by
+    kernel name (top 12). A busy share near 1 means the card is the
+    bottleneck; well below 1 with no blocked time, the host is.
+Prints one JSON object per configuration. Numbers are only meaningful on
+the card; the script refuses to run without one.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+
+def _events(torch, fn):
+    """(device ms between events around fn, host ms to enqueue fn, fn's result)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), host_ms, out
+
+
+def profile(torch, bits, batch, max_tokens):
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
+
+    m = load_model(None, seeded_test_config="whisper:large-v3", quantize_bits=bits)
+    if not bits:
+        m.module.to(torch.bfloat16)
+    W.fuse_decode_qkv(m.module)
+    cfg, model = m.cfg, m.module
+    prompt = [cfg.sot, cfg.no_timestamps]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    audio = torch.randn(batch, 480000, generator=g, device="cuda") * 0.1
+    W.greedy_decode(model, log_mel_spectrogram(audio, cfg.n_mels), cfg, prompt, max_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    res = {"config": "int8" if bits else "bf16", "batch": batch, "max_tokens": max_tokens,
+           "card": torch.cuda.get_device_name(0)}
+    with torch.inference_mode():
+        res["logmel_ms"], _, mel = _events(torch, lambda: log_mel_spectrogram(audio, cfg.n_mels))
+        res["encode_ms"], res["encode_enqueue_ms"], af = _events(torch, lambda: W.encode(model, mel, cfg))
+        res["cross_kv_ms"], _, kv = _events(torch, lambda: W.precompute_cross_kv(model, af, cfg))
+        caches = W.init_cache(cfg, batch, device="cuda")
+        tok = torch.full((batch, 1), cfg.sot, dtype=torch.int64, device="cuda")
+        n = 8
+        ms, host, _ = _events(torch, lambda: [W._decode_step(model, tok, p, caches, kv, cfg) for p in range(n)])
+        res["decode_step_ms"], res["decode_step_enqueue_ms"] = ms / n, host / n
+        res["greedy_decode_ms"], _, _ = _events(torch, lambda: W.greedy_decode(model, mel, cfg, prompt, max_tokens=max_tokens))
+        windows = {
+            "decode_steps": lambda: [W._decode_step(model, tok, p, caches, kv, cfg) for p in range(n)],
+            "greedy_decode": lambda: W.greedy_decode(model, mel, cfg, prompt, max_tokens=max_tokens),
+        }
+        for name, fn in windows.items():
+            res[name] = _trace(torch, fn)
+    del m, model, kv, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _trace(torch, fn):
+    """Run fn under torch.profiler: wall ms, the device's busy ms (union of
+    the kernel and copy intervals on the card), its busy share, the ms the
+    host spent blocked on a full command queue (CUPTI's "Command Buffer
+    Full" records: the card was behind), and the top kernels by device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, spans, blocked_us = {}, [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dur = e.time_range.end - e.time_range.start
+        if e.name == "Command Buffer Full":
+            blocked_us += dur
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + dur / 1e3, count + 1)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    rows = sorted(((ms, c, k) for k, (ms, c) in by_name.items()), reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e3 / wall_ms,
+            "host_blocked_on_full_queue_ms": blocked_us / 1e3, "n_device_events": len(spans),
+            "top_kernels": [{"name": k[:90], "ms": ms, "count": c} for ms, c, k in rows[:12]]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--configs", nargs="+", default=["bf16", "int8"], choices=["bf16", "int8"])
+    ap.add_argument("--batch", type=int, default=24)
+    ap.add_argument("--max_tokens", type=int, default=32)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_whisper_profile: no CUDA device", file=sys.stderr)
+        return 3
+    for c in args.configs:
+        print(json.dumps(profile(torch, 8 if c == "int8" else 0, args.batch, args.max_tokens)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
