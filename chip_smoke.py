@@ -10,11 +10,16 @@ and prints no result):
              plain PyTorch version on the card, with CUDA-event timings of
              the kernel, the plain version and one library call, and the
              least time the card could take (bytes or operations bound)
-  3. slice   seeded Whisper large-v3 greedy transcription of synthetic wav
-             files listed in a Kaldi dir, bf16 and --load_in_8bit, with the
-             kernels' launch counters checked against the path exactly
-  4. parity  teacher-forced logits of the port on the card against the port
-             on the CPU in f32 (large-v3 widths, 2+2 layers), same weights
+  3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
+             files listed in a Kaldi dir, bf16 and --load_in_8bit; then
+             wav2vec2-base CTC training at full width (CTCTrainer, batch 32
+             of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
+             dir of 64 wavs; each with the kernels' launch counters checked
+             against the path exactly
+  4. parity  teacher-forced Whisper logits of the port on the card against
+             the port on the CPU in f32 (large-v3 widths, 2+2 layers), and
+             two wav2vec2 train steps card against CPU in f32 (large widths,
+             2 layers, remat), same weights
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 = False): f32 products on the card are full
@@ -38,6 +43,8 @@ N_FILES = 24
 FILE_SECONDS = 29.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
+CTC_FILES, CTC_EVAL_FILES, CTC_BATCH, CTC_STEPS = 64, 32, 32, 8
 L2_BYTES = 50 * 2**20
 SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's clock: longer than queueing 64 calls
 
@@ -46,8 +53,8 @@ def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def bound(n_bytes, n_flops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS
+def bound(n_bytes, n_flops, peak=BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -177,7 +184,83 @@ def check_flash_decode(torch, dev, int8):
     return rows, worst
 
 
-# --- phase 3: the slice at full width ------------------------------------------
+def ctc_case(torch, dev, V, seed, B=32, T=749, U=256):
+    """log_probs (B, T, V) of random logits; label rows of 150-256 tokens
+    (a 15 s utterance at ~14 chars/s), frame lengths of 600-749, with a
+    batch-pad dummy (label length 0, frame length -1), an infeasible row
+    (200 labels in 100 frames) and a row of repeated labels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = torch.log_softmax(2 * torch.randn(B, T, V, generator=g, device=dev), dim=-1)
+    labels = torch.randint(1, V, (B, U), generator=g, device=dev, dtype=torch.int32)
+    lab_len = torch.randint(150, U + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    t_len = torch.randint(600, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    t_len[0], lab_len[0] = T, U
+    t_len[1], lab_len[1] = -1, 0
+    t_len[2], lab_len[2] = 100, 200
+    labels[3, :] = labels[3, 0]
+    if U > 256:  # labels outside the vocabulary emit 0 and get no gradient
+        labels[4, 1], labels[5, 0] = V, -1
+    return lp, t_len, labels, lab_len
+
+
+def check_ctc_fused(torch, dev):
+    """K1 against its plain version at the slice's shapes (V=32) and the
+    largest vocabulary the toolkit trains with (V=1024), timed; and, checked
+    only, U=512 (S=1025 states, more than a block's 1024 threads) with
+    labels outside the vocabulary. Loss to 1e-5 relative; grad to 2e-3
+    absolute: alpha reaches about -2,600 at T=749, where one f32 ulp is
+    2.4e-4, and the gradient is exp of a difference of such sums."""
+    import torch.nn.functional as F
+
+    from ssak_tpu_torch.ops import ctc_fused as K1
+
+    grad_atol = 2e-3
+    rows, worst = [], 0.0
+    for V, U in ((32, 256), (1024, 256), (32, 512)):
+        lp, t_len, labels, lab_len = ctc_case(torch, dev, V, seed=V + U, U=U)
+        B, T, _ = lp.shape
+        S = 2 * labels.shape[1] + 1
+        loss, grad = K1.ctc_fused(lp, t_len, labels, lab_len)
+        ref_loss, ref_grad = K1.ctc_fused_reference(lp, t_len, labels, lab_len)
+        torch.cuda.synchronize()
+        loss_rel = float(((loss - ref_loss).abs() / ref_loss.abs().clamp(min=1.0)).max())
+        err = float((grad - ref_grad).abs().max())
+        if not (loss_rel <= 1e-5 and err <= grad_atol and torch.isfinite(loss).all()):
+            raise AssertionError(f"ctc_fused V={V} U={U}: loss rel err {loss_rel} (<= 1e-5), grad max|err| {err} (<= {grad_atol})")
+        if not (loss[1] == 0 and loss[2] == 0 and not grad[1].any() and not grad[2].any()):
+            raise AssertionError(f"ctc_fused V={V} U={U}: dummy or infeasible row not zeroed")
+        worst = max(worst, err)
+        if U != 256:
+            log(f"ctc_fused V={V} U={U} S={S}: loss rel err {loss_rel}, grad max|err| {err}")
+            continue
+        sets = [(lp.clone(), t_len, labels, lab_len) for _ in range(n_copies(B * T * V * 4))]
+        lib_in = lp.detach().transpose(0, 1).contiguous()
+        lib_len = t_len.clamp(min=1)
+
+        def library(x, tl=lib_len, lab=labels, ll=lab_len):
+            x = x.detach().requires_grad_(True)
+            F.ctc_loss(x, lab, tl, ll, blank=0, reduction="sum", zero_infinity=True).backward()
+            return x.grad
+
+        live = int(sum(max(0, min(int(t), T)) * (2 * min(int(l), S // 2) + 1) for t, l in zip(t_len.tolist(), lab_len.tolist())))
+        row = dict(
+            B=B, T=T, V=V, S=S, max_abs_err=err, loss_rel_err=loss_rel,
+            ms=time_ms(torch, K1.ctc_fused, sets),
+            plain_ms=time_ms(torch, K1.ctc_fused_reference, sets[:2], min_iters=3),
+            library_ms=time_ms(torch, library, [(lib_in.clone(),) for _ in range(2)], min_iters=5),
+            chain_steps=2 * T - 1, live_states=live,
+        )
+        # lp read once, labels and lengths read once, loss and grad written
+        # once; about 32 f32 operations per live (t, s) state, forward and
+        # backward together, over the f32 peak outside the tensor cores
+        row["bound_ms"], row["bound_by"] = bound(2 * B * T * V * 4 + B * labels.shape[1] * 4 + 3 * B * 4, 32 * live, F32_FLOPS)
+        rows.append(row)
+        log(f"ctc_fused {row}")
+        del sets
+    return rows, worst
+
+
+# --- phase 3: the slices at full width ------------------------------------------
 
 
 def write_corpus(root):
@@ -248,6 +331,129 @@ def run_slice(torch, kaldi_dir, ids, quantize_bits):
                audio_s_per_s=audio_s / (t2 - t1), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, sample=out[0][1][:80])
     log(f"slice {json.dumps(res)}")
+    return res
+
+
+CHARS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def write_ctc_corpus(root, n, seed):
+    """n synthetic 16 kHz wav files of 10-15 s (tones + noise) with seeded
+    text of a-z and spaces at ~14 chars/s, as a Kaldi dir with utt2dur."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import save_audio
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    scp, text, dur = [], [], []
+    for i in range(n):
+        secs = float(rng.uniform(10.0, 15.0))
+        t = np.arange(int(secs * 16000)) / 16000.0
+        audio = sum(0.1 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t) for _ in range(3)) + 0.02 * rng.randn(t.size)
+        path = os.path.join(root, f"utt{i:03d}.wav")
+        save_audio(path, audio.astype(np.float32), 16000)
+        words, n_chars = [], int(14 * secs)
+        while sum(len(w) + 1 for w in words) < n_chars:
+            words.append("".join(rng.choice(list(CHARS), size=rng.randint(2, 9))))
+        utt = f"utt{i:03d}"
+        scp.append(f"{utt} {path}")
+        text.append(f"{utt} {' '.join(words)[:n_chars].strip()}")
+        dur.append(f"{utt} {secs:.6f}")
+    for name, lines in (("wav.scp", scp), ("text", text), ("utt2dur", dur)):
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return root
+
+
+def run_ctc_slice(torch, dev, root):
+    """CTCTrainer on wav2vec2-base at full width: batch 32 of 15 s buckets
+    (T = 240,000 samples, 749 frames), bf16 compute over f32 master
+    weights, frozen feature encoder, 8 steps, eval on 32 utterances, final
+    checkpoint, resume into a fresh trainer."""
+    from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.tokenizer import CTCTokenizer
+    from ssak_tpu_torch.ops import ctc_fused as K1
+    from ssak_tpu_torch.ops import flash_decode as FD
+    from ssak_tpu_torch.ops import int8_matmul as IM
+    from ssak_tpu_torch.train.loop import CTCTrainer
+
+    train_dir = write_ctc_corpus(os.path.join(root, "train"), CTC_FILES, seed=1)
+    eval_dir = write_ctc_corpus(os.path.join(root, "eval"), CTC_EVAL_FILES, seed=2)
+    _, train_rows = kaldi_folder_to_manifest(train_dir)
+    _, eval_rows = kaldi_folder_to_manifest(eval_dir)
+    tok = CTCTokenizer.from_corpus([r["text"] for r in train_rows])
+    cfg = wav2vec2.make_config("base", vocab_size=max(32, len(tok)))
+    if cfg.vocab_size != 32:
+        raise AssertionError(f"vocabulary {cfg.vocab_size} != 32 (tokenizer {len(tok)})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = os.path.join(root, "run")
+    kw = dict(learning_rate=1e-4, warmup_steps=2, total_steps=CTC_STEPS, batch_size=CTC_BATCH, eval_steps=0, device=dev)
+    trainer = CTCTrainer(cfg, wav2vec2.init_params(cfg, seed=0, device=dev), tok, out_dir, **kw)
+    marks, audio_s, eval_ms = [], [], []
+    step_fn, batches_fn, evaluate_fn = trainer.train_step, trainer._batches, trainer.evaluate
+
+    def timed_step(state, batch):
+        out = step_fn(state, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return out
+
+    def counted_batches(rows, shuffle_seed=None):
+        for item in batches_fn(rows, shuffle_seed=shuffle_seed):
+            audio_s.append(item[2])
+            yield item
+
+    def timed_eval(rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_fn(rows)
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.train_step, trainer._batches, trainer.evaluate = timed_step, counted_batches, timed_eval
+    for counter in (K1.LAUNCHES, IM.LAUNCHES, FD.LAUNCHES):
+        for k in counter:
+            counter[k] = 0
+    t0 = time.perf_counter()
+    history = trainer.train(train_rows, eval_rows, max_steps=CTC_STEPS, log_interval=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**K1.LAUNCHES, **IM.LAUNCHES, **FD.LAUNCHES}
+    steps = [h for h in history if "loss" in h]
+    evals = [h for h in history if "eval_wer" in h]
+    eval_batches = -(-len(eval_rows) // CTC_BATCH)
+    want = {"ctc_fused": CTC_STEPS + eval_batches, "matmul_int8": 0, "flash_decode_bf16": 0, "flash_decode_int8": 0}
+    if launches != want:
+        raise AssertionError(f"ctc: launch counters {launches} != expected {want} ({CTC_STEPS} steps + {eval_batches} eval batches)")
+    if [h["step"] for h in steps] != list(range(1, CTC_STEPS + 1)):
+        raise AssertionError(f"ctc: logged steps {[h['step'] for h in steps]}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["loss"] > 0 for h in steps):
+        raise AssertionError(f"ctc: non-finite losses or grad norms {steps}")
+    if len(evals) != 1 or not (math.isfinite(evals[0]["eval_loss"]) and 0 <= evals[0]["eval_wer"]):
+        raise AssertionError(f"ctc: bad eval {evals}")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]  # steps 2..8 on the card's clock
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    resumed = CTCTrainer(cfg, wav2vec2.init_params(cfg, seed=1, device=dev), tok, out_dir, **kw)
+    if not resumed.resume() or resumed.state["step"] != CTC_STEPS:
+        raise AssertionError(f"ctc: resume gave step {resumed.state['step']}, want {CTC_STEPS}")
+    same = all(torch.equal(a, b) for a, b in zip(trainer.state["model"].parameters(), resumed.state["model"].parameters()))
+    if not same:
+        raise AssertionError("ctc: resumed parameters differ from the trained ones")
+    res = dict(config="wav2vec2-base ctc", batch_size=CTC_BATCH, bucket_s=15.0, frames=749, steps=CTC_STEPS,
+               step_ms=sum(step_ms) / len(step_ms), step_ms_each=step_ms, train_audio_s_per_s=sum(audio_s[1:CTC_STEPS]) / (sum(step_ms) / 1e3),
+               eval_ms=eval_ms[-1], eval_wer=evals[0]["eval_wer"], eval_loss=evals[0]["eval_loss"],
+               losses=[h["loss"] for h in steps], grad_norms=[h["grad_norm"] for h in steps], run_s=run_s,
+               peak_mem_gib=peak, launches=launches, resumed_step=resumed.state["step"])
+    log(f"slice {json.dumps(res)}")
+    del trainer, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -353,6 +559,71 @@ def check_card_vs_cpu(torch, dev):
     return res
 
 
+def check_train_step_card_vs_cpu(torch, dev):
+    """Two wav2vec2 train steps on the card and on the CPU in f32 from the
+    same weights: large widths (d=1024, stable layer norm, conv bias, remat),
+    2 layers, batch 4 x 4 s with one batch-pad dummy row, mask_time_prob 0.
+    Loss to 1e-4 relative and grad_norm to 1e-3 (f32 sums in other orders
+    over ~100 M terms). Parameters: Adam divides each entry by its own
+    gradient scale, so an entry whose gradient is a near-zero difference of
+    large terms may move either way (at most 2 lr apart after two steps).
+    Measured on an H100: loss 7e-8, grad_norm 4e-6, parameters at most
+    0.36 lr apart with 1.2e-4 of them beyond lr/100; held to lr, to a
+    median of 1e-7 and to a share of 1e-3 beyond lr/100."""
+    import numpy as np
+
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.convert import wav2vec2_from_tree, wav2vec2_to_tree
+    from ssak_tpu_torch.train import steps as TS
+
+    lr = 1e-4
+    cfg = wav2vec2.make_config("large", num_layers=2, remat=True, dtype="float32")
+    tree = wav2vec2_to_tree(wav2vec2.init_params(cfg, seed=7))
+    rng = np.random.RandomState(3)
+    n = 64000
+    lens = np.array([n, 50000, 40000, 1], np.int32)
+    audio = (0.1 * rng.randn(4, n)).astype(np.float32)
+    audio[np.arange(n)[None, :] >= lens[:, None]] = 0
+    lab_len = np.array([60, 45, 30, 0], np.int32)
+    labels = rng.randint(1, 32, (4, 64)).astype(np.int32)
+    labels[np.arange(64)[None, :] >= lab_len[:, None]] = 0
+    out = {}
+    for where in ("cpu", dev):
+        batch = {k: torch.from_numpy(v.copy()).to(where) for k, v in
+                 dict(audio=audio, audio_lengths=lens, labels=labels, label_lengths=lab_len).items()}
+        opt = TS.make_optimizer(learning_rate=lr, warmup_steps=1, total_steps=10)
+        state = TS.init_train_state(wav2vec2_from_tree(tree, where), opt)
+        step = TS.make_ctc_train_step(cfg, opt, mask_time_prob=0.0)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        out[str(where)] = (metrics, wav2vec2_to_tree(state["model"]))
+        del state
+    (cpu_m, cpu_p), (card_m, card_p) = out["cpu"], out[str(dev)]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card_m, cpu_m))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card_m, cpu_m))
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, list):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in zip(leaves(card_p), leaves(cpu_p))])
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(leaves(cpu_p), leaves(tree)))
+    far = float((diffs > lr / 100).mean())
+    res = dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=float(diffs.max()),
+               param_median_abs=float(np.median(diffs)), param_share_beyond_lr_100=far, param_max_move=moved,
+               card=card_m, cpu=cpu_m)
+    log(f"train step card vs cpu: {json.dumps(res)}")
+    if not (loss_rel <= 1e-4 and gn_rel <= 1e-3 and diffs.max() <= lr and np.median(diffs) <= 1e-7
+            and far <= 1e-3 and moved > 0):
+        raise AssertionError(f"train step card vs cpu out of tolerance: {res}")
+    return res
+
+
 def main():
     try:
         import torch
@@ -386,17 +657,24 @@ def main():
     log("phase 2: kernels against their plain versions")
     k2_rows, k2_err = check_matmul_int8(torch, dev)
     fd_rows = {v: check_flash_decode(torch, dev, v == "int8") for v in ("bf16", "int8")}
+    k1_rows, k1_err = check_ctc_fused(torch, dev)
 
-    log("phase 3: seeded large-v3 greedy transcription (bf16, int8)")
+    log("phase 3: seeded large-v3 greedy transcription (bf16, int8); wav2vec2-base CTC training")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         ids = write_corpus(tmp)
         slices = {r["config"]: r for r in (run_slice(torch, tmp, ids, 0), run_slice(torch, tmp, ids, 8))}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_ctc_")
+    try:
+        slices["ctc"] = run_ctc_slice(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
-    log("phase 4: card against CPU, large-v3 widths at 2+2 layers")
+    log("phase 4: card against CPU, large-v3 widths at 2+2 layers; wav2vec2 large widths at 2 layers")
     corr = check_card_vs_cpu(torch, dev)
+    train_parity = check_train_step_card_vs_cpu(torch, dev)
 
     def head(rows, **shape):
         return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
@@ -409,6 +687,8 @@ def main():
          *fd_rows["bf16"], dict(B=24, T=1500), slices["bf16"]["launches"]["flash_decode_bf16"]),
         ("flash_decode_int8", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:58",
          *fd_rows["int8"], dict(B=24, T=1500), slices["int8"]["launches"]["flash_decode_int8"]),
+        ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
+         k1_rows, k1_err, dict(V=32), slices["ctc"]["launches"]["ctc_fused"]),
     ]
     for name, source, replaces, rows, err, shape, launches in specs:
         h = head(rows, **shape)
@@ -417,7 +697,7 @@ def main():
             max_abs_err=err, ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by=h["bound_by"],
             library_ms=h["library_ms"], max_err=err, kernel_ms=h["ms"], shape=shape, shapes=rows,
         ))
-    log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr}))
+    log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,14 @@ def to_int16(a) -> np.ndarray:
     return np.rint(np.asarray(a, np.float32) * SCALE).clip(-32768, 32767).astype(np.int16)
 
 
+def encode_array(x: np.ndarray) -> np.ndarray:
+    """A pre-padded (B, T) float batch -> int16 wire format when safe,
+    unchanged otherwise."""
+    if int16_ok(x):
+        return to_int16(x)
+    return x
+
+
 def encode_rows(rows, W: int, T: int) -> np.ndarray:
     """Pack variable-length 1-D rows into a zero-padded (W, T) matrix in
     the wire format: int16 when EVERY row is normalized, f32 otherwise."""

@@ -1,8 +1,10 @@
-"""ssak_tpu parameter trees -> the port's modules.
+"""ssak_tpu parameter trees <-> the port's modules.
 
-Takes the JAX package's Whisper parameter tree with numpy (or array-like)
-leaves — as from `whisper.init_params`, `quantize_params` or a checkpoint —
-and builds a `WhisperModel`. Dense kernels (in, out) become torch-layout
+Takes the JAX package's Whisper or wav2vec2 parameter tree with numpy (or
+array-like) leaves — as from `init_params`, `quantize_params` or a
+checkpoint — and builds a `WhisperModel` or `Wav2Vec2Model`; a wav2vec2
+model also goes back to such a tree (`wav2vec2_to_tree`), which is how
+training checkpoints keep ssak_tpu's layout. Dense kernels (in, out) become torch-layout
 (out, in) weights, conv kernels (K, Cin, Cout) become (Cout, Cin, K);
 int8 leaves {"q8", "scale"} are carried as they are (QuantLinear keeps
 ssak_tpu's (in, out) layout).
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from ssak_tpu_torch.models import layers as L
+from ssak_tpu_torch.models import wav2vec2 as W2V
 from ssak_tpu_torch.models import whisper as W
 
 
@@ -67,3 +70,106 @@ def whisper_from_tree(params, device="cpu") -> W.WhisperModel:
         [_block(b, device) for b in dec["blocks"]], ln_from_tree(dec["ln"], device),
     )
     return W.WhisperModel(encoder, decoder)
+
+
+# --- wav2vec2 ------------------------------------------------------------------------
+
+
+def wav2vec2_from_tree(params, device="cpu") -> W2V.Wav2Vec2Model:
+    """ssak_tpu wav2vec2 tree (`wav2vec2.init_params` layout) -> Wav2Vec2Model."""
+    blocks_t = params["encoder"]["blocks"]
+    if isinstance(blocks_t, dict):
+        raise ValueError("layer-stacked trees are not supported; pass the list layout")
+    if any("moe" in b for b in blocks_t):
+        raise NotImplementedError("wav2vec2 with a Mixture-of-Experts FFN is not ported yet (comes with parallel/, ROADMAP.md)")
+    convs = []
+    for c in params["feature_extractor"]["convs"]:
+        norms = {k: ln_from_tree(c[k], device) for k in ("layer_norm", "group_norm") if k in c}
+        convs.append(W2V.ConvLayer(conv_from_tree(c["conv"], device), **norms))
+    blocks = []
+    for b in blocks_t:
+        mlp = L.MLP(linear_from_tree(b["mlp"]["fc1"], device), linear_from_tree(b["mlp"]["fc2"], device))
+        adapter = None
+        if "adapter" in b:
+            a = b["adapter"]
+            adapter = W2V.Adapter(ln_from_tree(a["norm"], device), linear_from_tree(a["down"], device),
+                                  linear_from_tree(a["up"], device))
+        blocks.append(W2V.EncoderBlock(attn_from_tree(b["attn"], device), ln_from_tree(b["attn_ln"], device),
+                                       ln_from_tree(b["mlp_ln"], device), mlp, adapter))
+    fp, enc = params["feature_projection"], params["encoder"]
+    return W2V.Wav2Vec2Model(
+        convs,
+        W2V.FeatureProjection(ln_from_tree(fp["layer_norm"], device), linear_from_tree(fp["projection"], device)),
+        W2V.Encoder(conv_from_tree(enc["pos_conv"], device), ln_from_tree(enc["layer_norm"], device), blocks),
+        linear_from_tree(params["lm_head"], device),
+    )
+
+
+def _np(t):
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _linear_to_tree(p):
+    out = {"kernel": _np(p.weight).T.copy()}
+    if p.bias is not None:
+        out["bias"] = _np(p.bias)
+    return out
+
+
+def _ln_to_tree(p):
+    return {"scale": _np(p.scale), "bias": _np(p.bias)}
+
+
+def _conv_to_tree(p):
+    out = {"kernel": _np(p.weight).transpose(2, 1, 0).copy()}
+    if p.bias is not None:
+        out["bias"] = _np(p.bias)
+    return out
+
+
+def wav2vec2_to_tree(model) -> dict:
+    """Wav2Vec2Model -> ssak_tpu wav2vec2 tree with f32 numpy leaves (dense
+    kernels (in, out), conv kernels (K, Cin/groups, Cout))."""
+    convs = []
+    for c in model.feature_extractor:
+        layer = {"conv": _conv_to_tree(c.conv)}
+        if c.layer_norm is not None:
+            layer["layer_norm"] = _ln_to_tree(c.layer_norm)
+        if c.group_norm is not None:
+            layer["group_norm"] = _ln_to_tree(c.group_norm)
+        convs.append(layer)
+    blocks = []
+    for b in model.encoder.blocks:
+        blk = {
+            "attn": {n: _linear_to_tree(getattr(b.attn, n)) for n in ("query", "key", "value", "out")},
+            "attn_ln": _ln_to_tree(b.attn_ln),
+            "mlp_ln": _ln_to_tree(b.mlp_ln),
+            "mlp": {"fc1": _linear_to_tree(b.mlp.fc1), "fc2": _linear_to_tree(b.mlp.fc2)},
+        }
+        if b.adapter is not None:
+            blk["adapter"] = {"norm": _ln_to_tree(b.adapter.norm), "down": _linear_to_tree(b.adapter.down),
+                              "up": _linear_to_tree(b.adapter.up)}
+        blocks.append(blk)
+    fp = model.feature_projection
+    return {
+        "feature_extractor": {"convs": convs},
+        "feature_projection": {"layer_norm": _ln_to_tree(fp.layer_norm), "projection": _linear_to_tree(fp.projection)},
+        "encoder": {"pos_conv": _conv_to_tree(model.encoder.pos_conv), "layer_norm": _ln_to_tree(model.encoder.layer_norm),
+                    "blocks": blocks},
+        "lm_head": _linear_to_tree(model.lm_head),
+    }
+
+
+def load_wav2vec2_tree_(model, params):
+    """Copy an ssak_tpu wav2vec2 tree into `model`'s parameters IN PLACE
+    (same structure required). Returns the model."""
+    src = dict(wav2vec2_from_tree(params, "cpu").named_parameters())
+    dst = dict(model.named_parameters())
+    if src.keys() != dst.keys():
+        raise ValueError(f"parameter tree does not match the model: {sorted(set(src) ^ set(dst))[:8]}")
+    with torch.no_grad():
+        for name, p in dst.items():
+            if p.shape != src[name].shape:
+                raise ValueError(f"{name}: shape {tuple(src[name].shape)} in the tree, {tuple(p.shape)} in the model")
+            p.copy_(src[name])
+    return model

@@ -1,5 +1,5 @@
 """Shared layers in PyTorch (counterpart of ssak_tpu.models.layers): the
-subset on the Whisper serving path.
+subset on the Whisper serving and wav2vec2-CTC training paths.
 
 Parameters live in small `nn.Module`s (Linear, QuantLinear, LayerNorm,
 Conv1d, MultiHeadAttention, MLP); the layer math is plain functions on
@@ -15,6 +15,10 @@ their products are exact in f32, so this is JAX's
 layers multiply in `dtype` (a bf16 GEMM accumulates in f32 and rounds its
 result to bf16 once, before the bias; JAX rounds once, after it) because
 they carry most of the encoder's operations.
+
+Parameters are created frozen (`requires_grad=False`), so serving builds no
+autograd graph; training turns them on for its model alone
+(`module.requires_grad_(True)`, train.steps.init_train_state).
 """
 
 import functools
@@ -111,6 +115,17 @@ def layer_norm(x, p, eps: float = 1e-5):
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * p.scale + p.bias).to(x.dtype)
+
+
+def group_norm(x, p, num_groups: int, eps: float = 1e-5):
+    """x: (B, T, C). GroupNorm with torch semantics: statistics over each
+    channel group and the time axis, in f32; output in the input dtype."""
+    B, T, C = x.shape
+    g = x.reshape(B, T, num_groups, C // num_groups).to(torch.float32)
+    mu = g.mean(dim=(1, 3), keepdim=True)
+    var = g.var(dim=(1, 3), keepdim=True, unbiased=False)
+    g = (g - mu) * torch.rsqrt(var + eps)
+    return (g.reshape(x.shape) * p.scale + p.bias).to(x.dtype)
 
 
 def dense(x, p, dtype=None):
@@ -359,3 +374,26 @@ def conv1d(x, p, stride: int = 1, padding=(0, 0), groups: int = 1, dtype=torch.b
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)
     return y
+
+
+# --- initializers (seeded on a torch.Generator; JAX's key bits are not reproduced) ---
+
+
+def _normal(gen, shape, std):
+    return torch.randn(shape, generator=gen, dtype=torch.float32) * std
+
+
+def linear_init(gen, d_in, d_out, bias=True, scale=None) -> Linear:
+    """N(0, 1/d_in) weight (std `scale` when given), zero bias."""
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return Linear(_normal(gen, (d_out, d_in), std), torch.zeros(d_out) if bias else None)
+
+
+def ln_init(d) -> LayerNorm:
+    return LayerNorm(torch.ones(d), torch.zeros(d))
+
+
+def conv_init(gen, k, c_in, c_out, bias=True, groups: int = 1) -> Conv1d:
+    """N(0, 1/(k c_in/groups)) weight (Cout, Cin/groups, K), zero bias."""
+    std = 1.0 / math.sqrt(k * c_in / groups)
+    return Conv1d(_normal(gen, (c_out, c_in // groups, k), std), torch.zeros(c_out) if bias else None)

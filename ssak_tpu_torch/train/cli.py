@@ -1,0 +1,148 @@
+"""`sak-train` for the port: wav2vec2-CTC fine-tuning on Kaldi data
+(counterpart of ssak_tpu.train.cli).
+
+    python -m ssak_tpu_torch.train.cli TRAIN_DIR VALID_DIR --output_dir runs [--device cpu]
+
+Kaldi dirs (or list files of "<dir> [weight]") in; a run dir named from a
+hash of the arguments; README + source snapshot + vocab.json +
+ssak_config.json for provenance; resume from the last checkpoint. Without
+--base_model the model is the seeded tiny_test wav2vec2 with a character
+vocabulary built from the training text. Runs on cuda unless --device cpu.
+
+Not ported yet, refused at start: --config / --set (YAML configs),
+--base_model (HF and NeMo checkpoints, ROADMAP.md slice 5 / 6),
+--data_augment (slice 7), --use_manifest_cache, and the ar / ru text
+normalizers.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Fine-tune a wav2vec2-CTC model on Kaldi data (PyTorch/CUDA port)")
+    p.add_argument("train", help="Kaldi dir or weighted list file")
+    p.add_argument("valid", help="Kaldi dir or list file")
+    p.add_argument("--config", default=None, help="YAML config file (not ported yet)")
+    p.add_argument("--set", dest="overrides", action="append", default=[], help="config override a.b=value (not ported yet)")
+    p.add_argument("--mask_time_prob", type=float, default=0.05, help="on-device span-mask probability")
+    p.add_argument("--base_model", default=None, help="checkpoint dir (not ported yet: omit for a seeded tiny model)")
+    p.add_argument("--output_dir", default="runs")
+    p.add_argument("--language", default="fr")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--grad_accum", type=int, default=1, help="gradient accumulation micro-steps per optimizer update")
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--warmup_steps", type=int, default=500)
+    p.add_argument("--max_steps", type=int, default=10000)
+    p.add_argument("--max_epochs", type=int, default=None)
+    p.add_argument("--eval_steps", type=int, default=500)
+    p.add_argument("--save_total_limit", type=int, default=2)
+    p.add_argument("--early_stopping", type=int, default=15)
+    p.add_argument("--min_duration", type=float, default=0.1)
+    p.add_argument("--max_data", type=int, default=None, help="cap utterance count")
+    p.add_argument("--choose_data_with_max_duration", action="store_true",
+                   help="with --max_data: keep the longest utterances instead of a random subset")
+    p.add_argument("--use_manifest_cache", action="store_true", help="(not ported yet)")
+    p.add_argument("--max_duration", type=float, default=15.0)
+    p.add_argument("--seed", type=int, default=69)
+    p.add_argument("--data_augment", action="store_true", help="(not ported yet)")
+    p.add_argument("--data_augment_noise", default=None)
+    p.add_argument("--data_augment_rir", default=None)
+    p.add_argument("--no_freeze_feature_encoder", dest="freeze", action="store_false", default=True)
+    p.add_argument("--optimizer", default="adamw", choices=["adamw", "adadelta", "sb_dual"],
+                   help="sb_dual = Adam trunk + Adadelta head (SpeechBrain recipe)")
+    p.add_argument("--schedule", default="linear", choices=["linear", "cosine", "constant", "newbob"],
+                   help="newbob = anneal LR on small relative WER improvement")
+    p.add_argument("--head_lr", type=float, default=1.0, help="head LR for --optimizer sb_dual")
+    p.add_argument("--resume", action="store_true", default=True)
+    p.add_argument("--no-resume", dest="resume", action="store_false")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return p
+
+
+def args_to_run_name(args) -> str:
+    from ssak_tpu_torch.utils.misc import hashmd5
+
+    key = {k: v for k, v in sorted(vars(args).items()) if k not in ("output_dir", "resume", "device")}
+    return f"ctc_b{args.batch_size}_lr{args.learning_rate}_s{args.seed}_{hashmd5(key)[:8]}"
+
+
+def _refuse_unported(args):
+    from ssak_tpu_torch.text import LATIN_LANGUAGES
+
+    if args.config or args.overrides:
+        raise NotImplementedError("--config / --set (YAML configs) are not ported yet (ROADMAP.md)")
+    if args.base_model:
+        raise NotImplementedError("--base_model (HF / NeMo checkpoint import) is not ported yet (ROADMAP.md slices 5, 6)")
+    if args.data_augment:
+        raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 7)")
+    if args.use_manifest_cache:
+        raise NotImplementedError("--use_manifest_cache is not ported yet (ROADMAP.md)")
+    if args.language.split("-")[0].lower() not in LATIN_LANGUAGES:
+        raise NotImplementedError(f"text normalization for --language {args.language} is not ported yet (ROADMAP.md)")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    from ssak_tpu_torch.utils.env import resolve_device
+
+    device = resolve_device(args.device)
+
+    from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.tokenizer import CTCTokenizer
+    from ssak_tpu_torch.text import format_text
+    from ssak_tpu_torch.train.loop import CTCTrainer
+    from ssak_tpu_torch.utils.misc import save_source_dir
+    from ssak_tpu_torch.utils.monitoring import logger
+
+    run_dir = os.path.join(args.output_dir, args_to_run_name(args))
+    os.makedirs(run_dir, exist_ok=True)
+
+    def norm(t):
+        try:
+            return format_text(t, args.language, extract_parenthesized=False, safety_checks=False).replace("\n", " ")
+        except Exception:
+            return t.lower()
+
+    meta_tr, train_rows = kaldi_folder_to_manifest(
+        args.train, min_duration=args.min_duration, max_duration=args.max_duration, max_data=args.max_data,
+        choose_data_with_max_duration=args.choose_data_with_max_duration, seed=args.seed)
+    meta_va, valid_rows = kaldi_folder_to_manifest(args.valid, max_duration=args.max_duration, seed=args.seed)
+    logger.info(f"train: {meta_tr} valid: {meta_va}")
+
+    tokenizer = CTCTokenizer.from_corpus([norm(r["text"] or "") for r in train_rows])
+    cfg = wav2vec2.make_config("tiny_test", vocab_size=max(32, len(tokenizer)))
+    model = wav2vec2.init_params(cfg, seed=args.seed, device=device)
+
+    with open(os.path.join(run_dir, "README.txt"), "w") as f:
+        f.write(" ".join(sys.argv) + "\n\n")
+        f.write(json.dumps({"train": meta_tr, "valid": meta_va, "vocab_size": len(tokenizer)}, indent=1))
+    save_source_dir(run_dir)
+    tokenizer.save(os.path.join(run_dir, "vocab.json"))
+    with open(os.path.join(run_dir, "ssak_config.json"), "w") as f:
+        json.dump({"model_type": "wav2vec2_ctc", "config": dataclasses.asdict(cfg)}, f, indent=1)
+
+    trainer = CTCTrainer(
+        cfg, model, tokenizer, run_dir,
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        warmup_steps=args.warmup_steps, total_steps=args.max_steps,
+        batch_size=args.batch_size, eval_steps=args.eval_steps,
+        save_total_limit=args.save_total_limit, early_stopping_patience=args.early_stopping,
+        freeze_feature_encoder=args.freeze, mask_time_prob=args.mask_time_prob, seed=args.seed,
+        normalize_text=norm, optimizer=args.optimizer, schedule=args.schedule, head_lr=args.head_lr,
+        grad_accum=args.grad_accum, device=device,
+    )
+    if args.resume:
+        trainer.resume()
+    trainer.train(train_rows, valid_rows, max_epochs=args.max_epochs, max_steps=args.max_steps)
+    print(json.dumps({"run_dir": run_dir, "best_wer": trainer.best_wer, "best_step": trainer.best_step}))
+
+
+if __name__ == "__main__":
+    main()

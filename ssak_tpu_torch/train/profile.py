@@ -1,0 +1,196 @@
+"""Where the time goes in the port's wav2vec2-CTC train step, on one CUDA card.
+
+    python3 -m ssak_tpu_torch.train.profile [--preset base] [--batch 32] [--seconds 15] [--labels 256] [--tf32]
+
+A seeded model (bf16 compute over f32 master weights, frozen feature
+encoder, mask_time_prob 0.05) and one random batch of int16 audio and
+labels, as CTCTrainer feeds it; two warm-up steps, then
+  - phase times with CUDA events (mean of 3): the frozen conv stack alone,
+    the whole forward to log-probs, the CTC loss (kernel K1), the backward,
+    the optimizer (global norm, clip, AdamW, in-place update), and the whole
+    train step (steps.make_ctc_train_step) with its host enqueue time;
+  - one train step under torch.profiler: device busy share, time the host
+    was blocked on a full command queue, device time by kernel name;
+  - one train step under torch.cuda.set_sync_debug_mode: the lines where
+    the host waited for the card.
+TF32 is off (matmul and cuDNN) unless --tf32, as in chip_smoke.py.
+Prints one JSON object. Numbers are only meaningful on the card; the
+script refuses to run without one.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+
+def _mean_events(torch, fn, n=3):
+    """(mean device ms between events around fn, mean host ms to enqueue it)."""
+    dev_ms, host_ms = 0.0, 0.0
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms += (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        dev_ms += a.elapsed_time(b)
+    return dev_ms / n, host_ms / n
+
+
+def _trace(torch, fn):
+    """Run fn under torch.profiler: wall ms, the device's busy ms (union of
+    kernel and copy intervals), its busy share, the ms the host was blocked
+    on a full command queue (CUPTI's "Command Buffer Full": the card was
+    behind), and the top kernels by device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, spans, blocked_us = {}, [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dur = e.time_range.end - e.time_range.start
+        if e.name == "Command Buffer Full":
+            blocked_us += dur
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + dur / 1e3, count + 1)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    rows = sorted(((ms, c, k) for k, (ms, c) in by_name.items()), reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e3 / wall_ms,
+            "host_blocked_on_full_queue_ms": blocked_us / 1e3, "n_device_events": len(spans),
+            "top_kernels": [{"name": k[:90], "ms": ms, "count": c} for ms, c, k in rows[:15]]}
+
+
+def profile(torch, preset, batch, seconds, n_labels):
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.ops.ctc_fused import ctc_loss_fast
+    from ssak_tpu_torch.train import optim
+    from ssak_tpu_torch.train import steps as TS
+
+    dev = torch.device("cuda", 0)
+    cfg = wav2vec2.make_config(preset)
+    model = wav2vec2.init_params(cfg, seed=0, device=dev)
+    opt = TS.make_optimizer(learning_rate=1e-4, warmup_steps=2, total_steps=100)
+    state = TS.init_train_state(model, opt)
+    step = TS.make_ctc_train_step(cfg, opt, mask_time_prob=0.05)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = int(seconds * 16000)
+    b = {"audio": (torch.randn(batch, n, generator=g, device=dev) * 3000).to(torch.int16),
+         "audio_lengths": torch.randint(int(0.7 * n), n + 1, (batch,), generator=g, device=dev, dtype=torch.int32),
+         "labels": torch.randint(1, cfg.vocab_size, (batch, n_labels), generator=g, device=dev, dtype=torch.int32),
+         "label_lengths": torch.randint(int(0.55 * n_labels), int(0.82 * n_labels) + 1, (batch,), generator=g, device=dev,
+                                        dtype=torch.int32)}
+    for _ in range(2):
+        step(state, b)
+    torch.cuda.synchronize()
+    audio = TS.audio_to_f32(b["audio"])
+    params = dict(model.named_parameters())
+    res = {"preset": preset, "batch": batch, "seconds": seconds, "frames": wav2vec2.feature_extract_output_length(cfg, n),
+           "labels": n_labels, "card": torch.cuda.get_device_name(0),
+           "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}
+
+    def conv_stack():
+        with torch.no_grad():
+            wav2vec2.feature_extractor(model, audio, cfg)
+
+    def forward():
+        return wav2vec2.ctc_log_probs(model, audio, cfg, b["audio_lengths"], freeze_feature_encoder=True)
+
+    with torch.no_grad():  # no autograd graph kept alive beside the timed steps
+        lp, fl = forward()
+    lp_leaf = lp.requires_grad_(True)
+
+    def loss():
+        return ctc_loss_fast(lp_leaf, fl, b["labels"], b["label_lengths"])
+
+    def backward():
+        for p in params.values():
+            p.grad = None
+        lp2, fl2 = forward()
+        ctc_loss_fast(lp2, fl2, b["labels"], b["label_lengths"]).backward()
+
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)) for k, p in params.items()}
+    opt_state = state["opt_state"]
+
+    def optimizer():
+        optim.global_norm(grads.values())
+        updates, _ = opt.update(grads, opt_state, {k: p.detach() for k, p in params.items()})
+        return updates
+
+    from ssak_tpu_torch.models import layers as L
+
+    k = cfg.num_conv_pos_embeddings
+    x_pos = torch.randn(batch, res["frames"], cfg.hidden_size, generator=g, device=dev).to(cfg.compute_dtype).requires_grad_(True)
+
+    def pos_conv():
+        y = L.conv1d(x_pos, model.encoder.pos_conv, padding=(k // 2, k // 2), groups=cfg.num_conv_pos_embedding_groups,
+                     dtype=cfg.compute_dtype)
+        y.float().sum().backward()
+
+    res["conv_stack_ms"], _ = _mean_events(torch, conv_stack)
+    res["pos_conv_fwd_bwd_ms"], _ = _mean_events(torch, pos_conv)
+    res["forward_ms"], res["forward_enqueue_ms"] = _mean_events(torch, forward)
+    res["ctc_loss_ms"], _ = _mean_events(torch, loss)
+    fwd_bwd_ms, _ = _mean_events(torch, backward)
+    res["backward_ms"] = fwd_bwd_ms - res["forward_ms"] - res["ctc_loss_ms"]
+    res["optimizer_ms"], res["optimizer_enqueue_ms"] = _mean_events(torch, optimizer)
+    res["train_step_ms"], res["train_step_enqueue_ms"] = _mean_events(torch, lambda: step(state, b))
+    torch.cuda.reset_peak_memory_stats()
+    res["train_step_trace"] = _trace(torch, lambda: step(state, b))
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["synchronizing_calls"] = _synchronizing_calls(torch, lambda: step(state, b))
+    return res
+
+
+def _synchronizing_calls(torch, fn):
+    """Where fn makes the host wait for the card: the warnings of
+    torch.cuda.set_sync_debug_mode, with the Python line that raised each."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename}:{w.lineno} {str(w.message)[:160]}" for w in caught][:20]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="base")
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seconds", type=float, default=15.0)
+    ap.add_argument("--labels", type=int, default=256)
+    ap.add_argument("--tf32", action="store_true", help="leave TF32 on for matmul and cuDNN")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ssak_tpu_torch.train.profile: no CUDA device", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = args.tf32
+    torch.backends.cudnn.allow_tf32 = args.tf32
+    print(json.dumps(profile(torch, args.preset, args.batch, args.seconds, args.labels)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -123,3 +123,24 @@ def test_cli_prints_one_line_per_file(tmp_path):
     assert [ln.split()[0] for ln in lines] == ["utt0", "utt1", "utt2"]
     refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """CTCTrainer and the train CLI run on cuda unless asked for the CPU; on
+    a host without a card they raise at start, before any run dir exists."""
+    _need_gpu_less_host()
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.tokenizer import CTCTokenizer
+    from ssak_tpu_torch.train.loop import CTCTrainer
+
+    cfg = wav2vec2.make_config("tiny_test")
+    tok = CTCTokenizer.from_corpus(["oui"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CTCTrainer(cfg, wav2vec2.init_params(cfg), tok, str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CTCTrainer(cfg, wav2vec2.init_params(cfg), tok, str(tmp_path / "b"), device="cuda:0")
+    assert CTCTrainer(cfg, wav2vec2.init_params(cfg), tok, str(tmp_path / "c"), device="cpu").device == torch.device("cpu")
+    cmd = [sys.executable, "-m", "ssak_tpu_torch.train.cli", str(tmp_path), str(tmp_path), "--output_dir", str(tmp_path / "runs")]
+    refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
+    assert not (tmp_path / "runs").exists()
