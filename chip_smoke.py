@@ -11,15 +11,22 @@ and prints no result):
              the kernel, the plain version and one library call, and the
              least time the card could take (bytes or operations bound)
   3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
-             files listed in a Kaldi dir, bf16 and --load_in_8bit; then
+             files listed in a Kaldi dir, bf16, --load_in_8bit and
+             --load_in_4bit; the --load_in_4bit --accurate chain (beam 5,
+             best_of 5, temperature fallback) over a Kaldi dir of short
+             files; the int4 long-form seek loop over 70 s files (full
+             temperature chain, best_of 5, 32-token windows); then
              wav2vec2-base CTC training at full width (CTCTrainer, batch 32
              of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
              dir of 64 wavs; each with the kernels' launch counters checked
-             against the path exactly
+             against the path exactly (on the accurate and long-form paths,
+             against the decode steps the port counts)
   4. parity  teacher-forced Whisper logits of the port on the card against
-             the port on the CPU in f32 (large-v3 widths, 2+2 layers), and
-             two wav2vec2 train steps card against CPU in f32 (large widths,
-             2 layers, remat), same weights
+             the port on the CPU in f32 (large-v3 widths, 2+2 layers; bf16,
+             int8 and int4 weights), the int4 window decode's no-speech and
+             first-step logits card against CPU, and two wav2vec2 train
+             steps card against CPU in f32 (large widths, 2 layers, remat),
+             same weights
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 = False): f32 products on the card are full
@@ -41,6 +48,8 @@ import time
 MAX_TOKENS = 32
 N_FILES = 24
 FILE_SECONDS = 29.0
+ACC_FILES, ACC_SECONDS = 8, 20.0  # the accurate chain's Kaldi dir: one window batch of 8 (x 5 beams = 40 rows)
+LF_FILES, LF_SECONDS = 4, 70.0  # long-form: 3 windows a file, 4 rows (x 5 candidates = 20 rows)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
@@ -49,8 +58,11 @@ L2_BYTES = 50 * 2**20
 SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's clock: longer than queueing 64 calls
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
 def bound(n_bytes, n_flops, peak=BF16_FLOPS):
@@ -116,6 +128,69 @@ def check_matmul_int8(torch, dev):
         row["bound_ms"], row["bound_by"] = bound(M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N)
         rows.append(row)
         log(f"matmul_int8 {row}")
+    return rows, worst
+
+
+def int4_rows():
+    """K3's row counts on phase 3's int4 paths: the full int4 window batch,
+    the greedy run's batch (N_FILES windows), the accurate run's beam and
+    best-of rows (window batch x 5) and long-form's (LF_FILES x 5)."""
+    from ssak_tpu_torch.infer.whisper_infer import auto_window_batch
+    from ssak_tpu_torch.models.whisper import make_config
+
+    cfg = make_config("large-v3")
+    full = auto_window_batch(cfg, 4)
+    return (full, min(N_FILES, full), auto_window_batch(cfg, 4, beam_size=5, best_of=5) * 5, LF_FILES * 5)
+
+
+def check_matmul_int4(torch, dev):
+    """K3 against its plain version at the slice's three large-v3 sites.
+    Checked at every M from 1 to 64 (every register-blocking width MR =
+    ceil(M/8) the kernel instantiates, full and partial row groups, hence
+    every row count the fallback and seek loops can reach), plus odd M with
+    a partial column tile and a contraction of 4 chunks; timed at the row
+    counts of phase 3's int4 paths (int4_rows). Both compute exact products
+    of bf16 values in f32; only the order of the sums differs: 1e-4 of
+    max|y|."""
+    from ssak_tpu_torch.models.quant import dequantize_int4, quantize_kernel
+    from ssak_tpu_torch.ops import int8_matmul as IM
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    timed_m = sorted(set(int4_rows()), reverse=True)
+    rows, worst = [], 0.0
+    for K, N, ms in ((1280, 1280, range(1, 65)), (1280, 5120, range(1, 65)), (5120, 1280, range(1, 65)),
+                     (1280, 1288, (5,)), (128, 256, (3,))):
+        xs = torch.randn(max(ms), K, generator=g, device=dev).to(torch.bfloat16)
+        q4, scale = quantize_kernel(torch.randn(K, N, generator=g, device=dev) * 0.05, bits=4)
+        site_err = 0.0
+        for M in ms:
+            x = xs[:M].contiguous()
+            y = IM.matmul_int4(x, q4, scale)
+            ref = IM.matmul_int4_reference(x, q4, scale)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            tol = 1e-4 * float(ref.abs().max())
+            if not err <= tol:
+                raise AssertionError(f"matmul_int4 M={M} K={K} N={N}: max|err| {err} > {tol}")
+            site_err = max(site_err, err)
+            if M not in timed_m or len(ms) == 1:
+                continue
+            sets = [(x, q4.clone(), scale.clone()) for _ in range(n_copies(K * N // 2))]
+            wdq = [(x, dequantize_int4(a[1], a[2], torch.bfloat16)) for a in sets]
+            row = dict(
+                M=M, K=K, N=N, splits=IM.int4_split_plan(K // 2, N)[0], max_abs_err=err,
+                ms=time_ms(torch, IM.matmul_int4, sets),
+                plain_ms=time_ms(torch, IM.matmul_int4_reference, sets),
+                library_ms=time_ms(torch, torch.matmul, wdq),
+            )
+            # packed weights + block scales + x read once, y written once
+            row["bound_ms"], row["bound_by"] = bound(K * N // 2 + (K // 64) * N * 4 + M * K * 2 + M * N * 4, 2 * M * K * N)
+            rows.append(row)
+            log(f"matmul_int4 {row}")
+            del sets, wdq
+        log(f"matmul_int4 K={K} N={N} splits={IM.int4_split_plan(K // 2, N)[0]}: checked at M={min(ms)}..{max(ms)}, "
+            f"max|err| {site_err}")
+        worst = max(worst, site_err)
     return rows, worst
 
 
@@ -263,33 +338,79 @@ def check_ctc_fused(torch, dev):
 # --- phase 3: the slices at full width ------------------------------------------
 
 
-def write_corpus(root):
-    """N_FILES synthetic FILE_SECONDS-long 16 kHz wav files and a Kaldi dir."""
+def tones(rng, seconds):
+    """Three tones and noise at 16 kHz, float32."""
+    import numpy as np
+
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    audio = sum(0.1 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t) for _ in range(3))
+    return (audio + 0.02 * rng.randn(t.size)).astype(np.float32)
+
+
+def write_corpus(root, n_files=N_FILES, seconds=FILE_SECONDS, seed=0):
+    """n_files synthetic 16 kHz wav files of `seconds` and a Kaldi dir."""
     import numpy as np
 
     from ssak_tpu_torch.audio import save_audio
 
-    rng = np.random.RandomState(0)
-    n = int(FILE_SECONDS * 16000)
-    t = np.arange(n) / 16000.0
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
     ids = []
     with open(os.path.join(root, "wav.scp"), "w", encoding="utf-8") as f:
-        for i in range(N_FILES):
-            tones = sum(0.1 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t) for _ in range(3))
-            audio = (tones + 0.02 * rng.randn(n)).astype(np.float32)
+        for i in range(n_files):
             path = os.path.join(root, f"utt{i:03d}.wav")
-            save_audio(path, audio, 16000)
+            save_audio(path, tones(rng, seconds), 16000)
             utt = f"utt{i:03d}"
             f.write(f"{utt} {path}\n")
             ids.append(utt)
     return ids
 
 
+def counters():
+    """The launch counters of every kernel wrapper and the port's decode-step counter."""
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.ops import ctc_fused as K1
+    from ssak_tpu_torch.ops import flash_decode as FD
+    from ssak_tpu_torch.ops import int8_matmul as IM
+
+    return (K1.LAUNCHES, IM.LAUNCHES, FD.LAUNCHES, W.DECODE_STEPS)
+
+
+def reset_counts():
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+
+def decode_launches():
+    _k1, im, fd, steps = counters()
+    return {**im, **fd}, steps["n"]
+
+
+def want_decode(bits, steps):
+    """Launches of a Whisper decode run of `steps` cached steps: 8 dense per
+    decoder layer x 32 layers through K2 (int8) or K3 (int4), 32 self + 32
+    cross attention sites through K4."""
+    return {
+        "matmul_int8": 256 * steps if bits == 8 else 0,
+        "matmul_int4": 256 * steps if bits == 4 else 0,
+        "flash_decode_int8": 64 * steps if bits else 0,
+        "flash_decode_bf16": 0 if bits else 64 * steps,
+    }
+
+
+def check_transcripts(tag, out, ids, cfg, max_tokens):
+    if [i for i, _ in out] != ids:
+        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
+    for i, text in out:
+        toks = [int(x) for x in text.split()]
+        if not all(0 <= x < cfg.n_vocab for x in toks) or len(toks) > max_tokens:
+            raise AssertionError(f"{tag}: bad transcript for {i}: {text!r}")
+
+
 def run_slice(torch, kaldi_dir, ids, quantize_bits):
     from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
     from ssak_tpu_torch.models.whisper import make_config
-    from ssak_tpu_torch.ops import flash_decode as FD
-    from ssak_tpu_torch.ops import int8_matmul as IM
 
     cfg = make_config("large-v3")
     batch = auto_window_batch(cfg, quantize_bits)
@@ -303,34 +424,140 @@ def run_slice(torch, kaldi_dir, ids, quantize_bits):
                        max_tokens=MAX_TOKENS, output_ids=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for k in IM.LAUNCHES:
-        IM.LAUNCHES[k] = 0
-    for k in FD.LAUNCHES:
-        FD.LAUNCHES[k] = 0
+    reset_counts()
     out = list(it)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {**IM.LAUNCHES, **FD.LAUNCHES}
+    launches, counted = decode_launches()
     del it
-    tag = "int8" if quantize_bits else "bf16"
-    if [i for i, _ in out] != ids:
-        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
-    for i, text in out:
-        toks = [int(x) for x in text.split()]
-        if not all(0 <= x < cfg.n_vocab for x in toks) or len(toks) > MAX_TOKENS:
-            raise AssertionError(f"{tag}: bad transcript for {i}: {text!r}")
-    want = {
-        "matmul_int8": 256 * steps if quantize_bits else 0,  # 8 dense per layer x 32 layers
-        "flash_decode_int8": 64 * steps if quantize_bits else 0,  # 32 self + 32 cross sites
-        "flash_decode_bf16": 0 if quantize_bits else 64 * steps,
-    }
-    if launches != want:
-        raise AssertionError(f"{tag}: launch counters {launches} != expected {want} ({steps} decode steps)")
+    tag = {0: "bf16", 8: "int8", 4: "int4"}[quantize_bits]
+    check_transcripts(tag, out, ids, cfg, MAX_TOKENS)
+    want = want_decode(quantize_bits, steps)
+    if launches != want or counted != steps:
+        raise AssertionError(f"{tag}: launch counters {launches} != expected {want} ({steps} decode steps, {counted} counted)")
     audio_s = len(ids) * FILE_SECONDS
     res = dict(config=tag, files=len(ids), batch_size=batch, decode_steps=steps, load_s=t1 - t0, run_s=t2 - t1,
                audio_s_per_s=audio_s / (t2 - t1), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, sample=out[0][1][:80])
     log(f"slice {json.dumps(res)}")
+    return res
+
+
+class DecodeCalls:
+    """Records each call of models.whisper's beam_decode, sample_decode and
+    decode_window (kind, temperature, rows) while installed; the port calls
+    them through the module, so the wrappers see every call."""
+
+    NAMES = ("beam_decode", "sample_decode", "decode_window")
+
+    def __init__(self):
+        from ssak_tpu_torch.models import whisper as W
+
+        self.W, self.calls, self.orig = W, [], {n: getattr(W, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.W, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.W, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(model, mel, *args, **kw):
+            self.calls.append((name, float(kw.get("temperature", 0.0)), int(mel.shape[0])))
+            return fn(model, mel, *args, **kw)
+
+        return call
+
+
+def run_accurate(torch, kaldi_dir, ids):
+    """python -m ssak_tpu_torch.infer.whisper_infer DIR m --seeded_test_config
+    whisper:large-v3 --load_in_4bit --accurate, through whisper_infer, with
+    the token budget cut to MAX_TOKENS: beam 5 at T = 0, then sampled
+    best-of-5 at each fallback temperature for the windows that fail."""
+    from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
+    from ssak_tpu_torch.models.whisper import make_config
+
+    cfg = make_config("large-v3")
+    batch = auto_window_batch(cfg, 4, beam_size=5, best_of=5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with DecodeCalls() as rec:
+        t0 = time.perf_counter()
+        it = whisper_infer(None, kaldi_dir, seeded_test_config="whisper:large-v3", quantize_bits=4, beam_size=5,
+                           best_of=5, temperature_fallback=True, max_tokens=MAX_TOKENS, output_ids=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        out = list(it)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, steps = decode_launches()
+    del it
+    check_transcripts("int4 accurate", out, ids, cfg, MAX_TOKENS)
+    want = want_decode(4, steps)
+    if launches != want or not steps:
+        raise AssertionError(f"int4 accurate: launch counters {launches} != expected {want} ({steps} decode steps)")
+    if not rec.calls or rec.calls[0][:2] != ("beam_decode", 0.0):
+        raise AssertionError(f"int4 accurate: decode calls {rec.calls} do not start with beam search at T=0")
+    res = dict(config="int4 accurate (beam 5, best_of 5, fallback)", files=len(ids), file_s=ACC_SECONDS,
+               batch_size=batch, decode_steps=steps, decode_calls=rec.calls,
+               fallback_temperatures=sorted({t for _, t, _ in rec.calls if t > 0}), load_s=t1 - t0, run_s=t2 - t1,
+               audio_s_per_s=len(ids) * ACC_SECONDS / (t2 - t1), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, sample=out[0][1][:80])
+    log(f"slice {json.dumps(res)}")
+    return res
+
+
+def run_longform(torch):
+    """transcribe_longform_batch on the seeded int4 large-v3 (as
+    --load_in_4bit loads it) over LF_FILES files of LF_SECONDS (tones +
+    noise): timestamps, conditioning, the full temperature chain with
+    best_of 5, the no-speech skip, windows cut to MAX_TOKENS tokens."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch
+    from ssak_tpu_torch.models.whisper import fuse_decode_qkv
+
+    rng = np.random.RandomState(5)
+    audios = [tones(rng, LF_SECONDS) for _ in range(LF_FILES)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = load_model(None, seeded_test_config="whisper:large-v3", quantize_bits=4)
+    fuse_decode_qkv(m.module)
+    with DecodeCalls() as rec:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = transcribe_longform_batch(m, audios, best_of=5, max_tokens=MAX_TOKENS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches, steps = decode_launches()
+    want = want_decode(4, steps)
+    if launches != want or not steps:
+        raise AssertionError(f"int4 long-form: launch counters {launches} != expected {want} ({steps} decode steps)")
+    for r in results:
+        starts = [sg["start"] for sg in r["segments"]]
+        if not isinstance(r["text"], str) or starts != sorted(starts):
+            raise AssertionError(f"int4 long-form: bad result {r['text'][:80]!r}, starts {starts}")
+        for sg in r["segments"]:
+            if not (0.0 <= sg["start"] <= sg["end"] <= LF_SECONDS + 30.0 and 0.0 <= sg["no_speech_prob"] <= 1.0
+                    and math.isfinite(sg["avg_logprob"])):
+                raise AssertionError(f"int4 long-form: bad segment {sg}")
+    res = dict(config="int4 long-form (full temperature chain, best_of 5)", files=LF_FILES, file_s=LF_SECONDS,
+               max_tokens=MAX_TOKENS, seek_iterations=sum(1 for _, t, _ in rec.calls if t == 0.0),
+               decode_window_calls=len(rec.calls), windows_per_call=sorted({r for _, _, r in rec.calls}),
+               temperatures_used=sorted({sg["temperature"] for r in results for sg in r["segments"]}),
+               segments=[len(r["segments"]) for r in results], decode_steps=steps, run_s=t1 - t0,
+               audio_s_per_s=LF_FILES * LF_SECONDS / (t1 - t0), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, sample=results[0]["text"][:80])
+    log(f"slice {json.dumps(res)}")
+    del m
     return res
 
 
@@ -416,9 +643,7 @@ def run_ctc_slice(torch, dev, root):
         return out
 
     trainer.train_step, trainer._batches, trainer.evaluate = timed_step, counted_batches, timed_eval
-    for counter in (K1.LAUNCHES, IM.LAUNCHES, FD.LAUNCHES):
-        for k in counter:
-            counter[k] = 0
+    reset_counts()
     t0 = time.perf_counter()
     history = trainer.train(train_rows, eval_rows, max_steps=CTC_STEPS, log_interval=1)
     torch.cuda.synchronize()
@@ -427,7 +652,8 @@ def run_ctc_slice(torch, dev, root):
     steps = [h for h in history if "loss" in h]
     evals = [h for h in history if "eval_wer" in h]
     eval_batches = -(-len(eval_rows) // CTC_BATCH)
-    want = {"ctc_fused": CTC_STEPS + eval_batches, "matmul_int8": 0, "flash_decode_bf16": 0, "flash_decode_int8": 0}
+    want = {"ctc_fused": CTC_STEPS + eval_batches, "matmul_int8": 0, "matmul_int4": 0, "flash_decode_bf16": 0,
+            "flash_decode_int8": 0}
     if launches != want:
         raise AssertionError(f"ctc: launch counters {launches} != expected {want} ({CTC_STEPS} steps + {eval_batches} eval batches)")
     if [h["step"] for h in steps] != list(range(1, CTC_STEPS + 1)):
@@ -531,13 +757,13 @@ def check_card_vs_cpu(torch, dev):
     mel = log_mel_spectrogram(audio, n_mels=cfg32.n_mels)
     tokens = [cfg32.sot, cfg32.no_timestamps, 440, 1000, 25000, 7]
     res = {}
-    for bits in (0, 8):
+    for bits in (0, 8, 4):
         cpu_model = whisper_from_tree(tree, "cpu")
         card_model = whisper_from_tree(tree, dev)
         cfg_cpu, cfg_card = cfg32, dataclasses.replace(cfg32, dtype="bfloat16")
         if bits:
-            quantize_params(cpu_model)
-            quantize_params(card_model)
+            quantize_params(cpu_model, bits=bits)
+            quantize_params(card_model, bits=bits)
             cfg_cpu = dataclasses.replace(cfg_cpu, kv_int8=True)
             cfg_card = dataclasses.replace(cfg_card, kv_int8=True)
         else:
@@ -549,13 +775,56 @@ def check_card_vs_cpu(torch, dev):
             raise AssertionError(f"card logits bad: shape {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
         corr = float(np.corrcoef(got.flatten().numpy(), ref.flatten().numpy())[0, 1])
         need = 0.99 if bits else 0.999
-        tag = "int8" if bits else "bf16"
+        tag = {0: "bf16", 8: "int8", 4: "int4"}[bits]
         log(f"card vs cpu {tag}: correlation {corr:.6f} (need >= {need}), max|diff| {float((got - ref).abs().max()):.4g}")
         if not corr >= need:
             raise AssertionError(f"card vs cpu {tag}: correlation {corr} < {need}")
         res[tag] = corr
+        if bits == 4:
+            res["int4_window"] = check_window_card_vs_cpu(torch, cpu_model, card_model, cfg_cpu, cfg_card, mel, need)
         del cpu_model, card_model
         gc.collect()
+    return res
+
+
+def check_window_card_vs_cpu(torch, cpu_model, card_model, cfg_cpu, cfg_card, mel, need):
+    """decode_window at T = 0 on the int4 weights, card against CPU: the
+    long-form prompt buffer without timestamps (P = 226, sot sequence
+    [sot, no_timestamps]) with one bare and one conditioned prompt. The
+    no-speech probe logits (at sot) and the logits the first token is
+    sampled from (at no_timestamps) must correlate as the teacher-forced
+    ones do; the
+    no-speech probabilities (a softmax entry of the probe) are printed
+    beside each other and held to 25% of each other: in an f32 config K3
+    still rounds x and the weights to bf16, and the CPU's dequantize path
+    does not, so exact agreement is not expected."""
+    import numpy as np
+
+    from ssak_tpu_torch.models import whisper as W
+
+    sot_seq = [cfg_cpu.sot, cfg_cpu.no_timestamps]
+    P = cfg_cpu.n_text_ctx // 2 + len(sot_seq)
+    buf = np.full((2, P), cfg_cpu.eot, np.int32)
+    cond = [cfg_cpu.sot_prev] + list(np.random.RandomState(2).randint(0, cfg_cpu.eot, min(40, P - 3))) + sot_seq
+    buf[0, -2:] = sot_seq
+    buf[1, P - len(cond):] = cond
+    plen = np.array([2, len(cond)], np.int32)
+    out = {}
+    for where, model, cfg in (("cpu", cpu_model, cfg_cpu), ("card", card_model, cfg_card)):
+        m = mel.to(next(model.parameters()).device)
+        with torch.inference_mode():
+            last, probe = W.window_prompt_forward(model, m, buf, plen, cfg, len(sot_seq))[:2]
+        toks, lengths, lp, nsp = W.decode_window(model, m, buf, plen, cfg, sot_distance=len(sot_seq), max_tokens=4)
+        out[where] = (last.float().cpu(), probe.float().cpu(), nsp.float().cpu(), toks.cpu())
+    (lc, pc, nc, tc), (lg, pg, ng, tg) = out["cpu"], out["card"]
+    corr_first = float(np.corrcoef(lg.flatten().numpy(), lc.flatten().numpy())[0, 1])
+    corr_probe = float(np.corrcoef(pg.flatten().numpy(), pc.flatten().numpy())[0, 1])
+    nsp_rel = float(((ng - nc).abs() / nc.abs().clamp(min=1e-30)).max())
+    res = dict(first_step_correlation=corr_first, probe_correlation=corr_probe, no_speech_card=ng.tolist(),
+               no_speech_cpu=nc.tolist(), no_speech_rel=nsp_rel, tokens_card=tg.tolist(), tokens_cpu=tc.tolist())
+    log(f"card vs cpu int4 decode_window: {json.dumps(res)}")
+    if not (corr_first >= need and corr_probe >= need and nsp_rel <= 0.25 and torch.isfinite(lg).all()):
+        raise AssertionError(f"card vs cpu int4 decode_window out of tolerance: {res}")
     return res
 
 
@@ -656,23 +925,28 @@ def main():
 
     log("phase 2: kernels against their plain versions")
     k2_rows, k2_err = check_matmul_int8(torch, dev)
+    k3_rows, k3_err = check_matmul_int4(torch, dev)
     fd_rows = {v: check_flash_decode(torch, dev, v == "int8") for v in ("bf16", "int8")}
     k1_rows, k1_err = check_ctc_fused(torch, dev)
 
-    log("phase 3: seeded large-v3 greedy transcription (bf16, int8); wav2vec2-base CTC training")
+    log("phase 3: seeded large-v3 transcription (greedy bf16, int8, int4; int4 accurate; int4 long-form); "
+        "wav2vec2-base CTC training")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         ids = write_corpus(tmp)
-        slices = {r["config"]: r for r in (run_slice(torch, tmp, ids, 0), run_slice(torch, tmp, ids, 8))}
+        slices = {r["config"]: r for r in (run_slice(torch, tmp, ids, b) for b in (0, 8, 4))}
+        acc_dir = os.path.join(tmp, "accurate")
+        slices["int4_accurate"] = run_accurate(torch, acc_dir, write_corpus(acc_dir, ACC_FILES, ACC_SECONDS, seed=3))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    slices["int4_longform"] = run_longform(torch)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_ctc_")
     try:
         slices["ctc"] = run_ctc_slice(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    log("phase 4: card against CPU, large-v3 widths at 2+2 layers; wav2vec2 large widths at 2 layers")
+    log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 layers")
     corr = check_card_vs_cpu(torch, dev)
     train_parity = check_train_step_card_vs_cpu(torch, dev)
 
@@ -683,6 +957,9 @@ def main():
     specs = [
         ("matmul_int8", "ssak_tpu_torch/csrc/int8_matmul.cu", "ssak_tpu/ops/int8_matmul.py:45",
          k2_rows, k2_err, dict(M=24, K=1280, N=5120), slices["int8"]["launches"]["matmul_int8"]),
+        ("matmul_int4", "ssak_tpu_torch/csrc/int4_matmul.cu", "ssak_tpu/ops/int8_matmul.py:117",
+         k3_rows, k3_err, dict(M=32, K=1280, N=5120),
+         slices["int4_accurate"]["launches"]["matmul_int4"] + slices["int4_longform"]["launches"]["matmul_int4"]),
         ("flash_decode_bf16", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:38",
          *fd_rows["bf16"], dict(B=24, T=1500), slices["bf16"]["launches"]["flash_decode_bf16"]),
         ("flash_decode_int8", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:58",

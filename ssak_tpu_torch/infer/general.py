@@ -29,19 +29,20 @@ class LoadedModel:
 def load_model(model_dir, seeded_test_config: str = None, quantize_bits: int = 0, device=None) -> LoadedModel:
     """Seeded model (`seeded_test_config`: 'whisper' or 'whisper:<preset>')
     on `device` (default cuda; raises when there is none). quantize_bits=8
-    replaces the dense kernels by int8 QuantLinears on the device and turns
-    on the int8 K/V caches, as ssak_tpu's load_model does."""
+    or 4 replaces the dense kernels by int8 / int4 QuantLinears on the
+    device and turns on the int8 K/V caches, as ssak_tpu's load_model
+    does."""
     dev = resolve_device(device)
     if not seeded_test_config:
         raise NotImplementedError(f"{model_dir}: checkpoint loading is not ported yet; use seeded_test_config")
     model = _seeded_model(seeded_test_config, dev)
     if quantize_bits:
-        if quantize_bits != 8:
-            raise NotImplementedError(f"{quantize_bits}-bit weights are not ported yet (int4 comes with its kernel)")
+        if quantize_bits not in (4, 8):
+            raise ValueError(f"quantize_bits must be 4 or 8, got {quantize_bits}")
         from ssak_tpu_torch.models.quant import quantize_params
 
         quantize_params(model.module, bits=quantize_bits)
-        # int8 K/V caches ride along with int8 weights (ssak_tpu infer/general.py)
+        # int8 K/V caches ride along with int8 and int4 weights (ssak_tpu infer/general.py)
         model.cfg = dataclasses.replace(model.cfg, kv_int8=True)
     return model
 
@@ -63,7 +64,7 @@ def _seeded_model(kind: str, device) -> LoadedModel:
 
 def from_tree(params, cfg, device=None) -> LoadedModel:
     """LoadedModel from an ssak_tpu Whisper parameter tree (numpy leaves;
-    float or int8-quantized) and its config (models.whisper.WhisperConfig),
+    float, int8- or int4-quantized) and its config (models.whisper.WhisperConfig),
     on `device` (default cuda; raises when there is none)."""
     from ssak_tpu_torch.models.convert import whisper_from_tree
 

@@ -6,8 +6,8 @@ checkpoint — and builds a `WhisperModel` or `Wav2Vec2Model`; a wav2vec2
 model also goes back to such a tree (`wav2vec2_to_tree`), which is how
 training checkpoints keep ssak_tpu's layout. Dense kernels (in, out) become torch-layout
 (out, in) weights, conv kernels (K, Cin, Cout) become (Cout, Cin, K);
-int8 leaves {"q8", "scale"} are carried as they are (QuantLinear keeps
-ssak_tpu's (in, out) layout).
+quantized leaves, int8 {"q8", "scale"} and int4 {"q4", "scale"}, are
+carried as they are (QuantLinear keeps ssak_tpu's (in, out) layout).
 """
 
 import numpy as np
@@ -27,9 +27,8 @@ def linear_from_tree(p, device) -> torch.nn.Module:
     bias = p.get("bias")
     bias = None if bias is None else _t(bias, device)
     if isinstance(k, dict):
-        if "q8" not in k:
-            raise NotImplementedError("only int8 quantized leaves are ported (int4 comes with its kernel)")
-        return L.QuantLinear(_t(k["q8"], device).contiguous(), _t(k["scale"], device), bias)
+        q = k["q8"] if "q8" in k else k["q4"]
+        return L.QuantLinear(_t(q, device).contiguous(), _t(k["scale"], device).contiguous(), bias)
     return L.Linear(_t(np.asarray(k).T, device), bias)
 
 

@@ -30,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ssak_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_supported
-from ssak_tpu_torch.ops.int8_matmul import int8_dense_supported, matmul_int8
+from ssak_tpu_torch.ops.int8_matmul import int4_dense_supported, int8_dense_supported, matmul_int4, matmul_int8
 
 _NEG = -1e30
 
@@ -52,15 +52,22 @@ class Linear(nn.Module):
 
 
 class QuantLinear(nn.Module):
-    """Weight-only int8 dense layer: q8 int8 (in, out) and scale f32
-    (1, out) buffers in ssak_tpu's layout (the kernel reads q8 along out),
-    optional float bias (out,)."""
+    """Weight-only quantized dense layer in ssak_tpu's layout (the kernels
+    read the payload along out), optional float bias (out,). int8: buffers
+    q8 int8 (in, out) and scale f32 (1, out); int4: q4 int8 (in/2, out) of
+    packed nibbles and scale f32 (nb, 1, out). The scale's rank picks the
+    kind (models.quant)."""
 
-    def __init__(self, q8, scale, bias=None):
+    def __init__(self, q, scale, bias=None):
         super().__init__()
-        self.register_buffer("q8", q8)
+        self.bits = 4 if scale.ndim == 3 else 8
+        self.register_buffer("q4" if self.bits == 4 else "q8", q)
         self.register_buffer("scale", scale)
         self.bias = None if bias is None else _param(bias)
+
+    @property
+    def payload(self):
+        return self.q4 if self.bits == 4 else self.q8
 
 
 class LayerNorm(nn.Module):
@@ -131,14 +138,20 @@ def group_norm(x, p, num_groups: int, eps: float = 1e-5):
 def dense(x, p, dtype=None):
     """Linear or QuantLinear layer. With `dtype` the product runs and
     returns in that dtype; the bias is added to the f32 result. A
-    QuantLinear on a decode-shaped CUDA activation goes through the fused
-    int8 kernel (K2); elsewhere its weight is dequantized first."""
+    QuantLinear on a decode-shaped CUDA activation goes through its fused
+    kernel (K2 for int8, K3 for int4); elsewhere its weight is dequantized
+    first, as ssak_tpu does off the TPU."""
     y = None
     if isinstance(p, QuantLinear):
-        if int8_dense_supported(x, p.q8):
+        kernel = None
+        if p.bits == 8 and int8_dense_supported(x, p.q8):
+            kernel = matmul_int8
+        elif p.bits == 4 and int4_dense_supported(x, p.q4, p.scale):
+            kernel = matmul_int4
+        if kernel is not None:
             if dtype is not None:
                 x = x.to(dtype)
-            y = matmul_int8(x.reshape(-1, x.shape[-1]), p.q8, p.scale).reshape(*x.shape[:-1], -1)
+            y = kernel(x.reshape(-1, x.shape[-1]), p.payload, p.scale).reshape(*x.shape[:-1], -1)
         else:
             from ssak_tpu_torch.models.quant import dequantize_kernel
 

@@ -1,11 +1,17 @@
-"""Weight-only int8 quantization (counterpart of the int8 half of
-ssak_tpu.models.quant).
+"""Weight-only int8 / int4 quantization (counterpart of
+ssak_tpu.models.quant: quantize_kernel, dequantize_kernel,
+quantize_params, quantized_bytes).
 
-A quantized dense layer is a `layers.QuantLinear` holding `q8` int8
-(d_in, d_out) and `scale` f32 (1, d_out): symmetric per-output-channel
-scales, the same values as the numpy original bit for bit (f32 division,
-round-half-to-even, clip to [-127, 127]). Quantization runs on whatever
-device the weights are on. The int4 half comes with its kernel (K3).
+A quantized dense layer is a `layers.QuantLinear` holding ssak_tpu's
+payload, bit for bit the numpy original's (f32 division,
+round-half-to-even, clip):
+  - int8: `q8` int8 (d_in, d_out) and `scale` f32 (1, d_out), symmetric
+    per-output-channel scales, values in [-127, 127];
+  - int4: `q4` int8 (d_in/2, d_out), two rows per byte (low nibble = row
+    2r, high nibble = row 2r+1), and `scale` f32 (nb, 1, d_out), one scale
+    per block of d_in/nb input rows and output channel, values in [-7, 7].
+The scale's rank tells the two apart. Quantization runs on whatever device
+the weights are on.
 """
 
 import re
@@ -14,23 +20,66 @@ import torch
 
 DEFAULT_TARGETS = r"/kernel$"
 MIN_SIZE = 64 * 64
+INT4_BLOCK = 64
 
 
 def quantize_kernel(w, bits: int = 8):
-    """w: (d_in, d_out) float tensor -> (q8 int8 (d_in, d_out) contiguous,
-    scale f32 (1, d_out))."""
-    if bits != 8:
-        raise NotImplementedError(f"{bits}-bit quantization is not ported yet (int4 comes with its kernel)")
+    """w: (d_in, d_out) float tensor -> (payload, scale): (q8 (d_in, d_out),
+    scale (1, d_out)) for bits=8; (q4 (d_in/2, d_out), scale (nb, 1, d_out))
+    for bits=4, where the block of INT4_BLOCK rows halves until it divides
+    d_in, and an odd d_in falls back to int8. Payloads are int8 and
+    contiguous."""
     w = w.to(torch.float32)
-    scale = torch.amax(torch.abs(w), dim=0, keepdim=True) / 127.0
+    d_in, d_out = w.shape
+    if bits == 8:
+        scale = torch.amax(torch.abs(w), dim=0, keepdim=True) / 127.0
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        return q.contiguous(), scale
+    if bits != 4:
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    b = INT4_BLOCK
+    while b > 2 and d_in % b:
+        b //= 2
+    if d_in % b:
+        return quantize_kernel(w, bits=8)  # odd d_in: int8 fallback
+    nb = d_in // b
+    wb = w.reshape(nb, b, d_out)
+    scale = torch.amax(torch.abs(wb), dim=1, keepdim=True) / 7.0  # (nb, 1, d_out)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    return q.contiguous(), scale
+    q = torch.clamp(torch.round(wb / scale), -7, 7).to(torch.int8).reshape(d_in, d_out)
+    packed = (q[0::2] & 0x0F) | (q[1::2] << 4)  # int8 arithmetic wraps as numpy's does
+    return packed.contiguous(), scale
+
+
+def unpack_int4(q4):
+    """(d_in/2, d_out) packed nibbles -> (d_in, d_out) int32 values in
+    [-8, 7], rows interleaved back (sign extension on int32, as the
+    kernel does: low = (v << 28) >> 28, high = v >> 4)."""
+    v = q4.to(torch.int32)
+    low = torch.bitwise_right_shift(torch.bitwise_left_shift(v, 28), 28)
+    high = torch.bitwise_right_shift(v, 4)
+    return torch.stack([low, high], dim=1).reshape(2 * q4.shape[0], q4.shape[1])
+
+
+def dequantize_int4(q4, scale, dtype=torch.bfloat16):
+    """q4 (d_in/2, d_out) packed nibbles, scale (nb, 1, d_out) or
+    (nb, d_out) f32 -> (d_in, d_out) in `dtype`: each value times its block
+    scale in f32, rounded once."""
+    q = unpack_int4(q4)
+    rows, d_out = q.shape
+    nb = scale.shape[0]
+    w = q.reshape(nb, rows // nb, d_out).to(torch.float32) * scale.reshape(nb, 1, d_out).to(torch.float32)
+    return w.reshape(rows, d_out).to(dtype)
 
 
 def dequantize_kernel(qd, dtype=torch.bfloat16):
-    """QuantLinear (or anything with q8/scale) -> dense (d_in, d_out)."""
-    return (qd.q8.to(torch.float32) * qd.scale).to(dtype)
+    """QuantLinear (anything with q8 or q4, and scale) -> dense (d_in, d_out)
+    in `dtype`: the values times their scale in f32, then rounded once."""
+    q8 = getattr(qd, "q8", None)
+    if q8 is not None:
+        return (q8.to(torch.float32) * qd.scale).to(dtype)
+    return dequantize_int4(qd.q4, qd.scale, dtype)
 
 
 def quantize_params(module, bits: int = 8, targets: str = DEFAULT_TARGETS, min_size: int = MIN_SIZE):
@@ -50,6 +99,21 @@ def quantize_params(module, bits: int = 8, targets: str = DEFAULT_TARGETS, min_s
         parent_name, _, attr = name.rpartition(".")
         parent = module.get_submodule(parent_name) if parent_name else module
         lin = getattr(parent, attr)
-        q8, scale = quantize_kernel(lin.weight.t(), bits=bits)
-        setattr(parent, attr, QuantLinear(q8, scale, lin.bias))
+        q, scale = quantize_kernel(lin.weight.t(), bits=bits)
+        setattr(parent, attr, QuantLinear(q, scale, lin.bias))
     return module
+
+
+def quantized_bytes(module) -> tuple:
+    """(quantized bytes, the same weights' bytes in bf16) over the
+    QuantLinears of `module`: an int8 value is 1 byte (2 in bf16), a packed
+    int4 byte holds two weights (4 bytes in bf16)."""
+    from ssak_tpu_torch.models.layers import QuantLinear
+
+    qb = db = 0
+    for sub in module.modules():
+        if isinstance(sub, QuantLinear):
+            n = sub.payload.numel()
+            qb += n
+            db += n * (2 if sub.bits == 8 else 4)
+    return qb, db

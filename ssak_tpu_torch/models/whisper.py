@@ -1,17 +1,27 @@
 """Whisper encoder-decoder in PyTorch (counterpart of ssak_tpu.models.whisper):
-the greedy serving path.
+the serving path.
 
 `WhisperModel` holds the weights as `nn.Module`s; `encode`,
-`precompute_cross_kv`, `init_cache`, `_decode_step` and `greedy_decode`
-are plain functions that follow the JAX ones step by step. The token loop
-is a Python loop over preallocated caches (B, H, Dh, n_text_ctx), written
-in place; it runs the whole budget with no host synchronization, as the
-JAX lax.scan does, and pads finished rows with eot.
+`precompute_cross_kv`, `init_cache`, `_decode_step`, `greedy_decode` and
+the decode family of the accurate and long-form paths (`_tile_rows`,
+`_best_of_select`, `sample_decode`, `beam_decode`, `_decode_step_padded`,
+`_apply_decode_rules`, `decode_window`) are plain functions that follow the
+JAX ones step by step. Each token loop is a Python loop over preallocated
+caches (B, H, Dh, n_text_ctx), written in place; it runs the whole budget
+with no host synchronization, as the JAX lax.scan does, and pads finished
+rows with eot.
+
+Sampling is Gumbel-max over logits / T, as `jax.random.categorical` is,
+with noise from a `torch.Generator` on the model's device seeded by the
+integer that seeds JAX's key; the two generators give different bits, so
+at T > 0 only the distribution is shared. Layer-stacked decoders
+(`stack_decoder_blocks`, SSAK_SCAN_LAYERS) are not ported.
 """
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -213,24 +223,49 @@ def init_cache(cfg: WhisperConfig, batch: int, device=None):
     return [empty() for _ in range(cfg.n_text_layer)]
 
 
+DECODE_STEPS = {"n": 0}  # cached decoder steps run (each runs every decoder layer once)
+
+
+def _step(model: WhisperModel, token, pos_emb, attn_bounds, cache_index: int, caches, cross_kvs, cfg: WhisperConfig):
+    """One cached decoder step over all layers: token (B, 1) int64 plus its
+    positional embedding, self-attention over attn_bounds = (lo, hi) (B,)
+    int32 with this step's K/V written at cache_index."""
+    dt = cfg.compute_dtype
+    dec = model.decoder
+    B = token.shape[0]
+    x = dec.token_embedding[token] + pos_emb
+    zero = torch.zeros((B,), dtype=torch.int32, device=token.device)
+    T_audio = (cross_kvs[0]["k8"] if cfg.kv_int8 else cross_kvs[0]["k"]).shape[-1]
+    cross_bounds = (zero, torch.full((B,), T_audio - 1, dtype=torch.int32, device=token.device))
+    for blk, cache, cross_kv in zip(dec.blocks, caches, cross_kvs):
+        x = _decode_layer(blk, cache, cross_kv, x, attn_bounds, cross_bounds, cache_index, cfg)
+    x = L.layer_norm(x, dec.ln)
+    logits = torch.matmul(x.to(dt), dec.token_embedding.t().to(dt)).to(torch.float32)
+    DECODE_STEPS["n"] += 1
+    return logits[:, 0], caches
+
+
 def _decode_step(model: WhisperModel, token, pos: int, caches, cross_kvs, cfg: WhisperConfig):
     """One cached decoder step. token: (B, 1) int64; pos: the position
     written. The caches are updated in place. Returns (logits (B, V) f32,
     caches)."""
-    dt = cfg.compute_dtype
-    dec = model.decoder
     B = token.shape[0]
-    dev = token.device
-    x = dec.token_embedding[token] + dec.positional_embedding[pos : pos + 1]
-    zero = torch.zeros((B,), dtype=torch.int32, device=dev)
-    attn_bounds = (zero, torch.full((B,), pos, dtype=torch.int32, device=dev))
-    T_audio = (cross_kvs[0]["k8"] if cfg.kv_int8 else cross_kvs[0]["k"]).shape[-1]
-    cross_bounds = (zero, torch.full((B,), T_audio - 1, dtype=torch.int32, device=dev))
-    for blk, cache, cross_kv in zip(dec.blocks, caches, cross_kvs):
-        x = _decode_layer(blk, cache, cross_kv, x, attn_bounds, cross_bounds, pos, cfg)
-    x = L.layer_norm(x, dec.ln)
-    logits = torch.matmul(x.to(dt), dec.token_embedding.t().to(dt)).to(torch.float32)
-    return logits[:, 0], caches
+    zero = torch.zeros((B,), dtype=torch.int32, device=token.device)
+    bounds = (zero, torch.full((B,), pos, dtype=torch.int32, device=token.device))
+    return _step(model, token, model.decoder.positional_embedding[pos : pos + 1], bounds, pos, caches, cross_kvs, cfg)
+
+
+def _prompt_forward(model, mel, cfg: WhisperConfig, prompt):
+    """Encoder, cross K/V and the prompt teacher-forced through fresh
+    caches: (last logits (B, V), caches, cross_kvs)."""
+    B = mel.shape[0]
+    cross_kvs = precompute_cross_kv(model, encode(model, mel, cfg), cfg)
+    caches = init_cache(cfg, B, device=mel.device)
+    logits = None
+    for i, tok in enumerate(prompt):
+        token = torch.full((B, 1), int(tok), dtype=torch.int64, device=mel.device)
+        logits, caches = _decode_step(model, token, i, caches, cross_kvs, cfg)
+    return logits, caches, cross_kvs
 
 
 @torch.inference_mode()
@@ -242,15 +277,7 @@ def greedy_decode(model: WhisperModel, mel, cfg: WhisperConfig, prompt, max_toke
     B = mel.shape[0]
     dev = mel.device
     max_tokens = max_tokens or (cfg.n_text_ctx - len(prompt) - 1)
-    audio_features = encode(model, mel, cfg)
-    cross_kvs = precompute_cross_kv(model, audio_features, cfg)
-    caches = init_cache(cfg, B, device=dev)
-
-    logits = None
-    for i, tok in enumerate(prompt):
-        token = torch.full((B, 1), int(tok), dtype=torch.int64, device=dev)
-        logits, caches = _decode_step(model, token, i, caches, cross_kvs, cfg)
-
+    logits, caches, cross_kvs = _prompt_forward(model, mel, cfg, prompt)
     tokens = torch.empty((B, max_tokens), dtype=torch.int64, device=dev)
     nxt = torch.argmax(logits, dim=-1)
     done = nxt == cfg.eot
@@ -262,3 +289,270 @@ def greedy_decode(model: WhisperModel, mel, cfg: WhisperConfig, prompt, max_toke
         tokens[:, i] = nxt
     lengths = torch.sum(tokens != cfg.eot, dim=1)
     return tokens, lengths
+
+
+# --- beam search, sampling, best-of (the accurate chain) ---------------------
+
+
+def _tile_rows(tree, n: int):
+    """Repeat every row n times along the batch axis (row b -> rows
+    b*n..b*n+n-1): a tensor, or a list of per-layer cache dicts."""
+    if torch.is_tensor(tree):
+        return tree.repeat_interleave(n, dim=0)
+    return [{k: v.repeat_interleave(n, dim=0) for k, v in c.items()} for c in tree]
+
+
+def _best_of_select(tokens, lengths, sum_logprob, B: int, best_of: int):
+    """(B*best_of, ...) candidates -> per-utterance best by average log
+    probability, sum_logprob / (length + 1); ties go to the lower index."""
+    avg = sum_logprob.reshape(B, best_of) / (lengths.reshape(B, best_of).to(torch.float32) + 1.0)
+    rows = torch.arange(B, device=tokens.device) * best_of + torch.argmax(avg, dim=1)
+    return tokens[rows], lengths[rows], sum_logprob[rows]
+
+
+def _generator(seed: int, device):
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _pick(logits, temperature: float, generator):
+    """Next token and its log probability under log_softmax(logits).
+    T > 0: Gumbel-max over logits / T (a draw from softmax(logits / T), as
+    jax.random.categorical); T = 0: argmax."""
+    logp = torch.log_softmax(logits, dim=-1)
+    if temperature > 0:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+        gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+        tok = torch.argmax(logits / temperature + gumbel, dim=-1)
+    else:
+        tok = torch.argmax(logits, dim=-1)
+    return tok, torch.gather(logp, 1, tok[:, None])[:, 0]
+
+
+@torch.inference_mode()
+def sample_decode(model: WhisperModel, mel, cfg: WhisperConfig, prompt, seed: int = 0, temperature: float = 1.0,
+                  max_tokens: int = None, best_of: int = 1):
+    """Temperature sampling decode (the fallback chain's T > 0 decoder;
+    argmax at T = 0). best_of > 1 draws that many candidates per utterance
+    and keeps the one of highest average log probability; the encoder and
+    the prompt run once per utterance, only the sampling loop is tiled to
+    B*best_of rows. `seed` seeds the sampler's torch.Generator. Returns
+    (tokens (B, max_tokens), lengths (B,), sum_logprob (B,))."""
+    B = mel.shape[0]
+    max_tokens = max_tokens or (cfg.n_text_ctx - len(prompt) - 1)
+    logits, caches, cross_kvs = _prompt_forward(model, mel, cfg, prompt)
+    n = best_of if temperature > 0 else 1
+    if n > 1:
+        logits, caches, cross_kvs = _tile_rows(logits, n), _tile_rows(caches, n), _tile_rows(cross_kvs, n)
+    gen = _generator(seed, mel.device) if temperature > 0 else None
+    tok, acc = _pick(logits, temperature, gen)
+    done = tok == cfg.eot
+    tokens = torch.empty((B * n, max_tokens), dtype=torch.int64, device=mel.device)
+    tokens[:, 0] = tok
+    for i in range(1, max_tokens):
+        logits, caches = _decode_step(model, tok[:, None], len(prompt) + i - 1, caches, cross_kvs, cfg)
+        nxt, lp = _pick(logits, temperature, gen)
+        tok = torch.where(done, cfg.eot, nxt)
+        acc = acc + torch.where(done, 0.0, lp)
+        done = done | (tok == cfg.eot)
+        tokens[:, i] = tok
+    lengths = torch.sum(tokens != cfg.eot, dim=1)
+    if n > 1:
+        return _best_of_select(tokens, lengths, acc, B, n)
+    return tokens, lengths, acc
+
+
+def _top_k(x, k: int):
+    """Top k along the last axis, descending, ties to the lower index (as
+    jax.lax.top_k): a stable sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _reorder_caches_(caches, rows):
+    """caches[i][key] = caches[i][key][rows], written in place."""
+    for c in caches:
+        for t in c.values():
+            t.copy_(t.index_select(0, rows))
+
+
+@torch.inference_mode()
+def beam_decode(model: WhisperModel, mel, cfg: WhisperConfig, prompt, beam_size: int = 5, max_tokens: int = None,
+                length_penalty: float = None):
+    """Batched beam search, beams folded into the batch (B*K rows). The
+    encoder and the prompt run on B rows and their state is tiled to the
+    beams (the same values as running them on B*K copies). Finished beams
+    extend only with eot at no cost; the best beam is chosen by score /
+    (length + 1), or the length penalty. Returns the best beam per
+    utterance: (tokens (B, max_tokens), lengths (B,), scores (B,))."""
+    B, K = mel.shape[0], beam_size
+    dev = mel.device
+    max_tokens = max_tokens or (cfg.n_text_ctx - len(prompt) - 1)
+    logits, caches, cross_kvs = _prompt_forward(model, mel, cfg, prompt)
+    caches, cross_kvs = _tile_rows(caches, K), _tile_rows(cross_kvs, K)
+    V = logits.shape[-1]
+    scores, first = _top_k(torch.log_softmax(logits, dim=-1), K)  # (B, K): only beam 0 is live
+    hist = torch.full((B, K, max_tokens), cfg.eot, dtype=torch.int64, device=dev)
+    hist[:, :, 0] = first
+    finished = first == cfg.eot
+    eot_only = torch.where(torch.arange(V, device=dev) == cfg.eot, 0.0, L._NEG)
+    base = (torch.arange(B, device=dev) * K)[:, None]
+    for i in range(1, max_tokens):
+        token = hist[:, :, i - 1].reshape(B * K, 1)
+        logits, caches = _decode_step(model, token, len(prompt) + i - 1, caches, cross_kvs, cfg)
+        logp = torch.log_softmax(logits.reshape(B, K, V), dim=-1)
+        logp = torch.where(finished[..., None], eot_only, logp)
+        scores, idx = _top_k((scores[..., None] + logp).reshape(B, K * V), K)
+        src = idx // V
+        new_tok = idx % V
+        hist = torch.gather(hist, 1, src[..., None].expand(B, K, max_tokens))
+        hist[:, :, i] = new_tok
+        finished = torch.gather(finished, 1, src) | (new_tok == cfg.eot)
+        _reorder_caches_(caches, (src + base).reshape(-1))
+    lengths = torch.sum(hist != cfg.eot, dim=2)  # (B, K)
+    lf = lengths.to(torch.float32)
+    norm = lf + 1.0 if length_penalty is None else ((5.0 + lf) / 6.0) ** length_penalty
+    best = torch.argmax(scores / norm, dim=1)
+    rows = torch.arange(B, device=dev)
+    return hist[rows, best], lengths[rows, best], scores[rows, best]
+
+
+# --- long-form window decode (openai-whisper transcribe-loop semantics) ----
+
+
+def _decode_step_padded(model: WhisperModel, token, pos_idx, slot: int, pad_len, caches, cross_kvs, cfg: WhisperConfig):
+    """Cached decoder step with per-row positions and left padding: token
+    (B, 1) is written at cache slot `slot`; its positional-embedding index
+    is pos_idx (B,) (slot - pad_len, clipped to the table); attention skips
+    the pad_len (B,) unused left slots."""
+    B = token.shape[0]
+    pos_emb = model.decoder.positional_embedding[torch.clamp(pos_idx, 0, cfg.n_text_ctx - 1)][:, None, :]
+    bounds = (pad_len.to(torch.int32), torch.full((B,), slot, dtype=torch.int32, device=token.device))
+    return _step(model, token, pos_emb, bounds, slot, caches, cross_kvs, cfg)
+
+
+def _apply_decode_rules(logits, cfg: WhisperConfig, *, with_timestamps: bool, is_first: bool,
+                        last_was_ts=None, penult_was_ts=None, max_ts=None, max_initial_timestamp_index: int = 50):
+    """openai-whisper's logit filters (SuppressTokens + ApplyTimestampRules)
+    per row. The state arguments are (B,) tensors; the flags are Python
+    booleans. Returns new logits."""
+    V = logits.shape[-1]
+    ids = torch.arange(V, device=logits.device)
+    neg = L._NEG
+    logits = logits.clone()
+    for t in (cfg.sot, cfg.sot_prev, cfg.no_speech, cfg.no_timestamps):
+        if t < V:
+            logits[:, t] = neg
+    is_ts = ids >= cfg.timestamp_begin
+    if not with_timestamps:
+        return torch.where(is_ts[None, :], neg, logits)
+    text_tok = ~is_ts & (ids != cfg.eot)
+    if is_first:
+        # the first sampled token is a timestamp, at most max_initial_timestamp_index
+        logits = torch.where(~is_ts[None, :], neg, logits)
+        logits = torch.where(ids[None, :] > cfg.timestamp_begin + max_initial_timestamp_index, neg, logits)
+    else:
+        # timestamps come in pairs: after <ts><ts> text; after one <ts>, a timestamp or eot
+        pair_done = last_was_ts & penult_was_ts
+        pair_open = last_was_ts & ~penult_was_ts
+        logits = torch.where(pair_done[:, None] & is_ts[None, :], neg, logits)
+        logits = torch.where(pair_open[:, None] & text_tok[None, :], neg, logits)
+        # monotonic: a closing timestamp may equal the opening one, others increase
+        min_allowed = max_ts + torch.where(pair_open, 0, 1)
+        ts_offset = ids - cfg.timestamp_begin
+        logits = torch.where(is_ts[None, :] & (ts_offset[None, :] < min_allowed[:, None]), neg, logits)
+    # when the timestamps together outweigh every single text token, sample a timestamp
+    logp = torch.log_softmax(logits, dim=-1)
+    ts_logprob = torch.logsumexp(torch.where(is_ts[None, :], logp, neg), dim=-1)
+    max_text = torch.amax(torch.where(is_ts[None, :], neg, logp), dim=-1)
+    force_ts = ts_logprob > max_text
+    return torch.where(force_ts[:, None] & ~is_ts[None, :], neg, logits)
+
+
+def host_array(a) -> np.ndarray:
+    """A host array of `a` (numpy, list or tensor; a device tensor is copied)."""
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def window_prompt_forward(model: WhisperModel, mel, prompt, prompt_len, cfg: WhisperConfig, sot_distance: int):
+    """The teacher-forced half of decode_window: encoder, cross K/V and the
+    right-aligned prompt buffer (B, P) through fresh caches. Returns
+    (last logits (B, V), no-speech probe logits (B, V), pad_len (B,) on
+    the device, caches, cross_kvs).
+
+    Slots j < pad_len[b] are inert for row b (their queries see an empty
+    range, their K/V are never attended, their logits never read), so the
+    loop starts at the smallest pad_len of the batch: the same function as
+    running every slot, without paying for the padding."""
+    dev = mel.device
+    prompt = torch.as_tensor(host_array(prompt), device=dev).to(torch.int64)
+    B, P = prompt.shape
+    pad_host = P - host_array(prompt_len).astype(np.int64).reshape(B)
+    pad_len = torch.as_tensor(pad_host, dtype=torch.int32).to(dev)
+    cross_kvs = precompute_cross_kv(model, encode(model, mel, cfg), cfg)
+    caches = init_cache(cfg, B, device=dev)
+    sot_slot = P - sot_distance
+    probe = logits = None
+    for j in range(min(int(pad_host.min()), sot_slot, P - 1), P):
+        logits, caches = _decode_step_padded(model, prompt[:, j : j + 1], j - pad_len, j, pad_len, caches, cross_kvs, cfg)
+        if j == sot_slot:
+            probe = logits
+    return logits, probe, pad_len, caches, cross_kvs
+
+
+@torch.inference_mode()
+def decode_window(model: WhisperModel, mel, prompt, prompt_len, cfg: WhisperConfig, *, sot_distance: int,
+                  max_tokens: int, with_timestamps: bool = False, temperature: float = 0.0, seed: int = 0,
+                  max_initial_timestamp_index: int = 50, best_of: int = 1):
+    """One 30 s window of the long-form loop, on the device.
+
+    mel: (B, n_mels, T). prompt: (B, P) ints (array or tensor), RIGHT-aligned (slots
+    [P - prompt_len[b], P) hold [<sot_prev> previous text...] + the sot
+    sequence; the left slots are padding). prompt_len: (B,) host ints.
+    sot_distance: the sot token's distance from the buffer end (=
+    len(sot_sequence)); its logits give the no-speech probability. At T > 0
+    best_of candidates are sampled per row (seeded by `seed`) and the best
+    kept; the probe stays per utterance.
+
+    Returns (tokens (B, max_tokens), lengths, sum_logprob, no_speech_prob):
+    the generated ids (timestamps included when with_timestamps),
+    eot-padded."""
+    B, P = prompt.shape
+    if P + max_tokens > cfg.n_text_ctx:
+        raise ValueError(f"prompt buffer {P} + budget {max_tokens} exceeds the text context {cfg.n_text_ctx}")
+    last, probe, pad_len, caches, cross_kvs = window_prompt_forward(model, mel, prompt, prompt_len, cfg, sot_distance)
+    no_speech_prob = torch.softmax(probe, dim=-1)[:, cfg.no_speech]
+    n = best_of if temperature > 0 else 1
+    if n > 1:
+        caches, cross_kvs = _tile_rows(caches, n), _tile_rows(cross_kvs, n)
+        last, pad_len = _tile_rows(last, n), _tile_rows(pad_len, n)
+    gen = _generator(seed, mel.device) if temperature > 0 else None
+    ts0 = cfg.timestamp_begin
+    first_logits = _apply_decode_rules(last, cfg, with_timestamps=with_timestamps, is_first=True,
+                                       max_initial_timestamp_index=max_initial_timestamp_index)
+    tok, acc = _pick(first_logits, temperature, gen)
+    done = tok == cfg.eot
+    # with fewer than two sampled tokens the penultimate counts as a
+    # timestamp, so the token right after the initial <ts> is text
+    last_was_ts = (tok >= ts0) & ~done
+    penult_was_ts = torch.ones_like(done)
+    max_ts = torch.where(last_was_ts, tok - ts0, 0)
+    tokens = torch.empty((B * n, max_tokens), dtype=torch.int64, device=mel.device)
+    tokens[:, 0] = tok
+    for i in range(1, max_tokens):
+        slot = P + i - 1
+        logits, caches = _decode_step_padded(model, tok[:, None], slot - pad_len, slot, pad_len, caches, cross_kvs, cfg)
+        logits = _apply_decode_rules(logits, cfg, with_timestamps=with_timestamps, is_first=False,
+                                     last_was_ts=last_was_ts, penult_was_ts=penult_was_ts, max_ts=max_ts)
+        nxt, lp = _pick(logits, temperature, gen)
+        tok = torch.where(done, cfg.eot, nxt)
+        acc = acc + torch.where(done, 0.0, lp)
+        tok_is_ts = (tok >= ts0) & ~done
+        penult_was_ts = last_was_ts & ~done
+        last_was_ts = tok_is_ts
+        max_ts = torch.where(tok_is_ts, tok - ts0, max_ts)
+        done = done | (tok == cfg.eot)
+        tokens[:, i] = tok
+    lengths = torch.sum(tokens != cfg.eot, dim=1)
+    if n > 1:
+        tokens, lengths, acc = _best_of_select(tokens, lengths, acc, B, n)
+    return tokens, lengths, acc, no_speech_prob

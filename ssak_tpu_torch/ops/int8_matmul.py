@@ -1,12 +1,15 @@
-"""Fused int8-weight dequantize-matmul (kernel K2) for the decode loop.
+"""Fused dequantize-matmuls for the decode loop: int8 weights (kernel K2)
+and packed int4 weights (kernel K3).
 
-Counterpart of ssak_tpu.ops.int8_matmul.matmul_int8. Decode re-reads every
-decoder weight each token step; with weight-only int8 (models.quant) the
-kernel streams the int8 bytes and widens them on chip, so the weight
-traffic is one byte per parameter. The CUDA kernel is
-`csrc/int8_matmul.cu` (its header says what bounds it and how it is laid
-out); `matmul_int8_reference` is the plain PyTorch version of the same
-function, used for CPU tensors and by the on-card comparison.
+Counterpart of ssak_tpu.ops.int8_matmul (matmul_int8, matmul_int4,
+int8_dense_supported, int4_dense_supported). Decode re-reads every decoder
+weight each token step; with weight-only quantization (models.quant) the
+kernels stream the quantized bytes and widen them on chip, so the weight
+traffic is one byte (int8) or half a byte (int4) per parameter. The CUDA
+kernels are `csrc/int8_matmul.cu` and `csrc/int4_matmul.cu` (their headers
+say what bounds them and how they are laid out); `matmul_int8_reference`
+and `matmul_int4_reference` are the plain PyTorch versions of the same
+functions, used for CPU tensors and by the on-card comparison.
 """
 
 import ctypes
@@ -15,9 +18,10 @@ import torch
 
 from ssak_tpu_torch.ops import _build
 
-LAUNCHES = {"matmul_int8": 0}  # kernel launches, counted by the wrapper
+LAUNCHES = {"matmul_int8": 0, "matmul_int4": 0}  # kernel launches, counted by the wrappers
 MAX_M = 64
-_fn = None
+INT4_SUB = 32  # packed int4 rows per scale block (models.quant INT4_BLOCK // 2)
+_fns = {}
 
 
 def matmul_int8_reference(x, q8, scale):
@@ -30,14 +34,17 @@ def matmul_int8_reference(x, q8, scale):
     return torch.matmul(xb, wb) * scale.to(torch.float32).reshape(1, -1)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library("int8_matmul").ssak_int8_matmul
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def _kernel(name):
+    if name not in _fns:
+        if name == "int8":
+            fn = _build.library("int8_matmul").ssak_int8_matmul
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        else:
+            fn = _build.library("int4_matmul").ssak_int4_matmul
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def matmul_int8(x, q8, scale):
@@ -70,7 +77,7 @@ def matmul_int8(x, q8, scale):
     if xb.data_ptr() % 16:  # the kernel reads x in 16-byte words
         xb = xb.clone()
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    rc = _kernel()(xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
+    rc = _kernel("int8")(xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
                    _build.stream_ptr(x.device))
     _build.check(rc, "matmul_int8")
     LAUNCHES["matmul_int8"] += 1
@@ -86,6 +93,97 @@ def int8_dense_supported(x, q8) -> bool:
         return False
     K, N = q8.shape
     if K % 128 or N % 128:
+        return False
+    if x.ndim == 2:
+        return x.shape[0] <= MAX_M
+    return x.ndim == 3 and x.shape[1] == 1 and x.shape[0] <= MAX_M
+
+
+# --- int4: fused unpack-dequantize-matmul (K3) --------------------------------
+
+INT4_BN = 128  # output columns per block (csrc/int4_matmul.cu)
+INT4_KC = 16  # packed rows per K chunk (32 weight rows, half a scale block)
+INT4_TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
+
+
+def matmul_int4_reference(x, q4, scale):
+    """Plain version of the Pallas body as the TPU runs it (cdt = bf16):
+    each weight is its nibble times its block scale in f32, rounded to
+    bf16; x is rounded to bf16; the products (exact in f32) are summed in
+    f32. x (M, K), q4 (K/2, N) packed int4, scale (K/64, N) or (K/64, 1, N)
+    f32 -> (M, N) f32."""
+    from ssak_tpu_torch.models.quant import dequantize_int4
+
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    return torch.matmul(xb, dequantize_int4(q4, scale, torch.bfloat16).to(torch.float32))
+
+
+def int4_split_plan(K2: int, N: int) -> tuple:
+    """(splits, chunks per split): the K ranges the kernel splits the
+    contraction into, enough blocks to fill the card (INT4_TARGET_BLOCKS),
+    every range non-empty. The kernel takes both as given."""
+    n_chunks = K2 // INT4_KC
+    tiles = -(-N // INT4_BN)
+    want = max(1, min(n_chunks, -(-INT4_TARGET_BLOCKS // tiles)))
+    per = -(-n_chunks // want)
+    return -(-n_chunks // per), per
+
+
+def matmul_int4(x, q4, scale):
+    """x: (M, K) float, q4: (K/2, N) int8 packed nibbles (models.quant
+    layout), scale: (K/64, 1, N) or (K/64, N) f32 -> (M, N) f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (1 <= M <= 64, K/2 == 32 * (K/64) scale blocks, N a multiple of 8,
+    q4/scale contiguous) or raise."""
+    if x.ndim != 2 or q4.ndim != 2 or x.shape[1] != 2 * q4.shape[0]:
+        raise ValueError(f"matmul_int4: bad shapes x={tuple(x.shape)} q4={tuple(q4.shape)}")
+    M, K = x.shape
+    K2, N = q4.shape
+    if scale.ndim not in (2, 3) or scale.shape[-1] != N or (scale.ndim == 3 and scale.shape[1] != 1):
+        raise ValueError(f"matmul_int4: scale must be (nb, N) or (nb, 1, N) with N={N}, got {tuple(scale.shape)}")
+    nb = scale.shape[0]
+    if K2 % nb:
+        raise ValueError(f"matmul_int4: {nb} scale blocks do not divide {K2} packed rows")
+    if q4.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"matmul_int4: q4 must be int8 and scale f32, got {q4.dtype}, {scale.dtype}")
+    devices = {x.device, q4.device, scale.device}
+    if len(devices) != 1:
+        raise ValueError(f"matmul_int4: tensors on different devices {devices}")
+    if x.device.type == "cpu":
+        return matmul_int4_reference(x, q4, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_int4: unsupported device {x.device}")
+    if not 1 <= M <= MAX_M or K2 != INT4_SUB * nb or N % 8:
+        raise ValueError(f"matmul_int4: kernel takes 1<=M<={MAX_M}, K/2 == {INT4_SUB}*nb, N%8==0; "
+                         f"got M={M} K={K} N={N} nb={nb}")
+    if not (q4.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("matmul_int4: q4 and scale must be contiguous")
+    if q4.data_ptr() % 8 or scale.data_ptr() % 16:
+        raise ValueError("matmul_int4: q4 must be 8-byte and scale 16-byte aligned")
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:  # the kernel reads x in 16-byte words
+        xb = xb.clone()
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    splits, per = int4_split_plan(K2, N)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else y
+    rc = _kernel("int4")(xb.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(), part.data_ptr(),
+                         M, K, N, splits, per, _build.stream_ptr(x.device))
+    _build.check(rc, "matmul_int4")
+    LAUNCHES["matmul_int4"] += 1
+    return y
+
+
+def int4_dense_supported(x, q4, scale) -> bool:
+    """Route an int4 dense through the kernel: CUDA tensors, decode-shaped
+    activations (one token per sequence, at most 64 rows), lane-aligned
+    contractions (K/2 and N multiples of 128) and one scale block per 32
+    packed rows (K/2 == 32 * nb). On the CPU, dense takes the dequantize
+    path, as ssak_tpu does off the TPU."""
+    if not x.is_cuda:
+        return False
+    K2, N = q4.shape
+    if K2 % 128 or N % 128 or K2 != INT4_SUB * scale.shape[0]:
         return False
     if x.ndim == 2:
         return x.shape[0] <= MAX_M

@@ -84,6 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model(None, seeded_test_config="whisper", quantize_bits=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(None, seeded_test_config="whisper", quantize_bits=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         whisper_infer(None, [np.zeros(1600, np.float32)], seeded_test_config="whisper")  # raises at the call
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_tree({}, None)
@@ -121,6 +123,33 @@ def test_cli_prints_one_line_per_file(tmp_path):
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert [ln.split()[0] for ln in lines] == ["utt0", "utt1", "utt2"]
+    refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
+
+
+def test_cli_4bit_accurate_long_and_short_files_on_cpu(tmp_path):
+    """--load_in_4bit --accurate on --device cpu: one line per file, for
+    files shorter and longer than the seeded model's window (2 s: the
+    long-form seek loop); without --device it refuses to start."""
+    _need_gpu_less_host()
+    from ssak_tpu_torch.audio import save_audio
+
+    rng = np.random.RandomState(2)
+    with open(tmp_path / "wav.scp", "w") as f:
+        for i, n in enumerate((12000, 52000, 20000)):
+            p = tmp_path / f"utt{i}.wav"
+            save_audio(str(p), (rng.randn(n) * 0.1).astype(np.float32), 16000)
+            f.write(f"utt{i} {p}\n")
+    cmd = [sys.executable, "-m", "ssak_tpu_torch.infer.whisper_infer", str(tmp_path), "none",
+           "--seeded_test_config", "whisper", "--load_in_4bit", "--accurate"]
+    # one intra-op thread: beside other test workers, torch's thread pool
+    # oversubscribes the host's cores and spins at each of the run's small ops
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(cmd + ["--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [ln.split()[0] for ln in lines] == ["utt0", "utt1", "utt2"]
+    assert all(len(ln.split()) >= 2 and all(t.isdigit() for t in ln.split()[1:]) for ln in lines)
     refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
 

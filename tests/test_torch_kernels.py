@@ -121,3 +121,43 @@ def test_kernel_routing_gates_need_cuda():
     q8 = torch.zeros(1280, 1280, dtype=torch.int8)
     assert not IM.int8_dense_supported(torch.zeros(8, 1, 1280), q8)
     assert not FD.flash_decode_supported(torch.zeros(2, 1, 20, 64), 64, 448)
+    q4, s4 = torch.zeros(640, 1280, dtype=torch.int8), torch.ones(20, 1, 1280)
+    assert not IM.int4_dense_supported(torch.zeros(8, 1, 1280), q4, s4)
+
+
+def test_int4_wrapper_checks_and_never_reaches_plain_off_cpu():
+    """matmul_int4 checks shapes and types, raises for a device that is
+    neither CPU nor CUDA (a CUDA tensor never reaches
+    matmul_int4_reference: it launches the kernel or raises), and its gate
+    follows the JAX one: decode-shaped rows, K/2 and N lane-aligned, one
+    scale block per 32 packed rows."""
+    q4, s4 = torch.zeros(64, 128, dtype=torch.int8), torch.ones(2, 1, 128)
+    with pytest.raises(ValueError):
+        IM.matmul_int4(torch.zeros(4, 64), q4, s4)  # K != 2 * K/2
+    with pytest.raises(ValueError):
+        IM.matmul_int4(torch.zeros(4, 128), q4, torch.ones(2, 1, 64))
+    with pytest.raises(TypeError):
+        IM.matmul_int4(torch.zeros(4, 128), q4.to(torch.int16), s4)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        IM.matmul_int4(torch.zeros(4, 128, **meta), torch.zeros(64, 128, dtype=torch.int8, **meta),
+                       torch.ones(2, 1, 128, **meta))
+    with pytest.raises(ValueError, match="different devices"):
+        IM.matmul_int4(torch.zeros(4, 128), torch.zeros(64, 128, dtype=torch.int8, **meta), s4)
+    before = dict(IM.LAUNCHES)
+    assert tuple(IM.matmul_int4(torch.zeros(4, 128), q4, s4).shape) == (4, 128)
+    assert IM.LAUNCHES == before
+
+    class _CudaLike:  # what the gate reads of a tensor
+        is_cuda = True
+
+        def __init__(self, *shape):
+            self.shape, self.ndim = shape, len(shape)
+
+    big, s = torch.zeros(640, 1280, dtype=torch.int8), torch.ones(20, 1, 1280)
+    assert IM.int4_dense_supported(_CudaLike(64, 1, 1280), big, s)
+    assert IM.int4_dense_supported(_CudaLike(20, 1280), big, s)
+    assert not IM.int4_dense_supported(_CudaLike(65, 1, 1280), big, s)  # more than 64 rows
+    assert not IM.int4_dense_supported(_CudaLike(8, 1500, 1280), big, s)  # encoder-shaped
+    assert not IM.int4_dense_supported(_CudaLike(8, 1, 1280), big, torch.ones(40, 1, 1280))  # 16 rows per block
+    assert not IM.int4_dense_supported(_CudaLike(8, 1, 1280), big[:, :1000], s[..., :1000])  # N % 128

@@ -155,15 +155,30 @@ def test_transcribe_batch_from_wav_files(tiny, tmp_path):
 
 
 def test_transcribe_batch_not_ported_paths_raise(tiny):
+    """What still needs a later slice raises at the call: checkpoint
+    directories and language= / task= (both need the tokenizer). Long-form
+    audio and the accurate chain run."""
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch, whisper_infer
+
     cfg, params, _ = tiny
     m = from_tree(params, _port_cfg(cfg), device="cpu")
     long_audio = np.zeros(cfg.n_audio_ctx * 320 + 1, np.float32)
-    with pytest.raises(NotImplementedError):
-        whisper_transcribe_batch(m, [long_audio])
-    with pytest.raises(NotImplementedError):
-        whisper_transcribe_batch(m, [long_audio[:100]], beam_size=5)
-    # longform=False cuts windows instead, as in ssak_tpu
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        load_model("some/checkpoint_dir", device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        whisper_infer("some/checkpoint_dir", [long_audio], device="cpu")
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        whisper_infer(None, [long_audio], seeded_test_config="whisper", language="fr", device="cpu")
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        whisper_transcribe_batch(m, [long_audio], language="fr")
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        whisper_transcribe_batch(m, [long_audio[:100]], task="translate", beam_size=5)
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        transcribe_longform_batch(m, [long_audio], language="en")
+    # longform=False cuts windows instead, as in ssak_tpu; long-form and beam run
     assert len(whisper_transcribe_batch(m, [long_audio], longform=False, max_tokens=3)) == 1
+    assert len(whisper_transcribe_batch(m, [long_audio, long_audio[:100]], beam_size=2, max_tokens=3)) == 2
 
 
 def test_seeded_model_is_deterministic_and_quantizes():

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's Whisper greedy path, on one CUDA card.
+"""Where the time goes in the port's Whisper decode paths, on one CUDA card.
 
-    python3 tools/torch_whisper_profile.py [--configs bf16 int8] [--batch 24] [--max_tokens 32]
+    python3 tools/torch_whisper_profile.py [--configs bf16 int8 int4] [--batch 24] [--max_tokens 32]
 
 For each configuration: a seeded large-v3 model prepared as whisper_infer
-prepares it (bf16 cast or int8 quantization, fused decoder q/k/v), a batch
-of 30 s windows of random audio, then
+prepares it (bf16 cast, or int8 / int4 quantization; fused decoder q/k/v
+where not quantized), a batch of 30 s windows of random audio, then
   - phase times with CUDA events: log-mel, encoder, cross-attention K/V,
     one decode step (mean of 8), and the whole greedy_decode; beside the
     encoder and the decode step, the host time to enqueue them;
@@ -13,7 +13,12 @@ of 30 s windows of random audio, then
     device busy share (union of kernel intervals / wall time), the time
     the host was blocked on a full command queue, and device time by
     kernel name (top 12). A busy share near 1 means the card is the
-    bottleneck; well below 1 with no blocked time, the host is.
+    bottleneck; well below 1 with no blocked time, the host is;
+  - int4 only, the decoders of --accurate and of long-form, timed and
+    traced the same way: beam_decode (8 windows x 5 beams), sample_decode
+    at T = 0.6 with best_of 5 (8 windows x 5 candidates), and
+    decode_window at T = 0.6 with best_of 5 over 4 windows with
+    timestamps and the long-form prompt buffer (P = 225, bare prompt).
 Prints one JSON object per configuration. Numbers are only meaningful on
 the card; the script refuses to run without one.
 """
@@ -45,6 +50,8 @@ def profile(torch, bits, batch, max_tokens):
     from ssak_tpu_torch.models import whisper as W
     from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
 
+    import numpy as np
+
     m = load_model(None, seeded_test_config="whisper:large-v3", quantize_bits=bits)
     if not bits:
         m.module.to(torch.bfloat16)
@@ -55,7 +62,7 @@ def profile(torch, bits, batch, max_tokens):
     audio = torch.randn(batch, 480000, generator=g, device="cuda") * 0.1
     W.greedy_decode(model, log_mel_spectrogram(audio, cfg.n_mels), cfg, prompt, max_tokens=2)  # warm-up
     torch.cuda.synchronize()
-    res = {"config": "int8" if bits else "bf16", "batch": batch, "max_tokens": max_tokens,
+    res = {"config": {0: "bf16", 8: "int8", 4: "int4"}[bits], "batch": batch, "max_tokens": max_tokens,
            "card": torch.cuda.get_device_name(0)}
     with torch.inference_mode():
         res["logmel_ms"], _, mel = _events(torch, lambda: log_mel_spectrogram(audio, cfg.n_mels))
@@ -71,6 +78,23 @@ def profile(torch, bits, batch, max_tokens):
             "decode_steps": lambda: [W._decode_step(model, tok, p, caches, kv, cfg) for p in range(n)],
             "greedy_decode": lambda: W.greedy_decode(model, mel, cfg, prompt, max_tokens=max_tokens),
         }
+        if bits == 4:
+            P = cfg.n_text_ctx // 2 + 1
+            buf = np.full((4, P), cfg.eot, np.int32)
+            buf[:, -1] = cfg.sot
+            accurate = {
+                "beam_decode": lambda: W.beam_decode(model, mel[:8], cfg, prompt, beam_size=5, max_tokens=max_tokens),
+                "sample_decode_best_of": lambda: W.sample_decode(model, mel[:8], cfg, prompt, 1, temperature=0.6,
+                                                                 max_tokens=max_tokens, best_of=5),
+                "decode_window_best_of": lambda: W.decode_window(model, mel[:4], buf, [1] * 4, cfg, sot_distance=1,
+                                                                 max_tokens=max_tokens, with_timestamps=True,
+                                                                 temperature=0.6, seed=1, best_of=5),
+            }
+            for name, fn in accurate.items():
+                n0 = W.DECODE_STEPS["n"]
+                res[name + "_ms"], _, _ = _events(torch, fn)
+                res[name + "_steps"] = W.DECODE_STEPS["n"] - n0
+            windows.update(accurate)
         for name, fn in windows.items():
             res[name] = _trace(torch, fn)
     del m, model, kv, caches
@@ -116,7 +140,7 @@ def _trace(torch, fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", nargs="+", default=["bf16", "int8"], choices=["bf16", "int8"])
+    ap.add_argument("--configs", nargs="+", default=["bf16", "int8", "int4"], choices=["bf16", "int8", "int4"])
     ap.add_argument("--batch", type=int, default=24)
     ap.add_argument("--max_tokens", type=int, default=32)
     args = ap.parse_args()
@@ -126,7 +150,7 @@ def main():
         print("torch_whisper_profile: no CUDA device", file=sys.stderr)
         return 3
     for c in args.configs:
-        print(json.dumps(profile(torch, 8 if c == "int8" else 0, args.batch, args.max_tokens)), flush=True)
+        print(json.dumps(profile(torch, {"bf16": 0, "int8": 8, "int4": 4}[c], args.batch, args.max_tokens)), flush=True)
     return 0
 
 
