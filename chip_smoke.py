@@ -18,15 +18,21 @@ and prints no result):
              temperature chain, best_of 5, 32-token windows); then
              wav2vec2-base CTC training at full width (CTCTrainer, batch 32
              of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
-             dir of 64 wavs; each with the kernels' launch counters checked
-             against the path exactly (on the accurate and long-form paths,
-             against the decode steps the port counts)
+             dir of 64 wavs; then wav2vec2-xlsr CTC serving at full width
+             through ctc_infer over a Kaldi dir of 16 files (30 s, 140 s
+             and chunked 200 s audio), greedy, and with the device beam
+             (width 16, lexicon, word 3-gram) over the 14 files of one
+             chunk; each with the kernels' launch counters checked against
+             the path exactly (on the accurate and long-form paths, against
+             the decode steps the port counts; on CTC serving, L1 against 24
+             x the encoder calls at >= 4096 frames)
   4. parity  teacher-forced Whisper logits of the port on the card against
              the port on the CPU in f32 (large-v3 widths, 2+2 layers; bf16,
              int8 and int4 weights), the int4 window decode's no-speech and
              first-step logits card against CPU, and two wav2vec2 train
              steps card against CPU in f32 (large widths, 2 layers, remat),
-             same weights
+             and CTC log-probs of a 140 s row card (through L1) against CPU
+             in bf16 (xlsr widths, 2 layers), same weights
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 = False): f32 products on the card are full
@@ -335,6 +341,91 @@ def check_ctc_fused(torch, dev):
     return rows, worst
 
 
+def _qkv(torch, g, dev, B, T, H=16, Dh=64):
+    return [torch.randn(B, T, H, Dh, generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
+
+
+def check_flash_attention(torch, dev):
+    """L1 against its plain version on the card, all T rows (pad rows
+    included): the 140 s bucket (T = 7,001) with one full row and with rows
+    of 7,001 and 3,000 frames; T = 4,096 without lengths (the no-mask path);
+    a row of length 0 beside a full one at an odd T; Dh = 128 and 256; and
+    q/k/v read through the strides of one fused (B, T, 3D) projection. The
+    plain version computes the same masked softmax with p rounded to bf16
+    against the global row max, the kernel against a running max: held to
+    2e-2 of max|out|. Timed at B = 6 and 1 (T = 7,001) against the plain
+    version (B = 1 only: at B = 6 its logits need about 56 GB) and SDPA in
+    bf16 with a (B, 1, 1, T) key-padding mask; and at the 30 s bucket
+    (B = 32, T = 1,499) against the plain version and the unfused attention
+    the encoder runs there (layers.attention), for the FLASH_MIN_SEQ
+    question only."""
+    import torch.nn.functional as F
+
+    from ssak_tpu_torch.models import layers as L
+    from ssak_tpu_torch.ops import flash_attention as L1
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    cases = [
+        dict(B=1, T=7001, lengths=[7001]),
+        dict(B=2, T=7001, lengths=[7001, 3000]),
+        dict(B=1, T=4096, lengths=None),
+        dict(B=2, T=4500, lengths=[0, 4500]),
+        dict(B=1, T=4100, lengths=[2000], H=4, Dh=128),
+        dict(B=1, T=4100, lengths=[4100], H=2, Dh=256),
+        dict(B=1, T=4096, lengths=[3333], fused=True),
+    ]
+    for c in cases:
+        H, Dh = c.get("H", 16), c.get("Dh", 64)
+        if c.get("fused"):
+            qkv = torch.randn(c["B"], c["T"], 3 * H * Dh, generator=g, device=dev).to(torch.bfloat16)
+            q, k, v = (qkv[..., i * H * Dh:(i + 1) * H * Dh].reshape(c["B"], c["T"], H, Dh) for i in range(3))
+        else:
+            q, k, v = _qkv(torch, g, dev, c["B"], c["T"], H, Dh)
+        lens = None if c["lengths"] is None else torch.tensor(c["lengths"], dtype=torch.int32, device=dev)
+        out = L1.flash_self_attention(q, k, v, lens)
+        ref = L1.flash_self_attention_reference(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = 2e-2 * float(ref.float().abs().max())
+        if not (torch.isfinite(out).all() and out.shape == q.shape and err <= tol):
+            raise AssertionError(f"flash_attention {c}: max|err| {err} > {tol} (finite {bool(torch.isfinite(out).all())})")
+        worst = max(worst, err)
+        log(f"flash_attention {c}: max|err| {err:.3g} (limit {tol:.3g})")
+        del q, k, v, out, ref
+    rows = []
+    for B in (6, 1):
+        T, H, Dh = 7001, 16, 64
+        q, k, v = _qkv(torch, g, dev, B, T)
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        mask = torch.ones(B, 1, 1, T, dtype=torch.bool, device=dev)
+        sets = [(q, k, v, lens)]
+        row = dict(B=B, T=T, H=H, Dh=Dh, ms=time_ms(torch, L1.flash_self_attention, sets, min_iters=10),
+                   library_ms=time_ms(torch, lambda a, b, c, m: F.scaled_dot_product_attention(
+                       a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2), attn_mask=m), [(q, k, v, mask)],
+                       min_iters=10),
+                   plain_ms=time_ms(torch, L1.flash_self_attention_reference, sets, min_iters=3) if B == 1 else None)
+        # q, k, v read once and out written once; 4*B*H*T^2*Dh operations
+        row["bound_ms"], row["bound_by"] = bound(4 * B * T * H * Dh * 2, 4 * B * H * T * T * Dh)
+        row["tflops"] = 4 * B * H * T * T * Dh / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        log(f"flash_attention {row}")
+        del q, k, v, sets
+    B, T = 32, 1499
+    q, k, v = _qkv(torch, g, dev, B, T)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    short = dict(B=B, T=T, ms=time_ms(torch, L1.flash_self_attention, [(q, k, v, lens)], min_iters=10),
+                 plain_ms=time_ms(torch, L1.flash_self_attention_reference, [(q, k, v, lens)], min_iters=3),
+                 unfused_ms=time_ms(torch, lambda a, b, c, m: L.attention(a, b, c, mask=m), [(q, k, v, mask)],
+                                    min_iters=3))
+    log(f"flash_attention at the 30 s bucket (FLASH_MIN_SEQ question, routing unchanged): {short}")
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, worst, short
+
+
 # --- phase 3: the slices at full width ------------------------------------------
 
 
@@ -370,10 +461,11 @@ def counters():
     """The launch counters of every kernel wrapper and the port's decode-step counter."""
     from ssak_tpu_torch.models import whisper as W
     from ssak_tpu_torch.ops import ctc_fused as K1
+    from ssak_tpu_torch.ops import flash_attention as L1
     from ssak_tpu_torch.ops import flash_decode as FD
     from ssak_tpu_torch.ops import int8_matmul as IM
 
-    return (K1.LAUNCHES, IM.LAUNCHES, FD.LAUNCHES, W.DECODE_STEPS)
+    return (K1.LAUNCHES, IM.LAUNCHES, FD.LAUNCHES, W.DECODE_STEPS, L1.LAUNCHES)
 
 
 def reset_counts():
@@ -383,8 +475,13 @@ def reset_counts():
 
 
 def decode_launches():
-    _k1, im, fd, steps = counters()
+    _k1, im, fd, steps, _l1 = counters()
     return {**im, **fd}, steps["n"]
+
+
+def kernel_launches():
+    k1, im, fd, _steps, l1 = counters()
+    return {**k1, **im, **fd, **l1}
 
 
 def want_decode(bits, steps):
@@ -601,9 +698,6 @@ def run_ctc_slice(torch, dev, root):
     from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
     from ssak_tpu_torch.models import wav2vec2
     from ssak_tpu_torch.models.tokenizer import CTCTokenizer
-    from ssak_tpu_torch.ops import ctc_fused as K1
-    from ssak_tpu_torch.ops import flash_decode as FD
-    from ssak_tpu_torch.ops import int8_matmul as IM
     from ssak_tpu_torch.train.loop import CTCTrainer
 
     train_dir = write_ctc_corpus(os.path.join(root, "train"), CTC_FILES, seed=1)
@@ -648,12 +742,12 @@ def run_ctc_slice(torch, dev, root):
     history = trainer.train(train_rows, eval_rows, max_steps=CTC_STEPS, log_interval=1)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {**K1.LAUNCHES, **IM.LAUNCHES, **FD.LAUNCHES}
+    launches = kernel_launches()
     steps = [h for h in history if "loss" in h]
     evals = [h for h in history if "eval_wer" in h]
     eval_batches = -(-len(eval_rows) // CTC_BATCH)
     want = {"ctc_fused": CTC_STEPS + eval_batches, "matmul_int8": 0, "matmul_int4": 0, "flash_decode_bf16": 0,
-            "flash_decode_int8": 0}
+            "flash_decode_int8": 0, "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"ctc: launch counters {launches} != expected {want} ({CTC_STEPS} steps + {eval_batches} eval batches)")
     if [h["step"] for h in steps] != list(range(1, CTC_STEPS + 1)):
@@ -680,6 +774,195 @@ def run_ctc_slice(torch, dev, root):
     del trainer, resumed
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+SERVE_GROUPS = ((8, 12.0, 28.0), (6, 70.0, 135.0), (2, 200.0, 200.0))  # (files, min s, max s)
+SERVE_MODEL = "wav2vec2:xlsr"
+BEAM_WIDTH, LM_ORDER = 16, 3
+
+
+def write_serving_corpus(root, seed=7):
+    """The CTC serving corpus as a Kaldi dir: 8 files of 12-28 s (30 s
+    bucket), 6 of 70-135 s (one auto-packed batch at the 140 s bucket), 2 of
+    200 s (two 140 s chunks each), ids ordered so that each group is
+    contiguous (the packer is greedy over consecutive rows). Returns
+    (ids, sample counts)."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import save_audio
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    ids, lens, lines = [], [], []
+    for n, lo, hi in SERVE_GROUPS:
+        for secs in rng.uniform(lo, hi, n):
+            utt = f"utt{len(ids):03d}"
+            audio = tones(rng, float(secs))
+            path = os.path.join(root, f"{utt}.wav")
+            save_audio(path, audio, 16000)
+            ids.append(utt)
+            lens.append(audio.size)
+            lines.append(f"{utt} {path}")
+    with open(os.path.join(root, "wav.scp"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return ids, lens
+
+
+def kaldi_subset(root, src, n):
+    """A Kaldi dir holding the first n entries of src's wav.scp."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(src, "wav.scp"), encoding="utf-8") as f:
+        lines = f.read().splitlines()[:n]
+    with open(os.path.join(root, "wav.scp"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return root
+
+
+def expected_encoder_frames(lens):
+    """Frames of every encoder call ctc_infer makes over files of `lens`
+    samples, in order, from the port's own packing (auto_pack_batches,
+    padded_batch_shape) and chunking (chunk_lengths and the buckets)."""
+    from ssak_tpu_torch.infer import ctc_infer as CI
+    from ssak_tpu_torch.models.wav2vec2 import feature_extract_output_length, make_config
+
+    cfg = make_config(SERVE_MODEL.split(":")[1])
+    frames = []
+    for batch, _ids in CI.auto_pack_batches((range(n), i) for i, n in enumerate(lens)):
+        sizes = [len(a) for a in batch]
+        short = [n for n in sizes if n <= CI.MAX_CHUNK_SAMPLES]
+        if short:
+            frames.append(feature_extract_output_length(cfg, CI.padded_batch_shape(short)[1]))
+        for n in sizes:
+            if n > CI.MAX_CHUNK_SAMPLES:
+                frames += [feature_extract_output_length(cfg, CI._bucket_len(c)) for c in CI.chunk_lengths(n)]
+    return frames
+
+
+class EncoderCalls:
+    """Records the frame count of each compute_log_probas call (ctc_infer
+    looks it up in infer.general at each call) while installed."""
+
+    def __init__(self):
+        from ssak_tpu_torch.infer import general as G
+
+        self.G, self.frames, self.orig = G, [], G.compute_log_probas
+
+    def __enter__(self):
+        def call(*a, **kw):
+            lp, fl = self.orig(*a, **kw)
+            self.frames.append(int(lp.shape[1]))
+            return lp, fl
+
+        self.G.compute_log_probas = call
+        return self
+
+    def __exit__(self, *exc):
+        self.G.compute_log_probas = self.orig
+
+
+class BeamCalls:
+    """CUDA events around each ctc_beam_search_device call, with the host
+    time of its enqueue and the frames it decodes, while installed."""
+
+    def __init__(self, torch):
+        from ssak_tpu_torch.decode import ctc_beam as CB
+
+        self.torch, self.CB, self.calls, self.orig = torch, CB, [], CB.ctc_beam_search_device
+
+    def __enter__(self):
+        def call(log_probs, *a, **kw):
+            ev0, ev1 = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            ev0.record()
+            out = self.orig(log_probs, *a, **kw)
+            ev1.record()
+            self.calls.append((tuple(log_probs.shape), ev0, ev1, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        self.CB.ctc_beam_search_device = call
+        return self
+
+    def __exit__(self, *exc):
+        self.CB.ctc_beam_search_device = self.orig
+
+    def summary(self):
+        self.torch.cuda.synchronize()
+        return [dict(shape=s, card_ms=a.elapsed_time(b), enqueue_ms=h) for s, a, b, h in self.calls]
+
+
+def write_lexicon_lm(root, seed=11, n_words=500, n_sentences=2000):
+    """A seeded lexicon of a-z words and a word 3-gram ARPA trained on
+    seeded sentences of them with the port's train_ngram_lm."""
+    import numpy as np
+
+    from ssak_tpu_torch.decode.lm import train_ngram_lm
+
+    rng = np.random.RandomState(seed)
+    words = sorted({"".join(rng.choice(list(CHARS), size=rng.randint(2, 9))) for _ in range(n_words)})
+    sentences = [" ".join(rng.choice(words, size=rng.randint(3, 12))) for _ in range(n_sentences)]
+    lexicon, arpa = os.path.join(root, "lexicon.txt"), os.path.join(root, "lm3.arpa")
+    with open(lexicon, "w", encoding="utf-8") as f:
+        f.write("\n".join(words) + "\n")
+    train_ngram_lm(sentences, order=LM_ORDER, output_arpa=arpa)
+    return lexicon, arpa
+
+
+def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, lexicon=None, arpa=None):
+    """python -m ssak_tpu_torch.infer.ctc_infer DIR m --seeded_test_config
+    wav2vec2:xlsr (xlsr widths, 24 layers, bf16, auto packing), greedy or
+    with the device beam (width 16, lexicon, word 3-gram fused on the
+    card), through ctc_infer; L1's launches checked against 24 x the
+    encoder calls at >= FLASH_MIN_SEQ frames, every other kernel at 0."""
+    from ssak_tpu_torch.infer.ctc_infer import ctc_infer
+    from ssak_tpu_torch.infer.general import seeded_ctc_tokenizer
+    from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
+    from ssak_tpu_torch.models.wav2vec2 import make_config
+
+    cfg = make_config(SERVE_MODEL.split(":")[1], vocab_size=48)
+    want_frames = expected_encoder_frames(lens)
+    kw = dict(beam_width=BEAM_WIDTH, lexicon_path=lexicon, lm_path=arpa) if mode == "beam" else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with EncoderCalls() as enc, BeamCalls(torch) as beams:
+        t0 = time.perf_counter()
+        it = ctc_infer(None, kaldi_dir, seeded_test_config=SERVE_MODEL, output_ids=True, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        out = list(it)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = kernel_launches()
+    del it
+    tag = f"ctc serving {mode}"
+    if [i for i, _ in out] != ids:
+        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
+    alphabet = set("".join(seeded_ctc_tokenizer(cfg.vocab_size).vocab)) | {" "}
+    if not all(isinstance(t, str) and set(t) <= alphabet for _, t in out):
+        raise AssertionError(f"{tag}: transcripts outside the vocabulary: {out[:3]}")
+    if enc.frames != want_frames:
+        raise AssertionError(f"{tag}: encoder calls at {enc.frames} frames, expected {want_frames}")
+    flash_calls = sum(f >= FLASH_MIN_SEQ for f in want_frames)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.num_layers * flash_calls
+    if launches != want or not flash_calls:
+        raise AssertionError(f"{tag}: launch counters {launches} != expected {want} "
+                             f"({flash_calls} encoder calls at >= {FLASH_MIN_SEQ} frames)")
+    beam = beams.summary()
+    if mode == "beam" and len(beam) != len(want_frames):
+        raise AssertionError(f"{tag}: {len(beam)} device-beam calls for {len(want_frames)} batches")
+    audio_s = sum(lens) / 16000.0
+    res = dict(config=f"{SERVE_MODEL} {mode}" + (f" (width {BEAM_WIDTH}, lexicon, word {LM_ORDER}-gram)" if kw else ""),
+               files=len(ids), audio_s=audio_s, encoder_calls=len(enc.frames), encoder_frames=enc.frames,
+               flash_encoder_calls=flash_calls, load_s=t1 - t0, run_s=t2 - t1, audio_s_per_s=audio_s / (t2 - t1),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+               nonempty=sum(bool(t) for _, t in out), sample=out[-1][1][:80])
+    if beam:
+        res["device_beam"] = beam
+        res["device_beam_ms_140s_batch"] = [b["card_ms"] for b in beam if b["shape"][1] >= FLASH_MIN_SEQ]
+    log(f"slice {json.dumps(res)}")
     return res
 
 
@@ -828,6 +1111,48 @@ def check_window_card_vs_cpu(torch, cpu_model, card_model, cfg_cpu, cfg_card, me
     return res
 
 
+def check_ctc_serving_card_vs_cpu(torch, dev):
+    """CTC log-probs of one 140 s row (a 135 s file padded to the bucket,
+    7,001 frames) on the card against the CPU, same seeded weights: xlsr
+    widths at 2 layers in bf16, the dtype in which the card's encoder
+    attention goes through L1 (2 launches) while the CPU runs the unfused
+    attention. The valid frames' log-probs must correlate >= 0.999; the
+    share of frames with the same argmax is reported."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer.ctc_infer import MAX_CHUNK_SAMPLES
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.ops import flash_attention as L1
+
+    cfg = wav2vec2.make_config("xlsr", num_layers=2, vocab_size=48)
+    audio = tones(np.random.RandomState(9), 135.0)
+    x = np.zeros((1, MAX_CHUNK_SAMPLES), np.float32)
+    x[0, : audio.size] = audio
+    out = {}
+    for where in ("cpu", dev):
+        model = wav2vec2.init_params(cfg, seed=0, device=where)
+        n0 = L1.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            lp, fl = wav2vec2.ctc_log_probs(model, torch.from_numpy(x).to(where), cfg,
+                                            torch.tensor([audio.size], device=where))
+        out[str(where)] = (lp.float().cpu(), int(fl[0]), L1.LAUNCHES["flash_attention"] - n0)
+        del model, lp
+        gc.collect()
+    (cpu_lp, cpu_fl, cpu_l1), (card_lp, card_fl, card_l1) = out["cpu"], out[str(dev)]
+    if not (cpu_fl == card_fl == wav2vec2.feature_extract_output_length(cfg, audio.size) and cpu_l1 == 0
+            and card_l1 == cfg.num_layers and card_lp.shape == (1, 7001, 48) and torch.isfinite(card_lp).all()):
+        raise AssertionError(f"ctc card vs cpu: frames {cpu_fl}/{card_fl}, L1 launches cpu {cpu_l1} card {card_l1}, "
+                             f"shape {tuple(card_lp.shape)}")
+    a, b = card_lp[0, :card_fl], cpu_lp[0, :cpu_fl]
+    corr = float(np.corrcoef(a.flatten().numpy(), b.flatten().numpy())[0, 1])
+    res = dict(frames=card_fl, correlation=corr, argmax_agreement=float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+               max_abs_diff=float((a - b).abs().max()), l1_launches=card_l1)
+    log(f"ctc serving card vs cpu (xlsr widths, 2 layers, bf16, 140 s row): {json.dumps(res)}")
+    if not corr >= 0.999:
+        raise AssertionError(f"ctc serving card vs cpu: correlation {corr} < 0.999")
+    return res
+
+
 def check_train_step_card_vs_cpu(torch, dev):
     """Two wav2vec2 train steps on the card and on the CPU in f32 from the
     same weights: large widths (d=1024, stable layer norm, conv bias, remat),
@@ -928,9 +1253,10 @@ def main():
     k3_rows, k3_err = check_matmul_int4(torch, dev)
     fd_rows = {v: check_flash_decode(torch, dev, v == "int8") for v in ("bf16", "int8")}
     k1_rows, k1_err = check_ctc_fused(torch, dev)
+    l1_rows, l1_err, l1_short = check_flash_attention(torch, dev)
 
     log("phase 3: seeded large-v3 transcription (greedy bf16, int8, int4; int4 accurate; int4 long-form); "
-        "wav2vec2-base CTC training")
+        "wav2vec2-base CTC training; wav2vec2-xlsr CTC serving (greedy; device beam with lexicon and word LM)")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         ids = write_corpus(tmp)
@@ -945,10 +1271,22 @@ def main():
         slices["ctc"] = run_ctc_slice(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_serve_")
+    try:
+        ids, lens = write_serving_corpus(tmp)
+        slices["ctc_serving_greedy"] = run_ctc_serving(torch, tmp, ids, lens, "greedy")
+        n_beam = sum(n for n, _lo, hi in SERVE_GROUPS if hi <= 140.0)  # the files of one chunk at most
+        lexicon, arpa = write_lexicon_lm(tmp)
+        slices["ctc_serving_beam"] = run_ctc_serving(torch, kaldi_subset(os.path.join(tmp, "beam"), tmp, n_beam),
+                                                     ids[:n_beam], lens[:n_beam], "beam", lexicon, arpa)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
-    log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 layers")
+    log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
+        "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row)")
     corr = check_card_vs_cpu(torch, dev)
     train_parity = check_train_step_card_vs_cpu(torch, dev)
+    serving_parity = check_ctc_serving_card_vs_cpu(torch, dev)
 
     def head(rows, **shape):
         return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
@@ -966,6 +1304,10 @@ def main():
          *fd_rows["int8"], dict(B=24, T=1500), slices["int8"]["launches"]["flash_decode_int8"]),
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
          k1_rows, k1_err, dict(V=32), slices["ctc"]["launches"]["ctc_fused"]),
+        ("flash_attention", "ssak_tpu_torch/csrc/flash_attention.cu", "ssak_tpu/models/layers.py:290",
+         l1_rows, l1_err, dict(B=1, T=7001),
+         slices["ctc_serving_greedy"]["launches"]["flash_attention"]
+         + slices["ctc_serving_beam"]["launches"]["flash_attention"]),
     ]
     for name, source, replaces, rows, err, shape, launches in specs:
         h = head(rows, **shape)
@@ -974,7 +1316,8 @@ def main():
             max_abs_err=err, ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by=h["bound_by"],
             library_ms=h["library_ms"], max_err=err, kernel_ms=h["ms"], shape=shape, shapes=rows,
         ))
-    log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity}))
+    log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
+                                 "ctc_serving_card_vs_cpu": serving_parity, "flash_attention_30s_bucket": l1_short}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

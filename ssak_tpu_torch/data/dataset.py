@@ -2,7 +2,7 @@
 
 `to_audio_batches` (serving): a np.ndarray, a list of arrays and/or audio
 paths, a single audio path, a list file of audio paths or Kaldi dirs, or a
-Kaldi dir whose wav.scp holds plain file paths.
+Kaldi dir whose wav.scp holds plain file paths (with `segments` windows).
 
 Training: `kaldi_folder_to_manifest` turns Kaldi dirs (one dir, a list of
 dirs, or a list file of "<dir> [weight]" lines) into a manifest, a list of
@@ -23,38 +23,19 @@ from ssak_tpu_torch.data import kaldi as K
 from ssak_tpu_torch.utils.monitoring import logger
 
 
-def _kaldi_rows(path):
-    """Rows of a Kaldi dir with a plain-path wav.scp, sorted by id (the
-    order ssak_tpu's manifest gives)."""
-    if os.path.exists(os.path.join(path, "segments")):
-        raise NotImplementedError(f"{path}: Kaldi 'segments' files are not ported yet")
-    scp = os.path.join(path, "wav.scp")
-    if not os.path.exists(scp):
-        raise FileNotFoundError(f"{path}: not a Kaldi data dir (no wav.scp)")
-    rows = []
-    with open(scp, encoding="utf-8") as f:
-        for line in f:
-            parts = line.strip().split(None, 1)
-            if len(parts) < 2:
-                continue
-            utt, src = parts
-            if src.rstrip().endswith("|"):
-                raise NotImplementedError(f"{path}: command-pipe wav.scp entries are not ported yet")
-            rows.append({"id": utt, "audio": os.path.expandvars(src)})
-    rows.sort(key=lambda r: r["id"])
-    return rows
-
-
 def to_audio_batches(
     source,
     batch_size: int = 1,
     sample_rate: int = 16000,
     output_ids: bool = False,
+    sort_by_len: bool = False,
     io_threads: int = 0,
 ):
     """Universal input adapter: yields batches (lists) of float32 audio
-    arrays, or (batch, ids) pairs with output_ids=True. io_threads>1
-    decodes files in an ordered thread pool (prefetch.prefetch_map)."""
+    arrays, or (batch, ids) pairs with output_ids=True. A Kaldi dir is read
+    through its manifest (kaldi_folder_to_manifest), in id order or, with
+    sort_by_len, by ascending utt2dur duration. io_threads>1 decodes files
+    in an ordered thread pool (prefetch.prefetch_map)."""
     from ssak_tpu_torch.audio import load_audio
 
     def gen_rows():
@@ -70,7 +51,7 @@ def to_audio_batches(
             return
         if isinstance(source, str):
             if os.path.isdir(source):
-                yield from _kaldi_rows(source)
+                yield from kaldi_folder_to_manifest(source, sort_by_len=1 if sort_by_len else 0)[1]
                 return
             yield from _file_rows(source)
             return
@@ -89,7 +70,7 @@ def to_audio_batches(
                     if not line:
                         continue
                     if os.path.isdir(line.split()[0]):
-                        yield from _kaldi_rows(line.split()[0])
+                        yield from kaldi_folder_to_manifest(line.split()[0])[1]
                     else:
                         yield from _file_rows(line)
         else:
@@ -98,7 +79,7 @@ def to_audio_batches(
     def _load_row(row):
         if "array" in row:
             return row, np.asarray(row["array"], dtype=np.float32)
-        return row, load_audio(row["audio"], sample_rate=sample_rate)
+        return row, load_audio(row["audio"], start=row.get("start"), end=row.get("end"), sample_rate=sample_rate)
 
     if io_threads and io_threads > 1:
         from ssak_tpu_torch.data.prefetch import prefetch_map

@@ -1,5 +1,5 @@
 """Shared layers in PyTorch (counterpart of ssak_tpu.models.layers): the
-subset on the Whisper serving and wav2vec2-CTC training paths.
+subset on the Whisper serving and wav2vec2-CTC training and serving paths.
 
 Parameters live in small `nn.Module`s (Linear, QuantLinear, LayerNorm,
 Conv1d, MultiHeadAttention, MLP); the layer math is plain functions on
@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ssak_tpu_torch.ops.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
+from ssak_tpu_torch.ops.flash_attention import flash_self_attention
 from ssak_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_supported
 from ssak_tpu_torch.ops.int8_matmul import int4_dense_supported, int8_dense_supported, matmul_int4, matmul_int8
 
@@ -318,10 +320,32 @@ def decode_attention_bounded(q, kv, lo, hi, dtype=torch.bfloat16, scale=None):
     return decode_attention(q, kv["k"], kv["v"], mask=mask, dtype=dtype, scale=scale)
 
 
+# ssak_tpu's threshold, kept as it is: below it the unfused attention runs
+# (whose (B, H, T, T) f32 logits fit the card at the 30 s bucket)
+FLASH_MIN_SEQ = 4096
+
+
+def _can_flash(q, dtype) -> bool:
+    """Route full self-attention with a padding mask to L1: a CUDA tensor
+    in bf16 with Dh in (64, 128, 256), T >= FLASH_MIN_SEQ, and no gradient
+    needed. The last condition stands where ssak_tpu asks for the TPU
+    backend: L1's backward is not ported yet, so training at such lengths
+    keeps the unfused attention."""
+    return (
+        q.is_cuda
+        and dtype == torch.bfloat16
+        and q.dtype == torch.bfloat16
+        and q.shape[-1] in _FLASH_HEAD_DIMS
+        and q.shape[1] >= FLASH_MIN_SEQ
+        and not (torch.is_grad_enabled() and q.requires_grad)
+    )
+
+
 def mha(x, p, n_heads: int, mask=None, cache=None, cache_index=None,
         dtype=torch.bfloat16, lengths=None, attn_bounds=None):
     """Multi-head self-attention. Without a cache: full attention over x,
-    with an optional mask or padding `lengths`. With a decode cache ({k, v}
+    with an optional mask or padding `lengths` (without a mask, through the
+    fused kernel L1 where _can_flash holds). With a decode cache ({k, v}
     (B, H, Dh, L) or the int8 dict), cache_index and attn_bounds=(lo, hi):
     the step's k/v are written into the cache IN PLACE at cache_index and
     attention runs over [lo, hi] (decode_attention_bounded). Returns
@@ -350,9 +374,13 @@ def mha(x, p, n_heads: int, mask=None, cache=None, cache_index=None,
         return dense(merge_heads(y), p.out, dtype), cache
     k = split_heads(km, n_heads)
     v = split_heads(vm, n_heads)
-    if mask is None and lengths is not None:
-        mask = (torch.arange(k.shape[1], device=x.device)[None, :] < lengths[:, None])[:, None, None, :]
-    y = attention(q, k, v, mask=mask, dtype=dtype)
+    # full-sequence self-attention with only a padding mask -> fused kernel
+    if mask is None and _can_flash(q, dtype):
+        y = flash_self_attention(q, k, v, lengths=lengths)
+    else:
+        if mask is None and lengths is not None:
+            mask = (torch.arange(k.shape[1], device=x.device)[None, :] < lengths[:, None])[:, None, None, :]
+        y = attention(q, k, v, mask=mask, dtype=dtype)
     return dense(merge_heads(y), p.out, dtype), None
 
 

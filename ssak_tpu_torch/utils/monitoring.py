@@ -35,3 +35,11 @@ class ThroughputMeter:
     def audio_seconds_per_second(self) -> float:
         e = self.elapsed
         return self.audio_seconds / e if e > 0 else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "audio_seconds": round(self.audio_seconds, 3),
+            "wall_seconds": round(self.elapsed, 3),
+            "audio_seconds_per_second": round(self.audio_seconds_per_second, 3),
+            "steps": self.steps,
+        }
