@@ -4,7 +4,16 @@
 //                 + lp[t, ext[s]]                       (frozen for t >= t_len)
 //   ll          = logsumexp(alpha[last, 2L], alpha[last, max(2L-1, 0)]),  loss = -ll
 //   beta[t-1]   = logsumexp over s, s+1, s+2 (allowed) of beta[t] + lp[t, ext[.]]
-//   grad[t, v]  = -sum_{s : ext[s] = v} exp(alpha[t, s] + beta[t, s] - ll)   (t < t_len; 0 past it)
+//   g[t, s]     = exp(alpha[t, s] + beta[t, s] - ll)
+//   grad[t, v]  = -sum_{s : ext[s] = v} g[t, s] / sum_s g[t, s]   (t < t_len; 0 past it)
+//
+// The denominator is 1 in exact arithmetic (the posteriors of a frame sum to
+// one), and the TPU kernel leaves it out. In f32 it is not 1 at long T:
+// alpha and beta reach about -1e4 at T = 5,000-7,000, where one ulp is 1e-3,
+// so the rounding of alpha + beta - ll gives each frame its own scale error
+// of up to about 1% (against the same recursion in f64). Dividing each frame
+// by its own sum removes that scale error; the sum runs over every live
+// state, those of labels outside the vocabulary included.
 //
 // Replaces: ssak_tpu/ops/ctc_pallas.py:29 `_ctc_kernel` (launched by `_run_kernel`).
 // Same sentinel semantics: NEG = -1e30 (never -inf), a merge whose maximum is
@@ -35,8 +44,13 @@
 // front. Later work: split S across a cluster, run alpha and beta
 // concurrently, keep only every k-th alpha row.
 //
-// Shared memory: 4 S + 2 V words (alpha/beta rows x 2, ext, allow, bins x 2);
-// the wrapper raises where that exceeds what a block may use.
+// Each frame's sum of g is reduced per warp and added to one of three shared
+// words (row t's word is read when row t is flushed, one step later, and
+// cleared the step after that, so no step both reads and clears a word).
+//
+// Shared memory: 4 S + 2 V words (alpha/beta rows x 2, ext, allow, bins x 2)
+// and 3 static words; the wrapper raises where that exceeds what a block may
+// use.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +83,7 @@ __global__ void ctc_fused_kernel(const float* __restrict__ lp, const int* __rest
     float* bins0 = smem + 4 * S;              // gradient bins (ping-pong)
     float* bins1 = bins0 + V;
     __shared__ float ll_s;
+    __shared__ float zsum[3];  // sum_s g[t, s] of row t in zsum[t % 3]
 
     const int b = blockIdx.x;
     const int tid = threadIdx.x;
@@ -88,6 +103,7 @@ __global__ void ctc_fused_kernel(const float* __restrict__ lp, const int* __rest
         bins0[v] = 0.f;
         bins1[v] = 0.f;
     }
+    if (tid < 3) zsum[tid] = 0.f;
     // rows past the valid length get a zero gradient
     const int t_end = max(0, min(t_len, T));
     for (size_t i = (size_t)t_end * V + tid; i < (size_t)T * V; i += nt) gb[i] = 0.f;
@@ -145,21 +161,26 @@ __global__ void ctc_fused_kernel(const float* __restrict__ lp, const int* __rest
         float* bins = (t & 1) ? bins1 : bins0;
         float* done = (t & 1) ? bins0 : bins1;  // row t+1, summed in the previous step
         if (t < t_start) {
+            const float z = zsum[(t + 1) % 3];
             float* out = gb + (size_t)(t + 1) * V;
             for (int v = tid; v < V; v += nt) {
-                out[v] = done[v];
+                out[v] = z > 0.f ? done[v] / z : 0.f;
                 done[v] = 0.f;
             }
+            if (tid == 0) zsum[(t + 2) % 3] = 0.f;  // row t+2's word, read in the previous step; row t-1's next
         }
         const float* row = lpb + (size_t)t * V;
         const float* arow = ab + (size_t)t * S;
+        float z = 0.f;
         for (int s = tid; s < S; s += nt) {
             if (s >= n_valid) {  // alpha = beta = NEG there: exp(...) is exactly 0
                 bnext[s] = NEG;
                 continue;
             }
             const float be = bcur[s];
-            if ((unsigned)ext_s[s] < (unsigned)V) atomicAdd(&bins[ext_s[s]], -expf(arow[s] + be - ll));
+            const float g = expf(arow[s] + be - ll);
+            z += g;
+            if ((unsigned)ext_s[s] < (unsigned)V) atomicAdd(&bins[ext_s[s]], -g);
             if (t > 0) {
                 const float n0 = be + emission(row, ext_s[s], V);
                 const float n1 = s + 1 < S ? bcur[s + 1] + emission(row, ext_s[s + 1], V) : NEG;
@@ -167,9 +188,12 @@ __global__ void ctc_fused_kernel(const float* __restrict__ lp, const int* __rest
                 bnext[s] = lse3(n0, n1, n2);
             }
         }
+        for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
+        if ((tid & 31) == 0) atomicAdd(&zsum[t % 3], z);
         __syncthreads();
     }
-    for (int v = tid; v < V; v += nt) gb[v] = bins0[v];
+    const float z0 = zsum[0];
+    for (int v = tid; v < V; v += nt) gb[v] = z0 > 0.f ? bins0[v] / z0 : 0.f;
 }
 
 }  // namespace

@@ -39,7 +39,12 @@
 // distinct banks. The S accumulator turns into P's A fragments in
 // registers; the online softmax keeps (m, l) per row in registers and
 // rescales the O accumulator by exp(m_old - m_new) per tile; O / l is
-// written once, in bf16.
+// written once, in bf16. When asked (m and l not null, as the autograd
+// Function asks for training), the final row max m and row sum l over
+// [0, Tp), the zero keys past T included, are written in f32 (B, H, T): the
+// residuals the backward kernels (flash_attention_bwd.cu) take, as the
+// library saves them (`save_residuals`). Serving passes null and writes
+// nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +128,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ lengths, bf16* __restrict__ out, int T, int Tp, int H,
+    const int* __restrict__ lengths, bf16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+    int T, int Tp, int H,
     long long qsb, long long qst, long long qsh, long long ksb, long long kst, long long ksh,
     long long vsb, long long vst, long long vsh, float scale) {
     constexpr int BN = Tile<D>::BN, LD = Tile<D>::LD;
@@ -254,6 +260,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    if (m_out != nullptr && tq == 0) {  // the backward's residuals, (B, H, T) f32
+        const long long r = ((long long)b * H + h) * T;
+        if (row0 < T) m_out[r + row0] = m0, l_out[r + row0] = l0;
+        if (row1 < T) m_out[r + row1] = m1, l_out[r + row1] = l1;
+    }
     // out: contiguous (B, T, H, D)
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
@@ -268,8 +279,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* out, int B, int T, int H,
-           const long long* qs, const long long* ks, const long long* vs, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, const void* lengths, void* out, void* m, void* l, int B, int T,
+           int H, const long long* qs, const long long* ks, const long long* vs, float scale, void* stream) {
     constexpr int smem = Tile<D>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -277,8 +288,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
     dim3 grid((T + BM - 1) / BM, H, B);
     flash_fwd_kernel<D><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const int*>(lengths), static_cast<bf16*>(out), T, Tp, H, qs[0], qs[1], qs[2], ks[0], ks[1],
-        ks[2], vs[0], vs[1], vs[2], scale);
+        static_cast<const int*>(lengths), static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l), T,
+        Tp, H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
     return (int)cudaGetLastError();
 }
 
@@ -286,16 +297,19 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 
 // q, k, v: bf16 (B, T, H, D) with element strides (batch, time, head) and a
 // contiguous last dimension, 16-byte aligned rows; lengths: int32 (B,) or
-// null (no mask); out: contiguous bf16 (B, T, H, D). Returns a cudaError_t.
+// null (no mask); out: contiguous bf16 (B, T, H, D); m, l: f32 (B, H, T), both
+// null or both set (the row max and row sum, for the backward). Returns a
+// cudaError_t.
 extern "C" int ssak_flash_attention_fwd(const void* q, const void* k, const void* v, const void* lengths, void* out,
+                                        void* m, void* l,
                                         int B, int T, int H, int D, long long qsb, long long qst, long long qsh,
                                         long long ksb, long long kst, long long ksh, long long vsb, long long vst,
                                         long long vsh, float scale, void* stream) {
     const long long qs[3] = {qsb, qst, qsh}, ks[3] = {ksb, kst, ksh}, vs[3] = {vsb, vst, vsh};
     switch (D) {
-        case 64: return launch<64>(q, k, v, lengths, out, B, T, H, qs, ks, vs, scale, stream);
-        case 128: return launch<128>(q, k, v, lengths, out, B, T, H, qs, ks, vs, scale, stream);
-        case 256: return launch<256>(q, k, v, lengths, out, B, T, H, qs, ks, vs, scale, stream);
+        case 64: return launch<64>(q, k, v, lengths, out, m, l, B, T, H, qs, ks, vs, scale, stream);
+        case 128: return launch<128>(q, k, v, lengths, out, m, l, B, T, H, qs, ks, vs, scale, stream);
+        case 256: return launch<256>(q, k, v, lengths, out, m, l, B, T, H, qs, ks, vs, scale, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -30,7 +30,7 @@ _SEEDED_CTC_CHARS = "abcdefghijklmnopqrstuvwxyz'-éèàùâêîôûç0123456789"
 
 class LoadedModel:
     """Bundle of (type, module, config, device, tokenizer). Whisper models
-    carry no tokenizer yet (slice 5)."""
+    carry no tokenizer yet (slice 6)."""
 
     def __init__(self, model_type, module, cfg, device, tokenizer=None):
         self.type = model_type

@@ -321,23 +321,21 @@ def decode_attention_bounded(q, kv, lo, hi, dtype=torch.bfloat16, scale=None):
 
 
 # ssak_tpu's threshold, kept as it is: below it the unfused attention runs
-# (whose (B, H, T, T) f32 logits fit the card at the 30 s bucket)
+# (whose (B, H, T, T) f32 logits fit the card at the 30 s bucket), from it
+# on L1, forward and, in training, backward
 FLASH_MIN_SEQ = 4096
 
 
 def _can_flash(q, dtype) -> bool:
-    """Route full self-attention with a padding mask to L1: a CUDA tensor
-    in bf16 with Dh in (64, 128, 256), T >= FLASH_MIN_SEQ, and no gradient
-    needed. The last condition stands where ssak_tpu asks for the TPU
-    backend: L1's backward is not ported yet, so training at such lengths
-    keeps the unfused attention."""
+    """Route full self-attention with a padding mask to L1 (forward and
+    backward): ssak_tpu's predicate with its TPU backend read as a CUDA
+    tensor, i.e. bf16 with Dh in (64, 128, 256) and T >= FLASH_MIN_SEQ."""
     return (
         q.is_cuda
         and dtype == torch.bfloat16
         and q.dtype == torch.bfloat16
         and q.shape[-1] in _FLASH_HEAD_DIMS
         and q.shape[1] >= FLASH_MIN_SEQ
-        and not (torch.is_grad_enabled() and q.requires_grad)
     )
 
 

@@ -2,7 +2,7 @@
 
 HF wav2vec2-style vocab.json: token -> id; '|' is the word delimiter; the id
 of '<pad>' is the CTC blank. The Whisper BPE tokenizer comes with the port
-of checkpoint loading (ROADMAP.md slice 5).
+of checkpoint loading (ROADMAP.md slice 6).
 """
 
 import json

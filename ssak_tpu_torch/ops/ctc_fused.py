@@ -11,8 +11,12 @@ launch, so autograd never replays the recursion. The CUDA kernel is
 for CPU tensors and by the on-card comparison.
 
 Gradient identity (log domain, beta excluding the emission at t):
-  gamma[t, s] = alpha[t, s] + beta[t, s]
-  d loss / d log_probs[t, v] = -sum_{s: ext[s] = v} exp(gamma[t, s] - ll)
+  gamma[t, s] = alpha[t, s] + beta[t, s],  g[t, s] = exp(gamma[t, s] - ll)
+  d loss / d log_probs[t, v] = -sum_{s: ext[s] = v} g[t, s] / sum_s g[t, s]
+The denominator is 1 in exact arithmetic; ssak_tpu's kernel leaves it out.
+In f32 at T of 5,000-7,000 frames (|alpha| about 1e4, one ulp 1e-3) the
+rounding of gamma - ll gives each frame a scale error of up to about 1%,
+which the division removes (the kernel's header says more).
 """
 
 import ctypes
@@ -53,13 +57,16 @@ def _zero_infinity(loss, grad, logit_lengths, label_lengths):
     return torch.where(ok, loss, 0.0), torch.where(ok[:, None, None], grad, 0.0)
 
 
-def ctc_fused_reference(log_probs, logit_lengths, labels, label_lengths, blank_id: int = 0, zero_infinity: bool = True):
-    """Plain version of the kernel (ssak_tpu's `_fwd_impl`): log_probs
-    (B, T, V), logit_lengths (B,), labels (B, U), label_lengths (B,) ->
-    (loss (B,) f32, grad (B, T, V) f32). Label lengths are clamped to
-    [0, U], as the kernel does; a label outside [0, V) emits 0 and gets no
-    gradient (the Pallas kernel's one-hot product)."""
-    lp = log_probs.to(torch.float32)
+def ctc_fused_reference(log_probs, logit_lengths, labels, label_lengths, blank_id: int = 0, zero_infinity: bool = True,
+                        dtype=torch.float32):
+    """Plain version of the kernel (ssak_tpu's `_fwd_impl`, each frame's
+    gradient divided by its sum): log_probs (B, T, V), logit_lengths (B,),
+    labels (B, U), label_lengths (B,) -> (loss (B,), grad (B, T, V)) in
+    `dtype` (f32, as the kernel computes; f64 gives a witness of the f32
+    rounding). Label lengths are clamped to [0, U], as the kernel does; a
+    label outside [0, V) emits 0 and gets no gradient (the Pallas kernel's
+    one-hot product)."""
+    lp = log_probs.to(dtype)
     B, T, V = lp.shape
     ext, allow = _prepare(labels, blank_id)
     S = ext.shape[1]
@@ -71,7 +78,7 @@ def ctc_fused_reference(log_probs, logit_lengths, labels, label_lengths, blank_i
     t_len = logit_lengths.long()[:, None]
     valid = s_idx < 2 * L[:, None] + 1
     skip = allow.bool()
-    neg = torch.full((B, S), NEG, dtype=torch.float32, device=lp.device)
+    neg = torch.full((B, S), NEG, dtype=dtype, device=lp.device)
 
     a = torch.where((s_idx < 2) & valid, emit[:, 0], neg)
     alphas = [a]
@@ -92,7 +99,7 @@ def ctc_fused_reference(log_probs, logit_lengths, labels, label_lengths, blank_i
 
     beta = torch.where(valid & ((s_idx == end1[:, None]) | (s_idx == end2[:, None])), 0.0, neg)
     skip_n2 = F.pad(skip, (0, 2), value=False)[:, 2:]
-    contrib = torch.zeros(B, T, S, dtype=torch.float32, device=lp.device)
+    contrib = torch.zeros(B, T, S, dtype=dtype, device=lp.device)
     for t in range(T - 1, -1, -1):
         live = t < t_len
         contrib[:, t] = torch.where(live, -torch.exp(alpha[:, t] + beta - ll[:, None]), 0.0)
@@ -101,8 +108,10 @@ def ctc_fused_reference(log_probs, logit_lengths, labels, label_lengths, blank_i
         n2 = torch.where(skip_n2, F.pad(be, (0, 2), value=NEG)[:, 2:], neg)
         merged = torch.where(valid, _lse3(be, n1, n2), neg)
         beta = torch.where(live, merged, beta)
-    grad = torch.zeros(B, T, V, dtype=torch.float32, device=lp.device)
+    z = -contrib.sum(dim=2, keepdim=True)  # each frame's posterior mass, every state included
+    grad = torch.zeros(B, T, V, dtype=dtype, device=lp.device)
     grad.scatter_add_(2, ext64[:, None, :].expand(B, T, S), torch.where(in_vocab, contrib, 0.0))
+    grad = torch.where(z > 0, grad / torch.where(z > 0, z, 1.0), 0.0)
     loss = -ll
     if zero_infinity:
         loss, grad = _zero_infinity(loss, grad, logit_lengths, label_lengths)

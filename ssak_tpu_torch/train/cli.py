@@ -10,8 +10,8 @@ ssak_config.json for provenance; resume from the last checkpoint. Without
 vocabulary built from the training text. Runs on cuda unless --device cpu.
 
 Not ported yet, refused at start: --config / --set (YAML configs),
---base_model (HF and NeMo checkpoints, ROADMAP.md slice 5 / 6),
---data_augment (slice 7), --use_manifest_cache, and the ar / ru text
+--base_model (HF and NeMo checkpoints, ROADMAP.md slice 6 / 7),
+--data_augment (slice 8), --use_manifest_cache, and the ar / ru text
 normalizers.
 """
 
@@ -77,9 +77,9 @@ def _refuse_unported(args):
     if args.config or args.overrides:
         raise NotImplementedError("--config / --set (YAML configs) are not ported yet (ROADMAP.md)")
     if args.base_model:
-        raise NotImplementedError("--base_model (HF / NeMo checkpoint import) is not ported yet (ROADMAP.md slices 5, 6)")
+        raise NotImplementedError("--base_model (HF / NeMo checkpoint import) is not ported yet (ROADMAP.md slices 6, 7)")
     if args.data_augment:
-        raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 7)")
+        raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 8)")
     if args.use_manifest_cache:
         raise NotImplementedError("--use_manifest_cache is not ported yet (ROADMAP.md)")
     if args.language.split("-")[0].lower() not in LATIN_LANGUAGES:

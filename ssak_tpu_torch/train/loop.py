@@ -11,7 +11,7 @@ points.
 
 Runs on `device` (default cuda, via resolve_device; raises without a card
 unless device="cpu"). Not ported here: waveform augmentation (`augmenter`,
-ROADMAP.md slice 7) and the conformer family (slice 6), which raise.
+ROADMAP.md slice 8) and the conformer family (slice 7), which raise.
 """
 
 import json
@@ -80,7 +80,7 @@ class CTCTrainer:
     ):
         """model: a Wav2Vec2Model (moved to `device`)."""
         if augmenter is not None:
-            raise NotImplementedError("waveform augmentation is not ported yet (ROADMAP.md slice 7)")
+            raise NotImplementedError("waveform augmentation is not ported yet (ROADMAP.md slice 8)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer

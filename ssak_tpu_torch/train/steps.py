@@ -15,8 +15,8 @@ feature encoder the conv stack runs without autograd and its weights get
 zero gradients, but they stay in the optimizer, so AdamW's decoupled decay
 still shrinks them, exactly as in ssak_tpu.
 
-The Whisper step comes with LoRA (ROADMAP.md slice 7); the conformer family
-with its model (slice 6).
+The Whisper step comes with LoRA (ROADMAP.md slice 8); the conformer family
+with its model (slice 7).
 """
 
 import torch
@@ -154,7 +154,7 @@ def init_train_state(model, optimizer):
 
 def _check_family(family):
     if family != "wav2vec2":
-        raise NotImplementedError(f"CTC family {family!r} is not ported yet (the conformer comes with ROADMAP.md slice 6)")
+        raise NotImplementedError(f"CTC family {family!r} is not ported yet (the conformer comes with ROADMAP.md slice 7)")
 
 
 def _cudnn_benchmark():

@@ -10,7 +10,7 @@ padded length in f32, p rounded to bf16 against the global row max); the
 library kernel rounds p against a running row max per 128-key block and
 sums in another order. Both give bf16 outputs: held to 1e-2 absolute on
 every row, pad rows included (outputs are O(1); one bf16 step is 2**-8
-relative)."""
+relative). The backward is in test_torch_flash_attention_bwd.py."""
 
 import types
 
@@ -92,11 +92,16 @@ def test_valid_rows_equal_unfused_attention_and_pad_rows_see_pad_keys():
 
 
 def test_backward_raises_and_inputs_are_checked():
+    """The backward runs once; as the library's VJP, it is not
+    differentiable again (double backward raises)."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 64, 2, 64, seed=1))
     q.requires_grad_(True)
     out = L1.flash_self_attention(q, k, v, torch.tensor([40]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.float().sum().backward()
+    go = torch.ones_like(out, requires_grad=True)
+    (g,) = torch.autograd.grad(out, q, go, create_graph=True)
+    assert g.shape == q.shape and g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.float().sum().backward()
     with pytest.raises(ValueError, match="shape"):
         L1.flash_self_attention(q.detach(), k[:, :32], v)
     with pytest.raises(ValueError, match="one entry per row"):
@@ -110,7 +115,8 @@ def _stand_in(T, Dh, dtype=torch.bfloat16, is_cuda=True, requires_grad=False):
 
 def test_can_flash_mirrors_the_jax_predicate(monkeypatch):
     """On the card the predicate is ssak_tpu's with the TPU backend replaced
-    by: a CUDA tensor that needs no gradient; the threshold is the same."""
+    by a CUDA tensor; the threshold is the same, and a tensor that needs a
+    gradient (training) routes to L1 too."""
     assert L.FLASH_MIN_SEQ == JL.FLASH_MIN_SEQ == 4096
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
@@ -121,9 +127,10 @@ def test_can_flash_mirrors_the_jax_predicate(monkeypatch):
     assert L._can_flash(_stand_in(7001, 64), torch.bfloat16)
     assert not L._can_flash(_stand_in(7001, 64, is_cuda=False), torch.bfloat16)
     assert not L._can_flash(torch.zeros(1, 4096, 1, 64, dtype=torch.bfloat16), torch.bfloat16)  # a CPU tensor
-    assert not L._can_flash(_stand_in(7001, 64, requires_grad=True), torch.bfloat16)  # training keeps unfused
+    assert L._can_flash(_stand_in(7001, 64, requires_grad=True), torch.bfloat16)  # training routes to L1 too
     with torch.no_grad():
         assert L._can_flash(_stand_in(7001, 64, requires_grad=True), torch.bfloat16)
+    assert not L._can_flash(_stand_in(7001, 64, torch.float32, requires_grad=True), torch.float32)  # f32 stays unfused
 
 
 @pytest.mark.parametrize("stable", [False, True])
