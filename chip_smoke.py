@@ -53,6 +53,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -112,13 +113,26 @@ def n_copies(bytes_per_set):
 
 
 def check_matmul_int8(torch, dev):
+    """K2 against its plain version on the card. Both compute exact products
+    of bf16 values in f32 and differ only in the order of the sums: 1e-3 of
+    max|ref|. Checked at the six timed shapes (M = 24, 40 at the decoder's
+    three (K, N)), odd M with a partial 64-column tile and 8-byte weight
+    rows (N % 16 != 0), every M from 1 to 64 at (1280, 1280) (each 16-row
+    group count the kernel instantiates), a ragged last K stage with both
+    copy widths, and the one-block case. At each timed shape: two launches
+    bit-identical (split-K summed in rank order, no atomics), one call
+    allocates nothing but y, and the plan (block_n, splits) and the share of
+    the bound are logged."""
     from ssak_tpu_torch.models.quant import quantize_kernel
     from ssak_tpu_torch.ops import int8_matmul as IM
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows, worst = [], 0.0
     shapes = [(m, k, n) for m in (24, 40) for (k, n) in ((1280, 1280), (1280, 5120), (5120, 1280))]
-    for M, K, N in shapes + [(5, 1280, 1288)]:  # last: odd M and a partial 64-column tile
+    extra = [(5, 1280, 1288)]  # odd M and a partial 64-column tile
+    extra += [(m, 1280, 1280) for m in range(1, 65) if m not in (24, 40)]
+    extra += [(33, 1288, 1280), (64, 1288, 1288), (1, 8, 8)]
+    for M, K, N in shapes + extra:
         x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
         q8, scale = quantize_kernel(torch.randn(K, N, generator=g, device=dev) * 0.05)
         y = IM.matmul_int8(x, q8, scale)
@@ -131,17 +145,33 @@ def check_matmul_int8(torch, dev):
         worst = max(worst, err)
         if (M, K, N) not in shapes:
             continue
+        n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        again = IM.matmul_int8(x, q8, scale)
+        n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - n_alloc
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"matmul_int8 M={M} K={K} N={N}: two launches differ")
+        if n_alloc != 1:
+            raise AssertionError(f"matmul_int8 M={M} K={K} N={N}: a call made {n_alloc} allocations, want 1 (y)")
         sets = [(x, q8.clone(), scale.clone()) for _ in range(n_copies(K * N))]
         wdq = [(x, a[1].to(torch.bfloat16), a[2]) for a in sets]  # the dequantized bf16 weight
+        block_n, splits, _per = IM.int8_plan(M, K, N)
         row = dict(
-            M=M, K=K, N=N, max_abs_err=err,
+            M=M, K=K, N=N, block_n=block_n, splits=splits, max_abs_err=err,
             ms=time_ms(torch, IM.matmul_int8, sets),
             plain_ms=time_ms(torch, IM.matmul_int8_reference, sets),
             library_ms=time_ms(torch, lambda a, w, s: torch.matmul(a, w) * s, wdq),
         )
         row["bound_ms"], row["bound_by"] = bound(M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        log(f"matmul_int8 {row}")
+        log(f"matmul_int8 {row}; repeat bit-identical")
+    log(f"matmul_int8: {len(shapes) + len(extra)} shapes within 1e-3 of max|ref|")
+    # card ms of K2 per int8 decode step at M = 24: per layer 6 denses of
+    # 1280 x 1280 (self q/k/v/o, cross q/o), fc1 1280 x 5120, fc2 5120 x 1280; 32 layers
+    t = {(r["K"], r["N"]): r["ms"] for r in rows if r["M"] == 24}
+    log(f"matmul_int8 card ms per int8 decode step (M=24, 32 layers): "
+        f"{32 * (6 * t[1280, 1280] + t[1280, 5120] + t[5120, 1280])}")
     return rows, worst
 
 
@@ -1550,6 +1580,10 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if "int8_matmul" in _build.build_log:  # built in this run: K2's ptxas report must show no spills
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log["int8_matmul"][1])
+        if not spills or any(a != "0" or b != "0" for a, b in spills):
+            raise AssertionError(f"int8_matmul spills registers: {spills}")
 
     log("phase 2: kernels against their plain versions")
     k2_rows, k2_err = check_matmul_int8(torch, dev)

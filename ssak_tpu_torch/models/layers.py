@@ -329,11 +329,12 @@ FLASH_MIN_SEQ = 4096
 def _can_flash(q, dtype) -> bool:
     """Route full self-attention with a padding mask to L1 (forward and
     backward): ssak_tpu's predicate with its TPU backend read as a CUDA
-    tensor, i.e. bf16 with Dh in (64, 128, 256) and T >= FLASH_MIN_SEQ."""
+    tensor, i.e. a bf16 compute dtype with Dh in (64, 128, 256) and
+    T >= FLASH_MIN_SEQ. Like ssak_tpu's, it reads the compute dtype and
+    not q's own (dense returns the compute dtype on every path)."""
     return (
         q.is_cuda
         and dtype == torch.bfloat16
-        and q.dtype == torch.bfloat16
         and q.shape[-1] in _FLASH_HEAD_DIMS
         and q.shape[1] >= FLASH_MIN_SEQ
     )

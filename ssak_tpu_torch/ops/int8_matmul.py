@@ -13,6 +13,7 @@ functions, used for CPU tensors and by the on-card comparison.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,13 +39,54 @@ def _kernel(name):
     if name not in _fns:
         if name == "int8":
             fn = _build.library("int8_matmul").ssak_int8_matmul
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         else:
             fn = _build.library("int4_matmul").ssak_int4_matmul
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+INT8_BN = 64  # output columns per block (csrc/int8_matmul.cu)
+INT8_KSTEP = 128  # k rows per ring stage; every K slice is a run of whole stages
+INT8_MAX_SPLITS = 8  # the slices of a column tile form one cluster: the portable size
+INT8_MIN_BLOCKS = 132  # one block per SM of the H100
+# at most ~1.2 blocks an SM where that reaches INT8_MIN_BLOCKS: a cluster's
+# blocks share a GPC and pack unevenly there, so a larger grid can spill into
+# a second wave
+INT8_MAX_BLOCKS = 160
+
+
+def int8_slices(K: int, splits: int) -> list:
+    """The K rows [lo, hi) of each slice, as the kernel cuts them: slice r
+    takes stages [r*T // splits, (r+1)*T // splits) of the T = ceil(K /
+    INT8_KSTEP), the last one ending at K."""
+    T = -(-K // INT8_KSTEP)
+    return [(r * T // splits * INT8_KSTEP, min(K, (r + 1) * T // splits * INT8_KSTEP)) for r in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(M: int, K: int, N: int) -> tuple:
+    """(block_n, splits, k_per_split): the kernel's grid, column tiles of
+    block_n times `splits` K slices (int8_slices: whole stages of
+    INT8_KSTEP rows, every slice non-empty), at most INT8_MAX_SPLITS;
+    k_per_split is the longest slice, which sizes the block's ring. The
+    most splits within INT8_MAX_BLOCKS blocks (the shortest slices, so that
+    a block's whole slice fits its ring and every load is in flight at
+    once); if those leave SMs idle, the fewest that fill them
+    (INT8_MIN_BLOCKS). The tiling does not depend on M (the weight bytes
+    bound the kernel), which is only checked. The kernel takes the plan as
+    given."""
+    if not 1 <= M <= MAX_M or K < 1 or N < 1 or K % 8 or N % 8:
+        raise ValueError(f"int8_plan: kernel takes 1<=M<={MAX_M}, K%8==0, N%8==0; got M={M} K={K} N={N}")
+    T = -(-K // INT8_KSTEP)
+    tiles = -(-N // INT8_BN)
+    cap = min(INT8_MAX_SPLITS, T)
+    splits = max(1, min(cap, INT8_MAX_BLOCKS // tiles))
+    if tiles * splits < INT8_MIN_BLOCKS:
+        splits = min(cap, -(-INT8_MIN_BLOCKS // tiles))
+    return INT8_BN, splits, -(-T // splits) * INT8_KSTEP
 
 
 def matmul_int8(x, q8, scale):
@@ -76,9 +118,10 @@ def matmul_int8(x, q8, scale):
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:  # the kernel reads x in 16-byte words
         xb = xb.clone()
+    block_n, splits, per = int8_plan(M, K, N)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = _kernel("int8")(xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
-                   _build.stream_ptr(x.device))
+                         block_n, splits, per, _build.stream_ptr(x.device))
     _build.check(rc, "matmul_int8")
     LAUNCHES["matmul_int8"] += 1
     return y
