@@ -11,8 +11,10 @@ and prints no result):
              the kernel, the plain version and one library call, and the
              least time the card could take (bytes or operations bound);
              K1 at the 140 s bucket also against the same recursion in
-             f64; L1's backward (dK/dV and dQ) through autograd,
-             bit-identical on repeat
+             f64; K2 and K3 at every M from 1 to 64, bit-identical on
+             repeat with one allocation a call at their timed shapes, no
+             register spills in their ptxas reports; L1's backward (dK/dV
+             and dQ) through autograd, bit-identical on repeat
   3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
              files listed in a Kaldi dir, bf16, --load_in_8bit and
              --load_in_4bit; the --load_in_4bit --accurate chain (beam 5,
@@ -189,13 +191,16 @@ def int4_rows():
 
 def check_matmul_int4(torch, dev):
     """K3 against its plain version at the slice's three large-v3 sites.
-    Checked at every M from 1 to 64 (every register-blocking width MR =
-    ceil(M/8) the kernel instantiates, full and partial row groups, hence
-    every row count the fallback and seek loops can reach), plus odd M with
-    a partial column tile and a contraction of 4 chunks; timed at the row
-    counts of phase 3's int4 paths (int4_rows). Both compute exact products
-    of bf16 values in f32; only the order of the sums differs: 1e-4 of
-    max|y|."""
+    Checked at every M from 1 to 64 (each 16-row group count the kernel
+    instantiates, full and partial groups, hence every row count the
+    fallback and seek loops can reach), plus odd M with a partial 64-column
+    tile and 8-byte packed rows (N % 16 != 0), and a contraction of one
+    stage; timed at the row counts of phase 3's int4 paths (int4_rows).
+    Both compute exact products of bf16 values in f32; only the order of
+    the sums differs: 1e-4 of max|y|. At each timed shape: two launches
+    bit-identical (split-K summed in rank order, no atomics), one call
+    allocates nothing but y, and the plan (block_n, splits) and the share of
+    the bound are logged."""
     from ssak_tpu_torch.models.quant import dequantize_int4, quantize_kernel
     from ssak_tpu_torch.ops import int8_matmul as IM
 
@@ -219,22 +224,38 @@ def check_matmul_int4(torch, dev):
             site_err = max(site_err, err)
             if M not in timed_m or len(ms) == 1:
                 continue
+            n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+            again = IM.matmul_int4(x, q4, scale)
+            n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - n_alloc
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise AssertionError(f"matmul_int4 M={M} K={K} N={N}: two launches differ")
+            if n_alloc != 1:
+                raise AssertionError(f"matmul_int4 M={M} K={K} N={N}: a call made {n_alloc} allocations, want 1 (y)")
             sets = [(x, q4.clone(), scale.clone()) for _ in range(n_copies(K * N // 2))]
             wdq = [(x, dequantize_int4(a[1], a[2], torch.bfloat16)) for a in sets]
+            block_n, splits, _per = IM.int4_plan(M, K, N)
             row = dict(
-                M=M, K=K, N=N, splits=IM.int4_split_plan(K // 2, N)[0], max_abs_err=err,
+                M=M, K=K, N=N, block_n=block_n, splits=splits, max_abs_err=err,
                 ms=time_ms(torch, IM.matmul_int4, sets),
                 plain_ms=time_ms(torch, IM.matmul_int4_reference, sets),
                 library_ms=time_ms(torch, torch.matmul, wdq),
             )
             # packed weights + block scales + x read once, y written once
             row["bound_ms"], row["bound_by"] = bound(K * N // 2 + (K // 64) * N * 4 + M * K * 2 + M * N * 4, 2 * M * K * N)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             rows.append(row)
-            log(f"matmul_int4 {row}")
+            log(f"matmul_int4 {row}; repeat bit-identical")
             del sets, wdq
-        log(f"matmul_int4 K={K} N={N} splits={IM.int4_split_plan(K // 2, N)[0]}: checked at M={min(ms)}..{max(ms)}, "
+        log(f"matmul_int4 K={K} N={N} plan={IM.int4_plan(min(ms), K, N)}: checked at M={min(ms)}..{max(ms)}, "
             f"max|err| {site_err}")
         worst = max(worst, site_err)
+    # card ms of K3 per int4 decode step at M = 32: per layer 6 denses of
+    # 1280 x 1280 (self q/k/v/o, cross q/o), fc1 1280 x 5120, fc2 5120 x 1280; 32 layers
+    t = {(r["K"], r["N"]): r["ms"] for r in rows if r["M"] == 32}
+    if len(t) == 3:
+        log(f"matmul_int4 card ms per int4 decode step (M=32, 32 layers): "
+            f"{32 * (6 * t[1280, 1280] + t[1280, 5120] + t[5120, 1280])}")
     return rows, worst
 
 
@@ -1580,10 +1601,11 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    if "int8_matmul" in _build.build_log:  # built in this run: K2's ptxas report must show no spills
-        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log["int8_matmul"][1])
-        if not spills or any(a != "0" or b != "0" for a, b in spills):
-            raise AssertionError(f"int8_matmul spills registers: {spills}")
+    for name in ("int8_matmul", "int4_matmul"):  # built in this run: K2's and K3's ptxas reports show no spills
+        if name in _build.build_log:
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log[name][1])
+            if not spills or any(a != "0" or b != "0" for a, b in spills):
+                raise AssertionError(f"{name} spills registers: {spills}")
 
     log("phase 2: kernels against their plain versions")
     k2_rows, k2_err = check_matmul_int8(torch, dev)

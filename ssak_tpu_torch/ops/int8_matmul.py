@@ -42,7 +42,7 @@ def _kernel(name):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         else:
             fn = _build.library("int4_matmul").ssak_int4_matmul
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -144,9 +144,8 @@ def int8_dense_supported(x, q8) -> bool:
 
 # --- int4: fused unpack-dequantize-matmul (K3) --------------------------------
 
-INT4_BN = 128  # output columns per block (csrc/int4_matmul.cu)
-INT4_KC = 16  # packed rows per K chunk (32 weight rows, half a scale block)
-INT4_TARGET_BLOCKS = 264  # two blocks per SM of the H100's 132
+INT4_BN = 64  # output columns per block (csrc/int4_matmul.cu)
+INT4_KSTEP = 128  # weight rows per ring stage: two whole scale blocks; every K slice is a run of whole stages
 
 
 def matmul_int4_reference(x, q4, scale):
@@ -161,15 +160,35 @@ def matmul_int4_reference(x, q4, scale):
     return torch.matmul(xb, dequantize_int4(q4, scale, torch.bfloat16).to(torch.float32))
 
 
-def int4_split_plan(K2: int, N: int) -> tuple:
-    """(splits, chunks per split): the K ranges the kernel splits the
-    contraction into, enough blocks to fill the card (INT4_TARGET_BLOCKS),
-    every range non-empty. The kernel takes both as given."""
-    n_chunks = K2 // INT4_KC
-    tiles = -(-N // INT4_BN)
-    want = max(1, min(n_chunks, -(-INT4_TARGET_BLOCKS // tiles)))
-    per = -(-n_chunks // want)
-    return -(-n_chunks // per), per
+@functools.lru_cache(maxsize=None)
+def int4_slices(K: int, splits: int) -> tuple:
+    """The weight rows [lo, hi) of each slice, as the kernel cuts them:
+    slice r takes stages [r*T // splits, (r+1)*T // splits) of the T =
+    ceil(K / INT4_KSTEP), the last one ending at K. A stage holds whole
+    scale blocks, so no scale block straddles two slices."""
+    T = -(-K // INT4_KSTEP)
+    return tuple((r * T // splits * INT4_KSTEP, min(K, (r + 1) * T // splits * INT4_KSTEP)) for r in range(splits))
+
+
+@functools.lru_cache(maxsize=None)
+def int4_plan(M: int, K: int, N: int) -> tuple:
+    """(block_n, splits, k_per_split): the kernel's grid, column tiles of
+    block_n times `splits` slices of the K weight rows (int4_slices: whole
+    stages of INT4_KSTEP rows, every slice non-empty); k_per_split is the
+    longest slice, which sizes the block's ring. A block walks its slice
+    stage after stage, so the plan takes the shortest longest slice that a
+    grid of at most INT8_MAX_BLOCKS blocks and clusters of at most
+    INT8_MAX_SPLITS allow, and of those the fewest splits (fewer blocks
+    than SMs then leaves none with two, and the cluster's sum is cheaper).
+    The tiling does not depend on M (the weight bytes bound the kernel),
+    which is only checked. The kernel takes the plan as given."""
+    if not 1 <= M <= MAX_M or K < 2 * INT4_SUB or N < 8 or K % (2 * INT4_SUB) or N % 8:
+        raise ValueError(f"int4_plan: kernel takes 1<=M<={MAX_M}, K%{2 * INT4_SUB}==0, N%8==0; "
+                         f"got M={M} K={K} N={N}")
+    T = -(-K // INT4_KSTEP)
+    cap = max(1, min(INT8_MAX_SPLITS, T, INT8_MAX_BLOCKS // -(-N // INT4_BN)))
+    splits = min(range(1, cap + 1), key=lambda s: (-(-T // s), s))
+    return INT4_BN, splits, -(-T // splits) * INT4_KSTEP
 
 
 def matmul_int4(x, q4, scale):
@@ -207,11 +226,10 @@ def matmul_int4(x, q4, scale):
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:  # the kernel reads x in 16-byte words
         xb = xb.clone()
+    block_n, splits, per = int4_plan(M, K, N)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    splits, per = int4_split_plan(K2, N)
-    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else y
-    rc = _kernel("int4")(xb.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(), part.data_ptr(),
-                         M, K, N, splits, per, _build.stream_ptr(x.device))
+    rc = _kernel("int4")(xb.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
+                         block_n, splits, per, _build.stream_ptr(x.device))
     _build.check(rc, "matmul_int4")
     LAUNCHES["matmul_int4"] += 1
     return y

@@ -99,18 +99,6 @@ def test_matmul_int4_plain_matches_jax(M, K, N):
     assert torch.equal(flat, got)
 
 
-def test_int4_splits_fill_the_card_and_cover_k():
-    """The split-K plan at the slice's three sites: a few hundred blocks of
-    128 columns, every split non-empty, every 16-row chunk covered."""
-    for K, N in ((1280, 1280), (1280, 5120), (5120, 1280), (128, 256)):
-        K2 = K // 2
-        s, per = IM.int4_split_plan(K2, N)
-        n_chunks = K2 // IM.INT4_KC
-        assert 1 <= s <= n_chunks and (s - 1) * per < n_chunks <= s * per
-        blocks = s * -(-N // IM.INT4_BN)
-        assert blocks <= 2 * IM.INT4_TARGET_BLOCKS and (blocks >= 132 or s == n_chunks)
-
-
 @pytest.mark.parametrize("x_shape", [(3, 1, 64), (5, 64)], ids=["decode", "rows"])
 def test_dense_int4_matches_jax(x_shape):
     """dense on an int4 layer: the CPU takes the dequantize path in the

@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time goes inside K2 (the int8 dequant-matmul), on one CUDA card.
+"""Where the time goes inside K2 (the int8 dequant-matmul) or K3 (the int4
+one), on one CUDA card.
 
-    python3 tools/torch_int8_variants.py
+    python3 tools/torch_int8_variants.py [--kernel int8|int4]
 
-Builds csrc/int8_matmul.cu as it is and three cut-down copies of it, each
-with nvcc into build/int8_variants/, and times all four with CUDA events at
-the six shapes chip_smoke.py times (M = 24, 40 at the Whisper large-v3
-decoder's (K, N) = (1280, 1280), (1280, 5120), (5120, 1280)), on the same
-plan and inputs:
+Builds csrc/int8_matmul.cu (or csrc/int4_matmul.cu) as it is and three
+cut-down copies of it, each with nvcc into build/int8_variants/<kernel>/,
+and times all four with CUDA events at the shapes chip_smoke.py times (K2:
+M = 24, 40; K3: M = 40, 32, 24, 20, the rows of phase 3's int4 paths; each
+at the Whisper large-v3 decoder's (K, N) = (1280, 1280), (1280, 5120),
+(5120, 1280)), on the same plan and inputs (the two kernels share the loop
+that the anchors below cut):
   - kernel        the kernel as it is;
-  - no_work       no loads and no products: the launch, the cluster's two
-                  syncs and the epilogue (the floor of this design);
+  - no_work       no loads and no products: the launch, the cluster's sum
+                  and the epilogue (the floor of this design);
   - loads_only    every cp.async stage issued and waited for, no products;
   - compute_only  the products on whatever the shared memory holds, no loads.
 Beside them: one PyTorch copy of the weight bytes (a read and a write of
-K*N bytes, a yardstick of what a plain memory-bound kernel takes at this
-size) and the library call chip_smoke.py times (bf16 weight matmul times
-the scale). The cut-down copies compute nothing useful; only their times
-mean anything. Prints the card and one JSON object per shape; refuses to
-run without a card.
+the int8 or packed int4 weights, a yardstick of what a plain memory-bound
+kernel takes at this size) and the library call chip_smoke.py times (K2:
+bf16 weight matmul times the scale; K3: matmul on the dequantized bf16
+weight). The cut-down copies compute nothing useful; only their times mean
+anything. Prints the card and one JSON object per shape; refuses to run
+without a card.
 """
 
+import argparse
 import ctypes
 import json
 import os
@@ -41,21 +46,24 @@ VARIANTS = {
     "loads_only": (NO_PRODUCTS,),
     "compute_only": (NO_LOADS, NO_REFILL),
 }
-SHAPES = [(m, k, n) for m in (24, 40) for (k, n) in ((1280, 1280), (1280, 5120), (5120, 1280))]
+SITES = ((1280, 1280), (1280, 5120), (5120, 1280))
 
 
-def build(src):
-    """{variant: ctypes function}, one nvcc per variant, all started together."""
+def build(kernel):
+    """{variant: ctypes function} of csrc/<kernel>_matmul.cu, one nvcc per
+    variant, all started together."""
     from ssak_tpu_torch.ops import _build
 
-    out_dir = os.path.join(ROOT, "build", "int8_variants")
+    with open(os.path.join(ROOT, "ssak_tpu_torch", "csrc", f"{kernel}_matmul.cu")) as f:
+        src = f.read()
+    out_dir = os.path.join(ROOT, "build", "int8_variants", kernel)
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, edits in VARIANTS.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the anchor {old.strip()!r} is not in csrc/int8_matmul.cu once")
+                raise RuntimeError(f"{name}: the anchor {old.strip()!r} is not in csrc/{kernel}_matmul.cu once")
             text = text.replace(old, new)
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
@@ -68,7 +76,7 @@ def build(src):
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        fn = ctypes.CDLL(lib).ssak_int8_matmul
+        fn = getattr(ctypes.CDLL(lib), f"ssak_{kernel}_matmul")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -76,29 +84,33 @@ def build(src):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=["int8", "int4"], default="int8")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("torch_int8_variants: no CUDA device", file=sys.stderr)
         return 3
     import chip_smoke as C
-    from ssak_tpu_torch.models.quant import quantize_kernel
+    from ssak_tpu_torch.models.quant import dequantize_int4, quantize_kernel
     from ssak_tpu_torch.ops import _build
     from ssak_tpu_torch.ops import int8_matmul as IM
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    with open(os.path.join(ROOT, "ssak_tpu_torch", "csrc", "int8_matmul.cu")) as f:
-        fns = build(f.read())
+    int4 = args.kernel == "int4"
+    fns = build(args.kernel)
     dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(1)
-    for M, K, N in SHAPES:
+    g = torch.Generator(device=dev).manual_seed(4 if int4 else 1)
+    rows_m = sorted(set(C.int4_rows()), reverse=True) if int4 else (24, 40)
+    for M, K, N in [(m, k, n) for m in rows_m for (k, n) in SITES]:
         x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
-        q8, scale = quantize_kernel(torch.randn(K, N, generator=g, device=dev) * 0.05)
-        sets = [(x, q8.clone(), scale.clone()) for _ in range(C.n_copies(K * N))]
-        block_n, splits, per = IM.int8_plan(M, K, N)
-        row = dict(M=M, K=K, N=N, block_n=block_n, splits=splits)
+        w, scale = quantize_kernel(torch.randn(K, N, generator=g, device=dev) * 0.05, bits=4 if int4 else 8)
+        sets = [(x, w.clone(), scale.clone()) for _ in range(C.n_copies(w.numel()))]
+        block_n, splits, per = (IM.int4_plan if int4 else IM.int8_plan)(M, K, N)
+        row = dict(kernel=args.kernel, M=M, K=K, N=N, block_n=block_n, splits=splits)
         for name, fn in fns.items():
             def call(a, w, s, fn=fn):
                 y = torch.empty((M, N), dtype=torch.float32, device=dev)
@@ -106,11 +118,16 @@ def main():
                                 _build.stream_ptr(dev)), name)
                 return y
             row[name + "_us"] = C.time_ms(torch, call, sets) * 1e3
-        dst = torch.empty_like(q8)
+        dst = torch.empty_like(w)
         row["weight_copy_us"] = C.time_ms(torch, lambda a, w, s: dst.copy_(w), sets) * 1e3
-        wdq = [(x, a[1].to(torch.bfloat16), a[2]) for a in sets]
-        row["library_us"] = C.time_ms(torch, lambda a, w, s: torch.matmul(a, w) * s, wdq) * 1e3
+        if int4:
+            wdq = [(x, dequantize_int4(a[1], a[2], torch.bfloat16)) for a in sets]
+            row["library_us"] = C.time_ms(torch, torch.matmul, wdq) * 1e3
+        else:
+            wdq = [(x, a[1].to(torch.bfloat16), a[2]) for a in sets]
+            row["library_us"] = C.time_ms(torch, lambda a, w, s: torch.matmul(a, w) * s, wdq) * 1e3
         print(json.dumps(row), flush=True)
+        del sets, wdq
     return 0
 
 
