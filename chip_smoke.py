@@ -11,7 +11,8 @@ and prints no result):
              the kernel, the plain version and one library call, and the
              least time the card could take (bytes or operations bound);
              K1 at the 140 s bucket also against the same recursion in
-             f64; K2 and K3 at every M from 1 to 64, bit-identical on
+             f64, bit-identical on repeat at its three timed shapes, S =
+             1,025 and 4,097 split over a thread-block cluster; K2 and K3 at every M from 1 to 64, bit-identical on
              repeat with one allocation a call at their timed shapes, no
              register spills in their ptxas reports; L1's backward (dK/dV
              and dQ) through autograd, bit-identical on repeat
@@ -359,9 +360,9 @@ def ctc_long_case(torch, dev, seed, B=4, T=6999, U=2048, V=32):
 def check_ctc_fused(torch, dev):
     """K1 against its plain version at the slices' shapes, timed: wav2vec2-base
     training's (B=32, T=749, V=32), the largest vocabulary the toolkit trains
-    with (V=1024), and xlsr training's 140 s bucket (B=4, T=6,999, S=4,097,
-    65.8 KB of shared memory); checked only, U=512 (S=1025 states, more than a
-    block's 1024 threads) with labels outside the vocabulary. Loss to 1e-5
+    with (V=1024), and xlsr training's 140 s bucket (B=4, T=6,999, S=4,097
+    states, each sweep over a cluster of 8 CTAs); checked only, U=512 (S=1025
+    states, a cluster of 2) with labels outside the vocabulary. Loss to 1e-5
     relative. Grad to 2e-3 absolute at T=749: alpha reaches about -2,600
     there, where one f32 ulp is 2.4e-4, and a posterior is exp of a
     difference of such sums. At T=6,999 alpha reaches about -2.2e4 (ulp 2e-3),
@@ -374,7 +375,13 @@ def check_ctc_fused(torch, dev):
     absolute error) as its scale error (logged as loss_abs); what the
     division leaves is each state's own rounding. Measured on an H100 (NVIDIA
     H100 80GB HBM3, 700 W), kernel and plain alike: loss 6.0e-6, gradient
-    4.1e-3, norm 1.4e-4, frame sums 7e-7 from the witness."""
+    4.1e-3, norm 1.4e-4, frame sums 7e-7 from the witness.
+
+    The sweeps' plan (ops/ctc_fused.ctc_plan) is logged with each case; S =
+    1,025 and S = 4,097 must run over a cluster of CTAs. At the three timed
+    shapes a second call must give a bit-identical loss and gradient (no
+    atomics, fixed sum orders). Each row logs the chain's steps (T: the alpha
+    and beta sweeps run at once) and the kernel's microseconds a step."""
     import torch.nn.functional as F
 
     from ssak_tpu_torch.ops import ctc_fused as K1
@@ -389,6 +396,10 @@ def check_ctc_fused(torch, dev):
         B, T, _ = lp.shape
         S = 2 * labels.shape[1] + 1
         grad_atol = 1e-2 if long else 2e-3
+        cluster, threads, kpt, _ = K1.ctc_plan(B, T, S, V)
+        plan = dict(cluster=cluster, threads=threads, kpt=kpt)
+        if S > 1024 and cluster < 2:
+            raise AssertionError(f"ctc_fused V={V} U={U}: plan {plan} does not split S={S} over a cluster")
         loss, grad = K1.ctc_fused(lp, t_len, labels, lab_len)
         ref_loss, ref_grad = K1.ctc_fused_reference(lp, t_len, labels, lab_len)
         torch.cuda.synchronize()
@@ -419,9 +430,13 @@ def check_ctc_fused(torch, dev):
                 raise AssertionError(f"ctc_fused V={V} U={U}: dummy or infeasible row not zeroed")
         worst = max(worst, err)
         if U == 512:
-            log(f"ctc_fused V={V} U={U} S={S}: loss rel err {loss_rel}, grad max|err| {err}")
+            log(f"ctc_fused V={V} U={U} S={S} plan {plan}: loss rel err {loss_rel}, grad max|err| {err}")
             continue
-        del grad, ref_grad
+        loss2, grad2 = K1.ctc_fused(lp, t_len, labels, lab_len)
+        if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
+            raise AssertionError(f"ctc_fused V={V} U={U}: a repeat is not bit-identical "
+                                 f"(grad max|diff| {float((grad - grad2).abs().max())})")
+        del grad, ref_grad, grad2
         sets = [(lp.clone(), t_len, labels, lab_len) for _ in range(n_copies(B * T * V * 4))]
         lib_in = lp.detach().transpose(0, 1).contiguous()
         lib_len = t_len.clamp(min=1)
@@ -437,8 +452,9 @@ def check_ctc_fused(torch, dev):
             ms=time_ms(torch, K1.ctc_fused, sets, min_iters=3 if long else 20),
             plain_ms=time_ms(torch, K1.ctc_fused_reference, sets[:1] if long else sets[:2], min_iters=1 if long else 3),
             library_ms=time_ms(torch, library, [(lib_in.clone(),) for _ in range(2)], min_iters=3 if long else 5),
-            chain_steps=2 * T - 1, live_states=live, **extra,
+            chain_steps=T, live_states=live, plan=plan, repeat_bit_identical=True, **extra,
         )
+        row["us_per_step"] = row["ms"] * 1e3 / T
         # lp read once, labels and lengths read once, loss and grad written
         # once; about 32 f32 operations per live (t, s) state, forward and
         # backward together, over the f32 peak outside the tensor cores

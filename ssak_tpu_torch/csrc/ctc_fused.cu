@@ -1,4 +1,4 @@
-// Fused CTC forward-backward: per-row loss and d loss / d log_probs in one launch.
+// Fused CTC forward-backward (K1): per-row loss and d loss / d log_probs.
 //
 //   alpha[t, s] = logsumexp(alpha[t-1, s], alpha[t-1, s-1], allow[s] ? alpha[t-1, s-2])
 //                 + lp[t, ext[s]]                       (frozen for t >= t_len)
@@ -24,194 +24,607 @@
 // zeros does in the TPU kernel (and nothing is read out of the row).
 //
 // What bounds it on the H100: neither bytes nor operations but the serial
-// chain. The forward is T-1 dependent steps and the backward T more, each a
-// block-wide barrier plus a few expf/logf per state: 1,497 steps at T = 749.
-// The bytes the function must move (lp read once, grad written once) are
-// about 6.2 MB at B = 32, T = 749, V = 32, i.e. 1.8 us at 3.35 TB/s, and its
-// ~32 f32 operations per live (t, s) state take 3.9 us at 67 TFLOP/s; the
-// kernel sits orders of magnitude above both, on latency.
+// chain. The bytes the function must move (lp read once, grad written once)
+// are about 6.2 MB at B = 32, T = 749, V = 32, i.e. 1.8 us at 3.35 TB/s, and
+// its ~32 f32 operations per live (t, s) state take 3.9 us at 67 TFLOP/s
+// (chip_smoke.py's bound_ms, kept as the card's floor for the same work).
+// The recursion is T - 1 dependent steps, each a merge of every state of a
+// row and a barrier: that chain, not the card's rates, sets the time, and
+// the design below shortens it and takes everything else off it.
 //
-// Design: one block per batch row, threads looping over the S = 2U+1 states.
-// The (T, S) alpha table does not fit in shared memory (1.5 MB per row at
-// T = 749, S = 513), so alpha lives in a global scratch (B, T, S) f32 that the
-// wrapper allocates; only the previous and current rows are kept in shared
-// memory, double-buffered, so each time step costs exactly one barrier. The
-// TPU kernel's one-hot (V, S) matmuls become an indexed load lp[t, ext[s]]
-// (a 128-byte row at V = 32, served from L1) and a shared-memory atomicAdd
-// into V bins per time step; the bins are double-buffered too, so a row of
-// grad is flushed (and its bins cleared) in the step after it was summed,
-// under the same single barrier. Rows t >= t_len are written as zeros up
-// front. Later work: split S across a cluster, run alpha and beta
-// concurrently, keep only every k-th alpha row.
+// Design. One call launches two kernels (ops/ctc_fused.py counts it as one
+// launch):
+// - ctc_sweep_kernel runs the 2B recursions at once: the alpha sweep of each
+//   row forward and its beta sweep backward (beta needs nothing of alpha),
+//   so the chain is T - 1 steps, not 2T - 1. A sweep of up to 1,024 states
+//   runs on one CTA, a longer one on a thread-block cluster of up to 8 CTAs
+//   that split the states into contiguous ranges (ops/ctc_fused.py
+//   `ctc_plan`: CTA r takes [r*S/C, (r+1)*S/C), about one state a thread; 8
+//   CTAs of 512 states at the 140 s bucket). A CTA keeps this step's and the
+//   last step's values of its range in shared memory, each with two halo
+//   slots a side. Beta's shared values are beta + lp[t, ext] (the plain
+//   version's `be`), so a state's emission is added once, by its owner, and
+//   beta's allow[s+2] is read for the neighbour's state at the range's edge.
+//   The sweeps write alpha and beta rows to two (B, T, S) f32 scratches
+//   (live states only), after the step's arrive, off the chain.
+// - The halo: the two threads that own the states at a range's edge send
+//   them to the neighbour's halo slots with st.async (alpha to the right,
+//   for s-1 and s-2; beta to the left, for s+1 and s+2), each completing 4
+//   bytes on an mbarrier of the neighbour's; the neighbour's threads that
+//   read the halo wait on it (acquire at cluster scope). No fence: a release
+//   at cluster scope (barrier.cluster.arrive's default, or fence.acq_rel)
+//   waits for the thread's stores to device memory, about 0.5 us a step
+//   (tools/torch_ctc_variants.py's no_work chain took 5.1 ms at the 140 s
+//   bucket with it, 1.6 without). A relaxed cluster barrier a step, after a
+//   block barrier that orders the CTA's own row, keeps the CTAs in lockstep,
+//   so a halo slot is written again only after its reader is past it.
+// - Nothing on the chain waits for device memory: a ring of 8 lp rows in
+//   shared memory, filled a half (4 rows) at a time by TMA bulk copies that
+//   complete on one mbarrier a half, gives each step its emissions (a 4 KB
+//   row at V = 1024). Where V % 4 != 0 the emissions are read from device
+//   memory instead. (A cp.async ring stalled the issuing warp's shared loads
+//   behind its copies, about 0.2 us a step.)
+// - The merge keeps the maximum's own term as 1: two exps and one log a
+//   state (ex2.approx / lg2.approx through __expf / __logf; the f64 witness
+//   of chip_smoke.py phase 2 holds them to the same limits as accurate
+//   expf / logf, since alpha's own rounding, 1e-3 at 1e4, dominates).
+// - ctc_collect_kernel then forms the gradient off the chain, over (frame
+//   tiles, rows): g = exp(alpha + beta - ll) (the plain version's order),
+//   the frame's mass z as a fixed-order block sum, and the class sums
+//   without atomics: each block groups its row's live in-vocabulary states
+//   by class once (a stable counting sort), cuts each class into pieces of
+//   PIECE states, sums each piece serially and then each class's pieces in
+//   order. Repeats are bit-identical. It also writes the loss and zeros the
+//   rows t >= t_len.
 //
-// Each frame's sum of g is reduced per warp and added to one of three shared
-// words (row t's word is read when row t is flushed, one step later, and
-// cleared the step after that, so no step both reads and clears a word).
-//
-// Shared memory: 4 S + 2 V words (alpha/beta rows x 2, ext, allow, bins x 2)
-// and 3 static words; the wrapper raises where that exceeds what a block may
-// use.
+// Shared memory (ops/ctc_fused.py `sweep_smem_bytes`, `collect_smem_bytes`):
+// a sweep CTA 32 bytes of mbarriers and 2 W + RING VP words (W = ceil(S/C) +
+// 4 rounded up to 4, VP = V rounded up to 4); a collect block 6 S + 8 (V +
+// 1) + 6 NP + 128 bytes (NP = ceil(S / PIECE) + V pieces).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG = -1e30f;
+constexpr int MAX_CLUSTER = 8;         // portable cluster size
+constexpr int MAX_THREADS = 1024;
+constexpr int RING = 8;                // lp rows in the ring: two halves, each refilled whole
+constexpr int HALF = RING / 2;
+constexpr int PIECE = 32;              // states per piece of a class sum
+constexpr int COLLECT_THREADS = 256;
+constexpr int COLLECT_FRAMES = 32;     // frames per collect block
+constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory one block may use on the H100
+// a sweep CTA's shared memory ahead of its float arrays: two mbarriers for
+// the ring's halves and two for the halo of each buffer
+constexpr int SWEEP_HEAD = 32;
+
+// tools/torch_ctc_variants.py turns these off to time cut-down copies
+constexpr bool kSweeps = true;         // launch the sweeps
+constexpr bool kCollect = true;        // launch the collect pass
+constexpr bool kEmissions = true;      // read emissions (the lp ring)
+constexpr bool kMerge = true;          // the merge and the scratch stores (off: barriers and exchanges only)
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
-    const float m = fmaxf(a, fmaxf(b, c));
-    const float r = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+    const float hi = fmaxf(a, b), lo = fminf(a, b);
+    const float m = fmaxf(hi, c), x = fminf(hi, c);  // {x, lo}: the two terms below the maximum
+    const float r = m + __logf(1.f + __expf(x - m) + __expf(lo - m));
     return (m <= NEG / 2) ? NEG : r;
 }
 
-// lp[t, e] for a label e in the vocabulary, else 0 (the TPU kernel's one-hot product)
-__device__ __forceinline__ float emission(const float* row, int e, int V) {
-    return (unsigned)e < (unsigned)V ? __ldg(row + e) : 0.f;
+__device__ __forceinline__ void cluster_barrier() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__global__ void ctc_fused_kernel(const float* __restrict__ lp, const int* __restrict__ ext,
-                                 const int* __restrict__ allow, const int* __restrict__ t_lens,
-                                 const int* __restrict__ lab_lens, float* __restrict__ loss,
-                                 float* __restrict__ grad, float* __restrict__ alpha,
-                                 int T, int S, int V) {
-    extern __shared__ float smem[];
-    float* buf0 = smem;                       // alpha rows, then beta rows (ping-pong)
-    float* buf1 = smem + S;
-    int* ext_s = reinterpret_cast<int*>(smem + 2 * S);
-    int* allow_s = ext_s + S;
-    float* bins0 = smem + 4 * S;              // gradient bins (ping-pong)
-    float* bins1 = bins0 + V;
-    __shared__ float ll_s;
-    __shared__ float zsum[3];  // sum_s g[t, s] of row t in zsum[t % 3]
+// a step's arrive orders nothing: a release at cluster scope would wait for
+// the thread's stores to device memory. The block barrier before it orders
+// the CTA's own row, and the halo travels by st.async to an mbarrier.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
 
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    const float* lpb = lp + (size_t)b * T * V;
-    float* gb = grad + (size_t)b * T * V;
-    float* ab = alpha + (size_t)b * T * S;
-    const int t_len = t_lens[b];
-    const int L = max(0, min(lab_lens[b], (S - 1) / 2));
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// the shared::cluster address of p in CTA `rank` of the cluster
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+    unsigned r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+    return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the barrier's one arrival for its current phase, which then also waits for `bytes`
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n"
+        "WAIT:\n\tmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n\t@!p bra WAIT;\n}\n" ::"r"(
+            smem_addr(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+// one lp row into the ring by a TMA bulk copy, completing on `bar`
+__device__ __forceinline__ void fetch_row(float* dst, const float* src, int bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(bytes), "r"(smem_addr(bar))
+                 : "memory");
+}
+
+// a halo value into the neighbour's shared memory, completing 4 bytes on its mbarrier
+__device__ __forceinline__ void send_edge(unsigned raddr, float v, unsigned rbar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(raddr),
+                 "r"(__float_as_uint(v)), "r"(rbar)
+                 : "memory");
+}
+
+// lp[t, e] for a label in the vocabulary (code = e + 1 > 0), else 0
+__device__ __forceinline__ float emission(const float* row, int code) {
+    return (kEmissions && code > 0) ? row[code - 1] : 0.f;
+}
+
+__device__ __forceinline__ int row_labels(const int* lab_lens, int b, int S) {
+    return max(0, min(lab_lens[b], (S - 1) / 2));
+}
+
+// the extended labels of a row (ops/ctc_fused.py `_prepare`): the blank at
+// even s, label (s-1)/2 at odd s; the s-2 -> s skip is allowed at a label
+// that is neither the blank nor the label before it
+__device__ __forceinline__ int ext_at(const int* lab, int s, int blank) { return (s & 1) ? lab[s >> 1] : blank; }
+
+__device__ __forceinline__ bool allow_at(const int* lab, int s, int blank) {
+    if (!(s & 1)) return false;
+    const int e = lab[s >> 1];
+    return e != blank && (s < 2 || e != lab[(s >> 1) - 1]);
+}
+
+// One sweep: the CTA `rank` of a cluster of C takes states [lo, hi); state
+// k of a thread is lo + tid + k*nt. BWD: beta backward from t_len - 1, else
+// alpha forward from 0. RINGED: the lp rows come through the shared ring
+// (V % 4 == 0, lp 16-byte aligned), else each emission is read from device
+// memory. CLUSTERED: C > 1. A buffer holds the range at [2, n + 2) and two
+// halo slots a side.
+template <int KPT, bool BWD, bool RINGED, bool CLUSTERED>
+__device__ __forceinline__ void sweep(const float* __restrict__ lp, const int* __restrict__ lab, int blank,
+                                      int t_len, int L, float* __restrict__ out, int b, int T, int S, int V, int W,
+                                      unsigned char* smem) {
+    const int C = CLUSTERED ? (int)gridDim.x : 1, rank = CLUSTERED ? (int)blockIdx.x : 0;
+    const int lo = rank * S / C, hi = (rank + 1) * S / C, n = hi - lo;
+    const int tid = threadIdx.x, nt = blockDim.x;
     const int n_valid = 2 * L + 1;
-
-    for (int s = tid; s < S; s += nt) {
-        ext_s[s] = ext[(size_t)b * S + s];
-        allow_s[s] = allow[(size_t)b * S + s];
-    }
-    for (int v = tid; v < V; v += nt) {
-        bins0[v] = 0.f;
-        bins1[v] = 0.f;
-    }
-    if (tid < 3) zsum[tid] = 0.f;
-    // rows past the valid length get a zero gradient
     const int t_end = max(0, min(t_len, T));
-    for (size_t i = (size_t)t_end * V + tid; i < (size_t)T * V; i += nt) gb[i] = 0.f;
-    __syncthreads();
+    const int t_first = BWD ? t_end - 1 : 0;             // the row the sweep starts from
+    if (t_first < 0) return;                              // beta of a row with no frame: nothing to do
+    const int nsteps = BWD ? t_first : max(1, t_end) - 1;  // alpha is frozen after row t_last = nsteps
+    const int VP = (V + 3) & ~3;
+    uint64_t* rbar = reinterpret_cast<uint64_t*>(smem);  // the ring's halves
+    uint64_t* hbar = rbar + 2;                            // the halo of buffer 0 and of buffer 1
+    float* buf0 = reinterpret_cast<float*>(smem + SWEEP_HEAD);
+    float* buf1 = buf0 + W;
+    float* ring = buf0 + 2 * W;
+    const float* lpb = lp + (size_t)b * T * V;
+    float* ob = out + (size_t)b * T * S;
+    auto frame = [&](int i) { return BWD ? t_first - 1 - i : 1 + i; };
+    const int row_bytes = V * (int)sizeof(float);
+    // the ring: steps [4q, 4q + 4) read half q & 1, which completes on rbar[q & 1]
+    auto refill = [&](int q) {
+        const int first = q * HALF, rows = min(HALF, nsteps - first);
+        if (!kEmissions || rows <= 0) return;
+        uint64_t* bar = rbar + (q & 1);
+        mbar_expect(bar, rows * row_bytes);
+        for (int j = 0; j < rows; ++j)
+            fetch_row(ring + ((first + j) & (RING - 1)) * VP, lpb + (size_t)frame(first + j) * V, row_bytes, bar);
+    };
 
-    // --- forward alpha ---------------------------------------------------------
-    for (int s = tid; s < S; s += nt) {
-        const float a = (s < 2 && s < n_valid) ? emission(lpb, ext_s[s], V) : NEG;
-        buf0[s] = a;
-        ab[s] = a;
-    }
-    __syncthreads();
-    const int t_last = max(1, min(t_len, T)) - 1;  // alpha is frozen after this row
-    for (int t = 1; t <= t_last; ++t) {
-        const float* prev = (t & 1) ? buf0 : buf1;
-        float* cur = (t & 1) ? buf1 : buf0;
-        const float* row = lpb + (size_t)t * V;
-        float* arow = ab + (size_t)t * S;
-        for (int s = tid; s < S; s += nt) {
-            const float p0 = prev[s];
-            const float p1 = s >= 1 ? prev[s - 1] : NEG;
-            const float p2 = (s >= 2 && allow_s[s]) ? prev[s - 2] : NEG;
-            const float a = s < n_valid ? lse3(p0, p1, p2) + emission(row, ext_s[s], V) : NEG;
-            cur[s] = a;
-            arow[s] = a;
+    // per state: code = (emission class + 1, or 0) << 1 | skip
+    int code[KPT];
+#pragma unroll
+    for (int k = 0; k < KPT; ++k) {
+        const int s = lo + tid + k * nt;
+        code[k] = 0;
+        if (s < hi) {
+            const int e = ext_at(lab, s, blank);
+            const bool skip = BWD ? (s + 2 < S && allow_at(lab, s + 2, blank)) : allow_at(lab, s, blank);
+            code[k] = (((unsigned)e < (unsigned)V ? e + 1 : 0) << 1) | (skip ? 1 : 0);
         }
-        __syncthreads();
     }
-
-    // --- log-likelihood ----------------------------------------------------------
+    // the neighbour this CTA feeds (its halo) and the one that feeds it
+    const int to = BWD ? rank - 1 : rank + 1, from = BWD ? rank + 1 : rank - 1;
+    const bool feeds = CLUSTERED && to >= 0 && to < C, fed = CLUSTERED && from >= 0 && from < C;
+    if (tid < 2) {  // halo slots: NEG unless a neighbour fills them
+        buf0[tid] = buf1[tid] = NEG;
+        buf0[n + 2 + tid] = buf1[n + 2 + tid] = NEG;
+    }
     if (tid == 0) {
-        const float* fin = (t_last & 1) ? buf1 : buf0;
-        const float a1 = fin[2 * L];
-        const float a2 = fin[max(2 * L - 1, 0)];
-        const float m = fmaxf(a1, a2);
-        const float ll = m + logf(expf(a1 - m) + expf(a2 - m));
-        loss[b] = -ll;
-        ll_s = ll;
+        if (RINGED) {
+            mbar_init(rbar);
+            mbar_init(rbar + 1);
+        }
+        if (fed) {  // rows 0 and 1 of the halo, two 4-byte values each
+            mbar_init(hbar);
+            mbar_init(hbar + 1);
+            if (0 < nsteps) mbar_expect(hbar, 8);
+            if (1 < nsteps) mbar_expect(hbar + 1, 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    const float ll = ll_s;
+    if (CLUSTERED) cluster_barrier();  // every CTA has started and set its halos and barriers
+    // the threads whose states read the halo (alpha: lo, lo + 1; beta: hi - 1, hi - 2) wait on it
+    const int near_off = BWD ? n - 1 : 0;  // offset in the range of the state next to the halo
+    const bool reads_halo = fed && (tid == near_off % nt || tid == (BWD ? near_off - 1 : 1) % nt);
+    const bool arms = fed && tid == near_off % nt;  // a reader re-arms the halo barrier it has just waited on
+    // this CTA's states next to its fed edge: the neighbour's halo slot (in bytes) of state s, or -1
+    const int to_lo = to * S / C, to_n = (to + 1) * S / C - to_lo;
+    auto halo_slot = [&](int s) {
+        if (!feeds) return -1;
+        if (BWD) return s < lo + 2 ? 4 * (to_n + 2 + (s - lo)) : -1;
+        return s >= hi - 2 ? 4 * (s - (hi - 2)) : -1;
+    };
+    unsigned rbuf[2] = {0u, 0u}, rhb[2] = {0u, 0u};
+    if (feeds) {
+        rbuf[0] = cluster_addr(buf0, to);
+        rbuf[1] = cluster_addr(buf1, to);
+        rhb[0] = cluster_addr(hbar, to);
+        rhb[1] = cluster_addr(hbar + 1, to);
+    }
 
-    // --- backward beta + gradient ---------------------------------------------------
-    const int t_start = t_end - 1;  // last row with t < t_len; -1: no row is valid
-    if (t_start < 0) return;
+    if (RINGED && tid == 0) {
+        refill(0);
+        refill(1);
+    }
+    // the first row: alpha[0] or beta[t_len - 1] (+ its emission)
     {
-        float* init = (t_start & 1) ? buf1 : buf0;
+        const float* row = lpb + (size_t)t_first * V;
         const int e1 = 2 * L, e2 = max(2 * L - 1, 0);
-        for (int s = tid; s < S; s += nt) init[s] = (s < n_valid && (s == e1 || s == e2)) ? 0.f : NEG;
+#pragma unroll
+        for (int k = 0; k < KPT; ++k) {
+            const int s = lo + tid + k * nt;
+            if (s >= hi) continue;
+            const bool valid = s < n_valid;
+            const int c = code[k] >> 1;
+            float v;
+            if (BWD) {
+                const float be = (s == e1 || s == e2) ? 0.f : NEG;
+                if (valid) ob[(size_t)t_first * S + s] = be;
+                v = valid ? be + (c > 0 ? __ldg(row + c - 1) : 0.f) : NEG;
+            } else {
+                v = (s < 2 && valid) ? (c > 0 ? __ldg(row + c - 1) : 0.f) : NEG;
+                if (valid) ob[s] = v;
+            }
+            buf0[s - lo + 2] = v;
+            const int h = halo_slot(s);
+            if (h >= 0 && 0 < nsteps) send_edge(rbuf[0] + h, v, rhb[0]);
+        }
+    }
+    if (RINGED && kEmissions && nsteps > 0) mbar_wait(rbar, 0);
+    if (reads_halo && 0 < nsteps) mbar_wait(hbar, 0);
+    if (arms && 2 < nsteps) mbar_expect(hbar, 8);  // row 2
+    __syncthreads();
+    if (CLUSTERED) {
+        cluster_arrive_relaxed();
+        cluster_wait();
+    }
+
+    for (int i = 0; i < nsteps; ++i) {
+        const float* prev = (i & 1) ? buf1 : buf0;
+        float* cur = (i & 1) ? buf0 : buf1;
+        const int nb = (i + 1) & 1;  // the buffer of row i + 1
+        const float* em = ring + (i & (RING - 1)) * VP;
+        const float* grow = lpb + (size_t)frame(i) * V;  // the row itself, where there is no ring
+        float* orow = ob + (size_t)frame(i) * S;
+        float keep[KPT];  // the row's values, stored to the scratch after the barrier's arrive
+#pragma unroll
+        for (int k = 0; k < KPT; ++k) {
+            const int s = lo + tid + k * nt;
+            keep[k] = NEG;
+            if (s >= hi) continue;
+            const int l = s - lo + 2;
+            const bool valid = s < n_valid;
+            const int c = code[k] >> 1;
+            const float e = RINGED ? emission(em, c) : (kEmissions && c > 0 ? __ldg(grow + c - 1) : 0.f);
+            float v;
+            if (!kMerge) {
+                v = prev[l];
+            } else if (BWD) {
+                const float n0 = prev[l], n1 = prev[l + 1], n2 = (code[k] & 1) ? prev[l + 2] : NEG;
+                const float nb_ = valid ? lse3(n0, n1, n2) : NEG;
+                keep[k] = nb_;
+                v = valid ? nb_ + e : NEG;
+            } else {
+                const float p0 = prev[l], p1 = prev[l - 1], p2 = (code[k] & 1) ? prev[l - 2] : NEG;
+                v = valid ? lse3(p0, p1, p2) + e : NEG;
+                keep[k] = v;
+            }
+            cur[l] = v;
+            if (CLUSTERED) {
+                const int h = halo_slot(s);
+                if (h >= 0 && i + 1 < nsteps) send_edge(rbuf[nb] + h, v, rhb[nb]);
+            }
+        }
+        if (CLUSTERED) {
+            __syncthreads();
+            cluster_arrive_relaxed();
+        }
+#pragma unroll
+        for (int k = 0; k < KPT; ++k) {
+            const int s = lo + tid + k * nt;
+            if (kMerge && s < hi && s < n_valid) orow[s] = keep[k];
+        }
+        if (i + 1 < nsteps) {
+            if (RINGED && kEmissions && (i + 1) % HALF == 0) mbar_wait(rbar + (((i + 1) / HALF) & 1), ((i + 1) / RING) & 1);
+            if (reads_halo) mbar_wait(hbar + nb, ((i + 1) >> 1) & 1);
+            if (arms && i + 3 < nsteps) mbar_expect(hbar + nb, 8);  // row i + 3
+        }
+        if (CLUSTERED) cluster_wait(); else __syncthreads();
+        if (RINGED && tid == 0 && (i + 1) % HALF == 0) refill((i + 1) / HALF + 1);  // the half read in steps i-3..i
+    }
+    if (CLUSTERED) cluster_barrier();  // no CTA leaves while a neighbour may still write to it
+}
+
+// grid (C, 2B), cluster (C, 1, 1) when C > 1: blockIdx.x is the rank,
+// blockIdx.y = 2b (alpha of row b) or 2b + 1 (beta of row b)
+template <int KPT, bool RINGED, bool CLUSTERED>
+__global__ void __launch_bounds__(MAX_THREADS)
+ctc_sweep_kernel(const float* __restrict__ lp, const int* __restrict__ labels, const int* __restrict__ t_lens,
+                 const int* __restrict__ lab_lens, float* __restrict__ alpha, float* __restrict__ beta, int T, int S,
+                 int V, int W, int blank) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.y >> 1;
+    const int L = row_labels(lab_lens, b, S);
+    const int* lab = labels + (size_t)b * ((S - 1) / 2);
+    if (blockIdx.y & 1)
+        sweep<KPT, true, RINGED, CLUSTERED>(lp, lab, blank, t_lens[b], L, beta, b, T, S, V, W, smem);
+    else
+        sweep<KPT, false, RINGED, CLUSTERED>(lp, lab, blank, t_lens[b], L, alpha, b, T, S, V, W, smem);
+}
+
+// grid (ceil(T / COLLECT_FRAMES), B). zero_inf: a row that cannot be
+// aligned (t_len < its label length, or no label) or whose loss is not
+// finite gets loss 0 and a zero gradient (ops/ctc_fused.py `_zero_infinity`)
+__global__ void __launch_bounds__(COLLECT_THREADS)
+ctc_collect_kernel(const int* __restrict__ labels, const int* __restrict__ t_lens, const int* __restrict__ lab_lens,
+                   const float* __restrict__ alpha, const float* __restrict__ beta, float* __restrict__ loss,
+                   float* __restrict__ grad, int T, int S, int V, int blank, int zero_inf) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int NP = (S + PIECE - 1) / PIECE + V;  // pieces: at most sum_v ceil(n_v / PIECE)
+    float* g = reinterpret_cast<float*>(smem_raw);  // g of the frame; before the first frame, each state's rank in its class
+    int* off = reinterpret_cast<int*>(g + S);        // class counts, then the first sorted position of each class
+    int* pb = off + V + 1;                           // the first piece of each class
+    float* part = reinterpret_cast<float*>(pb + V + 1);
+    float* zw = part + NP;                           // the frame's mass, one partial a warp
+    unsigned short* order = reinterpret_cast<unsigned short*>(zw + 32);  // live in-vocabulary states, by class
+    unsigned short* pcls = order + S;                // the class of each piece
+
+    const int b = blockIdx.y, tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+    const int t_len = t_lens[b];
+    const int L = row_labels(lab_lens, b, S);
+    const int n_valid = 2 * L + 1;
+    const int t_end = max(0, min(t_len, T));
+    const int t_last = max(1, t_end) - 1;
+    const float* ab = alpha + (size_t)b * T * S;
+    const float* bb = beta + (size_t)b * T * S;
+    const int* lab = labels + (size_t)b * ((S - 1) / 2);
+    float ll;
+    {
+        const float* fin = ab + (size_t)t_last * S;
+        const float a1 = fin[2 * L], a2 = fin[max(2 * L - 1, 0)];
+        const float m = fmaxf(a1, a2);
+        ll = m + logf(expf(a1 - m) + expf(a2 - m));
+    }
+    const float nll = -ll;
+    const bool ok = !zero_inf || (t_len >= lab_lens[b] && lab_lens[b] > 0 && isfinite(nll) && nll < -NEG / 2);
+    if (blockIdx.x == 0 && tid == 0) loss[b] = ok ? nll : 0.f;
+    const int t0 = blockIdx.x * COLLECT_FRAMES, t1 = min(T, t0 + COLLECT_FRAMES);
+    float* gb = grad + (size_t)b * T * V;
+    if (!ok || t0 >= t_end) {  // rows past the valid length (or of a row zero_inf drops) get a zero gradient
+        for (size_t i = (size_t)t0 * V + tid; i < (size_t)t1 * V; i += nt) gb[i] = 0.f;
+        return;
+    }
+
+    // group the live in-vocabulary states by class, in order of s (a stable
+    // counting sort by one warp; ranks from __match_any_sync, no atomics)
+    int* rank_of = reinterpret_cast<int*>(g);
+    auto key = [&](int s) {
+        const int e = s < n_valid ? ext_at(lab, s, blank) : -1;
+        return (unsigned)e < (unsigned)V ? e : V;
+    };
+    if (warp == 0) {
+        for (int v = lane; v <= V; v += 32) off[v] = 0;
+        __syncwarp();
+        for (int c0 = 0; c0 < n_valid; c0 += 32) {
+            const int s = c0 + lane;
+            const int k = key(s);
+            const unsigned peers = __match_any_sync(0xffffffffu, k);
+            const int r = __popc(peers & ((1u << lane) - 1u));
+            const int base = k < V ? off[k] : 0;
+            __syncwarp();
+            if (k < V) {
+                rank_of[s] = base + r;
+                if (r == 0) off[k] = base + __popc(peers);
+            }
+            __syncwarp();
+        }
+        // exclusive scans of the counts (off) and of the pieces (pb), each
+        // lane over a run of classes, then across the warp
+        const int per = (V + 31) / 32, v0 = min(V, lane * per), v1 = min(V, v0 + per);
+        int so = 0, sp = 0;
+        for (int v = v0; v < v1; ++v) {
+            so += off[v];
+            sp += (off[v] + PIECE - 1) / PIECE;
+        }
+        int io = so, ip = sp;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int xo = __shfl_up_sync(0xffffffffu, io, d), xp = __shfl_up_sync(0xffffffffu, ip, d);
+            if (lane >= d) {
+                io += xo;
+                ip += xp;
+            }
+        }
+        io -= so;
+        ip -= sp;
+        __syncwarp();
+        for (int v = v0; v < v1; ++v) {
+            const int c = off[v];
+            off[v] = io;
+            pb[v] = ip;
+            io += c;
+            ip += (c + PIECE - 1) / PIECE;
+        }
+        if (lane == 31) {
+            off[V] = io;
+            pb[V] = ip;
+        }
     }
     __syncthreads();
-    for (int t = t_start; t >= 0; --t) {
-        const float* bcur = (t & 1) ? buf1 : buf0;
-        float* bnext = (t & 1) ? buf0 : buf1;
-        float* bins = (t & 1) ? bins1 : bins0;
-        float* done = (t & 1) ? bins0 : bins1;  // row t+1, summed in the previous step
-        if (t < t_start) {
-            const float z = zsum[(t + 1) % 3];
-            float* out = gb + (size_t)(t + 1) * V;
-            for (int v = tid; v < V; v += nt) {
-                out[v] = z > 0.f ? done[v] / z : 0.f;
-                done[v] = 0.f;
-            }
-            if (tid == 0) zsum[(t + 2) % 3] = 0.f;  // row t+2's word, read in the previous step; row t-1's next
-        }
-        const float* row = lpb + (size_t)t * V;
-        const float* arow = ab + (size_t)t * S;
-        float z = 0.f;
-        for (int s = tid; s < S; s += nt) {
-            if (s >= n_valid) {  // alpha = beta = NEG there: exp(...) is exactly 0
-                bnext[s] = NEG;
-                continue;
-            }
-            const float be = bcur[s];
-            const float g = expf(arow[s] + be - ll);
-            z += g;
-            if ((unsigned)ext_s[s] < (unsigned)V) atomicAdd(&bins[ext_s[s]], -g);
-            if (t > 0) {
-                const float n0 = be + emission(row, ext_s[s], V);
-                const float n1 = s + 1 < S ? bcur[s + 1] + emission(row, ext_s[s + 1], V) : NEG;
-                const float n2 = (s + 2 < S && allow_s[s + 2]) ? bcur[s + 2] + emission(row, ext_s[s + 2], V) : NEG;
-                bnext[s] = lse3(n0, n1, n2);
-            }
-        }
-        for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
-        if ((tid & 31) == 0) atomicAdd(&zsum[t % 3], z);
-        __syncthreads();
+    for (int s = tid; s < n_valid; s += nt) {
+        const int k = key(s);
+        if (k < V) order[off[k] + rank_of[s]] = (unsigned short)s;
     }
-    const float z0 = zsum[0];
-    for (int v = tid; v < V; v += nt) gb[v] = z0 > 0.f ? bins0[v] / z0 : 0.f;
+    for (int v = tid; v < V; v += nt)
+        for (int q = pb[v]; q < pb[v + 1]; ++q) pcls[q] = (unsigned short)v;
+    const int np = pb[V];
+    __syncthreads();
+
+    for (int t = t0; t < t1; ++t) {
+        float* out = gb + (size_t)t * V;
+        if (t >= t_end) {
+            for (int v = tid; v < V; v += nt) out[v] = 0.f;
+            continue;
+        }
+        const float* ar = ab + (size_t)t * S;
+        const float* br = bb + (size_t)t * S;
+        float z = 0.f;
+        for (int s = tid; s < n_valid; s += nt) {
+            const float gv = expf(ar[s] + br[s] - ll);
+            g[s] = gv;
+            z += gv;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
+        if (lane == 0) zw[warp] = z;
+        __syncthreads();
+        float zt = 0.f;
+        for (int w = 0; w < nt / 32; ++w) zt += zw[w];
+        for (int q = tid; q < np; q += nt) {
+            const int v = pcls[q];
+            const int j0 = off[v] + (q - pb[v]) * PIECE, j1 = min(j0 + PIECE, off[v + 1]);
+            float acc = 0.f;
+#pragma unroll 8
+            for (int j = j0; j < j1; ++j) acc += g[order[j]];
+            part[q] = acc;
+        }
+        __syncthreads();
+        for (int v = tid; v < V; v += nt) {
+            float acc = 0.f;
+#pragma unroll 8
+            for (int q = pb[v]; q < pb[v + 1]; ++q) acc += part[q];
+            out[v] = zt > 0.f ? -acc / zt : 0.f;
+        }
+    }
+}
+
+int sweep_width(int S, int C) { return (((S + C - 1) / C) + 4 + 3) & ~3; }
+
+int sweep_bytes(int S, int V, int C) {
+    return SWEEP_HEAD + (2 * sweep_width(S, C) + RING * ((V + 3) & ~3)) * (int)sizeof(float);
+}
+
+int collect_bytes(int S, int V) { return 6 * S + 8 * (V + 1) + 6 * ((S + PIECE - 1) / PIECE + V) + 128; }
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int KPT, bool RINGED, bool CLUSTERED>
+int launch_sweep(const float* lp, const int* labels, const int* t_lens, const int* lab_lens, float* alpha,
+                 float* beta, int B, int T, int S, int V, int blank, int C, int threads, cudaStream_t stream) {
+    auto kernel = ctc_sweep_kernel<KPT, RINGED, CLUSTERED>;
+    const int smem = sweep_bytes(S, V, C);
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 2 * B);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = CLUSTERED ? 1 : 0;
+    e = cudaLaunchKernelEx(&cfg, kernel, lp, labels, t_lens, lab_lens, alpha, beta, T, S, V, sweep_width(S, C), blank);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+template <bool RINGED, bool CLUSTERED>
+int dispatch_sweep(const float* lp, const int* labels, const int* t_lens, const int* lab_lens, float* alpha,
+                   float* beta, int B, int T, int S, int V, int blank, int C, int threads, int kpt, cudaStream_t st) {
+    switch (kpt) {
+        case 1: return launch_sweep<1, RINGED, CLUSTERED>(lp, labels, t_lens, lab_lens, alpha, beta, B, T, S, V, blank, C, threads, st);
+        case 2: return launch_sweep<2, RINGED, CLUSTERED>(lp, labels, t_lens, lab_lens, alpha, beta, B, T, S, V, blank, C, threads, st);
+        case 4: return launch_sweep<4, RINGED, CLUSTERED>(lp, labels, t_lens, lab_lens, alpha, beta, B, T, S, V, blank, C, threads, st);
+        default: return launch_sweep<8, RINGED, CLUSTERED>(lp, labels, t_lens, lab_lens, alpha, beta, B, T, S, V, blank, C, threads, st);
+    }
 }
 
 }  // namespace
 
-extern "C" int ssak_ctc_fused_smem_bytes(int S, int V) { return (4 * S + 2 * V) * (int)sizeof(float); }
-
-extern "C" int ssak_ctc_fused(const void* lp, const void* ext, const void* allow, const void* t_lens,
-                              const void* lab_lens, void* loss, void* grad, void* alpha,
-                              int B, int T, int S, int V, void* stream) {
-    const int smem = ssak_ctc_fused_smem_bytes(S, V);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(ctc_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
+// lp (B, T, V) f32, labels (B, (S-1)/2) int32, t_lens and lab_lens (B,)
+// int32; loss (B,), grad (B, T, V), and the scratches alpha and beta (B, T,
+// S), f32. The plan (cluster C, threads a CTA, states a thread KPT) comes from
+// ops/ctc_fused.py `ctc_plan`; a plan or a shape the kernels cannot run
+// returns cudaErrorInvalidValue, a refused launch its own error.
+extern "C" int ssak_ctc_fused(const void* lp, const void* labels, const void* t_lens, const void* lab_lens,
+                              void* loss, void* grad, void* alpha, void* beta, int B, int T, int S, int V, int blank,
+                              int zero_inf, int C, int threads, int kpt, void* stream) {
+    const int widest = (S + C - 1) / C;
+    const bool plan_ok = C >= 1 && C <= MAX_CLUSTER && threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0 &&
+                         (kpt == 1 || kpt == 2 || kpt == 4 || kpt == 8) && threads * kpt >= widest &&
+                         (C == 1 || S / C >= 2);
+    if (!plan_ok || B < 1 || T < 1 || S < 1 || S % 2 == 0 || S > 65535 || V < 1 || blank < 0 || blank >= V ||
+        sweep_bytes(S, V, C) > SMEM_LIMIT || collect_bytes(S, V) > SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const float* lpf = (const float*)lp;
+    const int *lab = (const int*)labels, *tl = (const int*)t_lens, *ll = (const int*)lab_lens;
+    float *al = (float*)alpha, *be = (float*)beta;
+    if (kSweeps) {
+        // the ring's bulk copies want 16-byte rows at 16-byte addresses
+        const bool ringed = V % 4 == 0 && (uintptr_t)lp % 16 == 0;
+        const int rc = ringed ? (C > 1 ? dispatch_sweep<true, true>(lpf, lab, tl, ll, al, be, B, T, S, V, blank, C, threads, kpt, st)
+                                       : dispatch_sweep<true, false>(lpf, lab, tl, ll, al, be, B, T, S, V, blank, C, threads, kpt, st))
+                              : (C > 1 ? dispatch_sweep<false, true>(lpf, lab, tl, ll, al, be, B, T, S, V, blank, C, threads, kpt, st)
+                                       : dispatch_sweep<false, false>(lpf, lab, tl, ll, al, be, B, T, S, V, blank, C, threads, kpt, st));
+        if (rc != 0) return rc;
     }
-    int threads = ((S + 31) / 32) * 32;
-    threads = threads < 128 ? 128 : (threads > 1024 ? 1024 : threads);
-    ctc_fused_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const float*)lp, (const int*)ext, (const int*)allow, (const int*)t_lens, (const int*)lab_lens,
-        (float*)loss, (float*)grad, (float*)alpha, T, S, V);
-    return (int)cudaGetLastError();
+    if (kCollect) {
+        const int smem = collect_bytes(S, V);
+        cudaError_t err = allow_smem(ctc_collect_kernel, smem);
+        if (err != cudaSuccess) return (int)err;
+        ctc_collect_kernel<<<dim3((T + COLLECT_FRAMES - 1) / COLLECT_FRAMES, B), COLLECT_THREADS, smem, st>>>(
+            lab, tl, ll, al, be, (float*)loss, (float*)grad, T, S, V, blank, zero_inf);
+        return (int)cudaGetLastError();
+    }
+    return 0;
 }

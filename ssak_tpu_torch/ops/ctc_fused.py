@@ -5,10 +5,13 @@ launched by `_run_kernel`, exposed through `ctc_loss_pallas` and
 `ctc_loss_fast`). The loss of a train step is the classic CTC
 forward-backward: the alpha recursion gives the log-likelihood, a beta
 sweep gives d loss / d log_probs analytically, and both come out of one
-launch, so autograd never replays the recursion. The CUDA kernel is
-`csrc/ctc_fused.cu` (its header says what bounds it and how it is laid out);
-`ctc_fused_reference` is the plain PyTorch version of the same function, used
-for CPU tensors and by the on-card comparison.
+call, so autograd never replays the recursion. The CUDA kernels are in
+`csrc/ctc_fused.cu` (its header says what bounds them and how they are laid
+out): the alpha and beta sweeps of every row at once, each over a
+thread-block cluster that `ctc_plan` sizes, then a collect pass that forms
+the gradient in a fixed order. `ctc_fused_reference` is the plain PyTorch
+version of the same function, used for CPU tensors and by the on-card
+comparison.
 
 Gradient identity (log domain, beta excluding the emission at t):
   gamma[t, s] = alpha[t, s] + beta[t, s],  g[t, s] = exp(gamma[t, s] - ll)
@@ -20,6 +23,7 @@ which the division removes (the kernel's header says more).
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +31,19 @@ import torch.nn.functional as F
 from ssak_tpu_torch.ops import _build
 
 NEG = -1e30
-LAUNCHES = {"ctc_fused": 0}  # kernel launches, counted by the wrapper
+# calls that launched the kernels, counted by the wrapper: one per call,
+# though a call launches two kernels (the sweeps, then the collect pass)
+LAUNCHES = {"ctc_fused": 0}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+CTC_SMS = 132  # the H100's SMs: the sweeps' CTAs should not exceed them
+CTC_MAX_CLUSTER = 8  # portable cluster size
+CTC_MAX_THREADS = 1024
+CTC_KPTS = (1, 2, 4, 8)  # states a thread (csrc/ctc_fused.cu instantiations)
+CTC_STATES_PER_CTA = 1024  # a sweep of at most this many states runs on one CTA
+CTC_SPLIT_STATES = 512  # a longer one is split into ranges of about this many, where the SMs allow
+CTC_RING = 8  # lp rows in flight per sweep CTA
+CTC_PIECE = 32  # states per piece of a class sum in the collect pass
+CTC_MAX_S = 65535  # states are 16-bit indices in the collect pass
 _fns = None
 
 
@@ -123,23 +138,76 @@ def _kernel():
     if _fns is None:
         lib = _build.library("ctc_fused")
         fn = lib.ssak_ctc_fused
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns = fn
     return _fns
 
 
-def smem_bytes(S: int, V: int) -> int:
-    """Shared memory of one block (csrc/ctc_fused.cu: 4 S + 2 V words)."""
-    return (4 * S + 2 * V) * 4
+def ctc_ranges(S: int, cluster: int) -> tuple:
+    """The states [lo, hi) of each CTA of a sweep's cluster, as the kernel
+    cuts them: CTA r takes [r*S // cluster, (r+1)*S // cluster)."""
+    return tuple((r * S // cluster, (r + 1) * S // cluster) for r in range(cluster))
+
+
+def sweep_smem_bytes(S: int, V: int, cluster: int) -> int:
+    """Shared memory of one sweep CTA (csrc/ctc_fused.cu): four mbarriers
+    (the ring's two halves, the halo of each buffer), then two copies of the
+    widest range with two halo slots a side (rounded up to 4 words) and a
+    ring of CTC_RING lp rows of V rounded up to 4."""
+    widest = -(-S // cluster)
+    return 32 + 4 * (2 * ((widest + 4 + 3) // 4 * 4) + CTC_RING * ((V + 3) // 4 * 4))
+
+
+def collect_smem_bytes(S: int, V: int) -> int:
+    """Shared memory of one collect block: g (S f32), the class offsets and
+    piece offsets (V+1 int32 each), the piece sums (NP f32), 32 warp sums,
+    the states in class order (S u16) and each piece's class (NP u16), with
+    NP = ceil(S / CTC_PIECE) + V."""
+    n_pieces = -(-S // CTC_PIECE) + V
+    return 6 * S + 8 * (V + 1) + 6 * n_pieces + 128
+
+
+@functools.lru_cache(maxsize=None)
+def ctc_plan(B: int, T: int, S: int, V: int) -> tuple:
+    """(cluster, threads, kpt, ranges) of the sweeps: the 2B sweeps (alpha and
+    beta of each row) each run on a cluster of `cluster` CTAs of `threads`
+    threads, a thread holding up to `kpt` states; `ranges` are the CTAs'
+    states (ctc_ranges). A sweep of at most CTC_STATES_PER_CTA states runs on
+    one CTA (a cluster's per-step exchange costs more than it saves there); a
+    longer one on the cluster that gives each CTA at most CTC_SPLIT_STATES,
+    up to 8, as long as the 2B x cluster CTAs fit the SMs, and never a
+    smaller one than 1024 threads of 8 states allow. Measured on an H100 at
+    the 140 s bucket (S = 4,097): 8 CTAs of 512 states took 4.0 ms, 5 of 820
+    4.9 (tools/torch_ctc_variants.py --plans). Raises ValueError for a shape
+    the kernels cannot take."""
+    if min(B, T, S, V) < 1:
+        raise ValueError(f"ctc_plan: empty shape B={B} T={T} S={S} V={V}")
+    need = -(-S // (CTC_MAX_THREADS * CTC_KPTS[-1]))
+    want = 1 if S <= CTC_STATES_PER_CTA else min(CTC_MAX_CLUSTER, -(-S // CTC_SPLIT_STATES))
+    while want > need and 2 * B * want > CTC_SMS:
+        want -= 1
+    cluster = max(need, want)
+    if cluster > CTC_MAX_CLUSTER or S > CTC_MAX_S:
+        raise ValueError(f"ctc_plan: S={S} states exceed what a cluster of {CTC_MAX_CLUSTER} CTAs takes")
+    ranges = ctc_ranges(S, cluster)
+    widest = max(hi - lo for lo, hi in ranges)
+    kpt = next(k for k in CTC_KPTS if -(-widest // k) <= CTC_MAX_THREADS)
+    per_cta = -(-widest // kpt)  # threads that hold the widest range
+    threads = -(-per_cta // 32) * 32
+    for what, n in (("a sweep CTA", sweep_smem_bytes(S, V, cluster)), ("a collect block", collect_smem_bytes(S, V))):
+        if n > SMEM_LIMIT:
+            raise ValueError(f"ctc_plan: S={S} states and V={V} classes need {n} bytes of shared memory in {what} "
+                             f"(at most {SMEM_LIMIT})")
+    return cluster, threads, kpt, ranges
 
 
 def ctc_fused(log_probs, logit_lengths, labels, label_lengths, blank_id: int = 0, zero_infinity: bool = True):
     """(loss (B,), grad (B, T, V)) of the CTC negative log-likelihood.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (a vocabulary or label width whose rows do not fit in shared
-    memory, a mismatch of shapes or devices)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels or
+    raise (a label width or vocabulary that `ctc_plan` cannot take, a
+    mismatch of shapes or devices, a refused launch)."""
     if log_probs.ndim != 3 or labels.ndim != 2:
         raise ValueError(f"ctc_fused: want log_probs (B, T, V) and labels (B, U), got {tuple(log_probs.shape)}, {tuple(labels.shape)}")
     B, T, V = log_probs.shape
@@ -156,25 +224,23 @@ def ctc_fused(log_probs, logit_lengths, labels, label_lengths, blank_id: int = 0
     if log_probs.device.type != "cuda":
         raise ValueError(f"ctc_fused: unsupported device {log_probs.device}")
     S = 2 * U + 1
-    if smem_bytes(S, V) > SMEM_LIMIT:
-        raise ValueError(f"ctc_fused: S={S} states and V={V} classes need {smem_bytes(S, V)} bytes of shared memory "
-                         f"(at most {SMEM_LIMIT})")
+    cluster, threads, kpt, _ = ctc_plan(B, T, S, V)
     if not 0 <= blank_id < V:
         raise ValueError(f"ctc_fused: blank_id {blank_id} outside the vocabulary of {V}")
     lp = log_probs.detach().to(torch.float32).contiguous()
-    ext, allow = _prepare(labels, blank_id)
+    labs = labels.to(torch.int32).contiguous()  # the kernels build the extended labels (`_prepare`) themselves
     t_lens = logit_lengths.to(torch.int32).contiguous()
     lab_lens = label_lengths.to(torch.int32).contiguous()
     loss = torch.empty(B, dtype=torch.float32, device=lp.device)
     grad = torch.empty(B, T, V, dtype=torch.float32, device=lp.device)
-    alpha = torch.empty(B, T, S, dtype=torch.float32, device=lp.device)  # scratch
-    rc = _kernel()(lp.data_ptr(), ext.data_ptr(), allow.data_ptr(), t_lens.data_ptr(), lab_lens.data_ptr(),
-                   loss.data_ptr(), grad.data_ptr(), alpha.data_ptr(), B, T, S, V, _build.stream_ptr(lp.device))
+    alpha = torch.empty(B, T, S, dtype=torch.float32, device=lp.device)  # scratch: the alpha sweeps' rows
+    beta = torch.empty(B, T, S, dtype=torch.float32, device=lp.device)  # scratch: the beta sweeps' rows
+    rc = _kernel()(lp.data_ptr(), labs.data_ptr(), t_lens.data_ptr(), lab_lens.data_ptr(), loss.data_ptr(),
+                   grad.data_ptr(), alpha.data_ptr(), beta.data_ptr(), B, T, S, V, blank_id, int(bool(zero_infinity)),
+                   cluster, threads, kpt, _build.stream_ptr(lp.device))
     _build.check(rc, "ctc_fused")
     LAUNCHES["ctc_fused"] += 1
-    if zero_infinity:
-        loss, grad = _zero_infinity(loss, grad, logit_lengths, label_lengths)
-    return loss, grad
+    return loss, grad  # zero_infinity applied by the collect pass (`_zero_infinity`'s rule)
 
 
 class CTCFusedLoss(torch.autograd.Function):

@@ -179,9 +179,17 @@ def test_wrapper_checks_inputs():
         K1.ctc_fused(lp, torch.ones(3, dtype=torch.int32), torch.zeros(2, 2, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError):
         K1.ctc_fused(lp[0], torch.ones(2, dtype=torch.int32), torch.zeros(2, 2, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
-    # the shared memory a block needs: alpha/beta rows x 2, ext, allow, V bins x 2
-    assert K1.smem_bytes(513, 32) == (4 * 513 + 64) * 4
-    assert K1.smem_bytes(2 * 2048 + 1, 1024) <= K1.SMEM_LIMIT < K1.smem_bytes(2 * 16384 + 1, 32)
+    # the shared memory of a sweep CTA: 4 mbarriers, two copies of its range
+    # with two halo slots a side (rounded up to 4 words) and a ring of 8 lp
+    # rows; of a collect block: g, the class and piece offsets, the piece
+    # sums, 32 warp sums, the states in class order (u16) and the pieces'
+    # classes (u16)
+    assert K1.sweep_smem_bytes(513, 32, 1) == 32 + (2 * 520 + 8 * 32) * 4
+    assert K1.sweep_smem_bytes(4097, 32, 5) == 32 + (2 * 824 + 8 * 32) * 4
+    assert K1.collect_smem_bytes(513, 32) == 6 * 513 + 8 * 33 + 6 * (17 + 32) + 128
+    assert K1.collect_smem_bytes(2 * 16384 + 1, 1024) <= K1.SMEM_LIMIT
+    with pytest.raises(ValueError, match="ctc_plan"):
+        K1.ctc_plan(1, 10, 2 * 32768 + 1, 32)
 
 
 def test_cuda_tensors_never_reach_the_plain_version():

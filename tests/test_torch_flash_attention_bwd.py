@@ -328,7 +328,7 @@ def test_ctc_trainer_long_bucket_goes_through_flash(tmp_path, monkeypatch):
 def test_140s_bucket_shapes_fit_the_kernels():
     """At CTCTrainer(buckets=(140.0,)): 2,240,000 samples a row, 6,999 frames
     through xlsr's conv stack, a label width of 2,048 at ~14 chars/s (S =
-    4,097 CTC states), which K1's one block takes in shared memory."""
+    4,097 CTC states), which K1's plan splits over a cluster of CTAs."""
     from types import SimpleNamespace
 
     from ssak_tpu_torch.data.dataset import padded_batch
@@ -347,4 +347,6 @@ def test_140s_bucket_shapes_fit_the_kernels():
     trainer = SimpleNamespace(tokenizer=CTCTokenizer.from_corpus([text]), normalize_text=lambda t: t)
     labels, label_lens = CTCTrainer._encode_labels(trainer, rows)
     assert label_lens.tolist() == [1959, 700] and labels.shape == (2, 2048)
-    assert K1.smem_bytes(2 * labels.shape[1] + 1, 32) == (4 * 4097 + 2 * 32) * 4 <= K1.SMEM_LIMIT
+    cluster, threads, kpt, ranges = K1.ctc_plan(4, 6999, 2 * labels.shape[1] + 1, 32)
+    assert cluster > 1 and threads * kpt >= max(hi - lo for lo, hi in ranges) and ranges[-1][1] == 4097
+    assert max(K1.sweep_smem_bytes(4097, 32, cluster), K1.collect_smem_bytes(4097, 32)) <= K1.SMEM_LIMIT
