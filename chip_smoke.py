@@ -15,7 +15,8 @@ and prints no result):
              1,025 and 4,097 split over a thread-block cluster; K2 and K3 at every M from 1 to 64, bit-identical on
              repeat with one allocation a call at their timed shapes, no
              register spills in their ptxas reports; L1's backward (dK/dV
-             and dQ) through autograd, bit-identical on repeat
+             and dQ) through autograd, bit-identical on repeat, no register
+             spills, timed also on ragged rows and at the 30 s bucket
   3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
              files listed in a Kaldi dir, bf16, --load_in_8bit and
              --load_in_4bit; the --load_in_4bit --accurate chain (beam 5,
@@ -573,7 +574,12 @@ def check_flash_attention_bwd(torch, dev):
     and the pair, against the plain version (B = 1 only: its (B, H, T, T) f32
     tensors take 3.1 GB each per row) and the backward alone of SDPA with a
     (B, 1, 1, T) key-padding mask on a kept graph; and the forward with m
-    and l written against the forward without, at B = 4."""
+    and l written against the forward without, at B = 4. Then the pair and
+    SDPA's backward with the same key-padding mask at B = 4 with ragged
+    rows like phase 3's 90-140 s files (6,999 / 5,800 / 5,000 / 4,500
+    frames: the kernels skip the tiles wholly across a row's length, whose
+    count is logged, and the bound counts only the same-segment pairs), and
+    at the 30 s bucket (B = 32, T = 1,499), for the FLASH_MIN_SEQ question."""
     import torch.nn.functional as F
 
     from ssak_tpu_torch.ops import flash_attention as L1
@@ -675,6 +681,37 @@ def check_flash_attention_bwd(torch, dev):
         log(f"flash_attention_bwd dq {rows['dq'][-1]}")
         log(f"flash_attention_bwd pair {pair}")
         del q, k, v, do, o, m, l, di, args, lq, lk, lv
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case, B, T, lengths in (("ragged", 4, 6999, [6999, 5800, 5000, 4500]), ("30s_bucket", 32, 1499, [1499] * 32)):
+        H, Dh = 16, 64
+        q, k, v, do = _qkv(torch, g, dev, B, T, H, Dh) + [torch.randn(B, T, H, Dh, generator=g, device=dev).to(torch.bfloat16)]
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            o, m, l = L1._flash_forward(q, k, v, lens, None, stats=True)
+            di = L1.attention_di(o, do)
+        args = [(q, k, v, do, m, l, di, lens)]
+        ms = {name: time_ms(torch, fn, args, min_iters=10)
+              for name, fn in (("dkv", L1.flash_attention_bwd_dkv), ("dq", L1.flash_attention_bwd_dq))}
+        ms_pair = time_ms(torch, lambda *a: (L1.flash_attention_bwd_dkv(*a), L1.flash_attention_bwd_dq(*a)), args,
+                          min_iters=10)
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        ldo = do.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True), [()], min_iters=10)
+        counts = L1.flash_bwd_tile_counts(L1.flash_bwd_plan(B, T, H, Dh), T, H, lengths)
+        # the pairs this data needs: (query, key) in one segment below T
+        pairs_needed = H * sum(n * n + (T - n) * (T - n) for n in lengths)
+        io = 4 * B * T * H * Dh * 2 + 3 * B * H * T * 4
+        extra = dict(case=case, B=B, T=T, lengths=lengths, dkv_ms=ms["dkv"], dq_ms=ms["dq"], pair_ms=ms_pair,
+                     library_ms=lib_ms, library="SDPA backward (dq, dk, dv together), key-padding mask",
+                     pair_bound_ms=bound(io + 3 * B * T * H * Dh * 2, 14 * pairs_needed * Dh)[0],
+                     tiles=counts, skipped_share=counts["dkv"]["skip"] / sum(counts["dkv"][c] for c in
+                                                                           ("skip", "within", "masked")))
+        pairs.append(extra)
+        log(f"flash_attention_bwd {case} {extra}")
+        del q, k, v, do, o, m, l, di, args, lq, lk, lv, lo
         gc.collect()
         torch.cuda.empty_cache()
     return rows, worst, pairs
@@ -1615,9 +1652,10 @@ def main():
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s for {sorted(paths)}")
     for name, (_sec, report) in _build.build_log.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7515" in line:  # C7515: ptxas serialised wgmmas
                 log(f"  {name}: {line.strip()}")
-    for name in ("int8_matmul", "int4_matmul"):  # built in this run: K2's and K3's ptxas reports show no spills
+    # built in this run: K2's, K3's and L1 backward's ptxas reports show no spills
+    for name in ("int8_matmul", "int4_matmul", "flash_attention_bwd"):
         if name in _build.build_log:
             spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log[name][1])
             if not spills or any(a != "0" or b != "0" for a, b in spills):

@@ -27,6 +27,14 @@ from ssak_tpu_torch.ops import _build
 # counted by the wrappers, one per kernel launch
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 HEAD_DIMS = (64, 128, 256)
+# L1's backward kernels: a CTA owns FLASH_BWD_ROWS rows (two consumer
+# warpgroups of FLASH_BWD_WG_ROWS) and walks the other side in tiles of
+# `walk` rows; the walks each kernel is compiled for, per Dh, default first
+FLASH_BWD_ROWS, FLASH_BWD_WG_ROWS = 128, 64
+FLASH_BWD_WALKS = {"dkv": {64: (64, 32), 128: (32,), 256: (32,)}, "dq": {64: (64, 32), 128: (64,), 256: (32,)}}
+FLASH_BWD_MAX_STAGES = 4
+SMEM_PER_BLOCK = 232448  # shared memory one block can use on the H100
+BWD_SKIP, BWD_WITHIN, BWD_MASKED = 0, 1, 2
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library kernel's DEFAULT_MASK_VALUE
 _fns = {}
 
@@ -111,6 +119,96 @@ def flash_self_attention_backward_reference(q, k, v, o, m, l, do, lengths=None, 
     return tuple(_backward_plain(q, k, v, do, m, l, attention_di(o, do), lengths, scale, ("dq", "dk", "dv")))
 
 
+def _bwd_smem(kernel, Dh, walk, stages):
+    """Shared bytes of a backward CTA, as csrc/flash_attention_bwd.cu lays
+    them out: 1024 of alignment slack, the own rows of two operands, per
+    stage two walked operands, two mbarriers and, for dK/dV, boxes of walk
+    + 4 values of m, l and di in 128-byte slots, their per-column m *
+    log2(e), 1 / l and di and a third mbarrier; one more mbarrier."""
+    dkv = kernel == "dkv"
+    vec = -(-(walk + 4) * 4 // 128) * 128
+    stage = 2 * walk * Dh * 2 + (3 * vec + 12 * walk + 24 if dkv else 16)
+    return 1024 + 2 * FLASH_BWD_ROWS * Dh * 2 + stages * stage + 8
+
+
+def flash_bwd_plan(B: int, T: int, H: int, Dh: int, walk=None, stages=None) -> dict:
+    """The backward kernels' plan, {"dkv": ..., "dq": ...}, each with its
+    own rows per CTA (`rows`), walked tile rows (`walk`), TMA ring `stages`,
+    consumer `warpgroups`, `threads`, column `split` (dK/dV at Dh = 256: two
+    CTAs per key tile, half the output columns each), own-row `tiles`,
+    `walk_tiles`, shared bytes (`smem`) and `grid`. Pure Python; the
+    wrapper passes it to the C entry points, which check it.
+
+    Why: a CTA of 128 own rows is two 64-row wgmma warpgroups plus a
+    producer, 384 threads at 168 registers, one CTA an SM. At Dh = 64 a walk
+    of 64 keeps the consumers' live registers under the 224 that setmaxnreg
+    gives them (S, dP, dK and dV accumulators of 32 each, the own rows' A
+    fragments, 32, the bf16 P and dS fragments, 16 each); Dh = 128 and 256
+    walk 32 (dQ at 128: 64) to keep their wider accumulators in registers. Stages: the most, up to 4, that
+    fit SMEM_PER_BLOCK. Grid: ceil(T / 128) own tiles x H x B; at T = 6,999
+    and H = 16 that is 880 CTAs at B = 1 (6.67 waves of 132, the last wave
+    two thirds full: 95% of the slots busy) and 3,520 at B = 4 (26.67
+    waves, 99%). `walk` and `stages` override the defaults (the variants
+    tool times other tilings)."""
+    if Dh not in HEAD_DIMS or min(B, T, H) < 1:
+        raise ValueError(f"flash_bwd_plan: Dh in {HEAD_DIMS} and B, T, H >= 1, got B={B} T={T} H={H} Dh={Dh}")
+    plan = {}
+    for kernel in ("dkv", "dq"):
+        walks = FLASH_BWD_WALKS[kernel][Dh]
+        w = walks[0] if walk is None else walk
+        if w not in walks:
+            raise ValueError(f"flash_bwd_plan: {kernel} at Dh={Dh} is compiled for walks {walks}, got {w}")
+        fits = [n for n in range(2, FLASH_BWD_MAX_STAGES + 2) if _bwd_smem(kernel, Dh, w, n) <= SMEM_PER_BLOCK]
+        n = max(x for x in fits if x <= FLASH_BWD_MAX_STAGES) if stages is None else stages
+        if n not in fits:
+            raise ValueError(f"flash_bwd_plan: {kernel} at Dh={Dh}, walk={w}: {n} stages do not fit "
+                             f"{SMEM_PER_BLOCK} bytes")
+        split = 2 if kernel == "dkv" and Dh == 256 else 1
+        tiles = -(-T // FLASH_BWD_ROWS)
+        plan[kernel] = dict(rows=FLASH_BWD_ROWS, walk=w, stages=n, warpgroups=FLASH_BWD_ROWS // FLASH_BWD_WG_ROWS,
+                            threads=128 * (FLASH_BWD_ROWS // FLASH_BWD_WG_ROWS + 1), split=split, tiles=tiles,
+                            walk_tiles=-(-T // w), smem=_bwd_smem(kernel, Dh, w, n), grid=(tiles * split, H, B))
+    return plan
+
+
+def flash_bwd_tile_class(r0: int, c0: int, walk: int, length: int, T: int) -> int:
+    """The backward kernels' class of the pair (a warpgroup's own rows [r0,
+    r0 + 64), walked rows [c0, c0 + walk)) in a row of `length` valid frames
+    (T where there are no lengths), as csrc/flash_attention_bwd.cu
+    `tile_class` decides it: BWD_SKIP where every (own, walked) pair below T
+    lies across the segment boundary (p is exactly 0) or the own rows all lie
+    past T; BWD_MASKED where a tile straddles the length or runs past T;
+    else BWD_WITHIN (no mask)."""
+    r1, c1 = min(r0 + FLASH_BWD_WG_ROWS, T), min(c0 + walk, T)
+    if r0 >= r1:
+        return BWD_SKIP
+    r_lo, r_hi, c_lo, c_hi = r1 <= length, r0 >= length, c1 <= length, c0 >= length
+    if (r_lo and c_hi) or (r_hi and c_lo):
+        return BWD_SKIP
+    if c0 + walk > T:
+        return BWD_MASKED
+    return BWD_WITHIN if (r_lo and c_lo) or (r_hi and c_hi) else BWD_MASKED
+
+
+def flash_bwd_tile_counts(plan: dict, T: int, H: int, lengths=None) -> dict:
+    """{kernel: {"skip", "within", "masked": (warpgroup, walked tile) pairs;
+    "loaded": walked tiles the CTAs load}} over every row and head, for
+    `lengths` (a list, or None: no mask)."""
+    out = {}
+    for kernel, k in plan.items():
+        n = {"skip": 0, "within": 0, "masked": 0, "loaded": 0}
+        for length in (lengths if lengths is not None else [T] * k["grid"][2]):
+            for t in range(k["tiles"]):
+                for c in range(k["walk_tiles"]):
+                    cls = [flash_bwd_tile_class(t * k["rows"] + w * FLASH_BWD_WG_ROWS, c * k["walk"], k["walk"],
+                                                length, T) for w in range(k["warpgroups"])]
+                    for x in cls:
+                        n[("skip", "within", "masked")[x]] += H * k["split"]
+                    n["loaded"] += H * k["split"] * any(x != BWD_SKIP for x in cls)
+        out[kernel] = n
+    return out
+
+
 def _kernel(name):
     if name not in _fns:
         if name == "fwd":
@@ -122,7 +220,8 @@ def _kernel(name):
             fn = lib.ssak_flash_attention_bwd_dkv if name == "dkv" else lib.ssak_flash_attention_bwd_dq
             n_out = 2 if name == "dkv" else 1
             fn.argtypes = ([ctypes.c_void_p] * (8 + n_out) + [ctypes.c_int] * 4
-                           + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -200,15 +299,26 @@ def _check_stats(what, q, tensors):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch_bwd(name, q, k, v, do, m, l, di, lengths, scale, outs):
+def _tma_operand(x):
+    """_kernel_operand(x), made contiguous unless its (head, time, batch)
+    strides rise in that order: the kernels' tensor maps list the dimensions
+    as (Dh, H, T, B)."""
+    x = _kernel_operand(x)
+    return x if x.stride(2) <= x.stride(1) <= x.stride(0) else x.contiguous()
+
+
+def _launch_bwd(name, q, k, v, do, m, l, di, lengths, scale, outs, plan=None):
     B, T, H, Dh = q.shape
-    q, k, v, do = (_kernel_operand(a) for a in (q, k, v, do))
+    if B * H * T >= 2**31:
+        raise ValueError(f"flash_attention_bwd_{name}: B*H*T must be below 2**31, got {B * H * T}")
+    kp = (plan or flash_bwd_plan(B, T, H, Dh))[name]
+    q, k, v, do = (_tma_operand(a) for a in (q, k, v, do))
     m, l, di = (a.contiguous() for a in (m, l, di))
     lens = _kernel_lengths(lengths, B, T, q.device)
     strides = (ctypes.c_longlong * 12)(*(s for a in (q, k, v, do) for s in a.stride()[:3]))
     rc = _kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
                        di.data_ptr(), _ptr(lens), *(o.data_ptr() for o in outs), B, T, H, Dh, strides, float(scale),
-                       _build.stream_ptr(q.device))
+                       kp["walk"], kp["stages"], kp["smem"], _build.stream_ptr(q.device))
     _build.check(rc, f"flash_attention_bwd_{name}")
     LAUNCHES[f"flash_attention_bwd_{name}"] += 1
 
@@ -221,27 +331,28 @@ def _backward_entry(what, q, k, v, do, m, l, di, lengths, scale):
     return device, (q.shape[-1] ** -0.5 if scale is None else scale)
 
 
-def flash_attention_bwd_dkv(q, k, v, do, m, l, di, lengths=None, scale=None):
+def flash_attention_bwd_dkv(q, k, v, do, m, l, di, lengths=None, scale=None, plan=None):
     """dK and dV (B, T, H, Dh) bf16 from the forward's q/k/v, the output
     gradient dO, m, l and di (f32 (B, H, T)). CUDA tensors launch the dK/dV
-    kernel or raise; CPU tensors take its plain version."""
+    kernel (on flash_bwd_plan's tiling, or `plan`) or raise; CPU tensors
+    take its plain version."""
     device, scale = _backward_entry("flash_attention_bwd_dkv", q, k, v, do, m, l, di, lengths, scale)
     if device == "cpu":
         return tuple(_backward_plain(q, k, v, do, m, l, di, lengths, scale, ("dk", "dv")))
     dk, dv = (torch.empty(q.shape, dtype=torch.bfloat16, device=q.device) for _ in range(2))
-    _launch_bwd("dkv", q, k, v, do, m, l, di, lengths, scale, (dk, dv))
+    _launch_bwd("dkv", q, k, v, do, m, l, di, lengths, scale, (dk, dv), plan)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, m, l, di, lengths=None, scale=None):
+def flash_attention_bwd_dq(q, k, v, do, m, l, di, lengths=None, scale=None, plan=None):
     """dQ (B, T, H, Dh) bf16, from the same inputs as flash_attention_bwd_dkv.
-    CUDA tensors launch the dQ kernel or raise; CPU tensors take its plain
-    version."""
+    CUDA tensors launch the dQ kernel (on flash_bwd_plan's tiling, or
+    `plan`) or raise; CPU tensors take its plain version."""
     device, scale = _backward_entry("flash_attention_bwd_dq", q, k, v, do, m, l, di, lengths, scale)
     if device == "cpu":
         return _backward_plain(q, k, v, do, m, l, di, lengths, scale, ("dq",))[0]
     dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    _launch_bwd("dq", q, k, v, do, m, l, di, lengths, scale, (dq,))
+    _launch_bwd("dq", q, k, v, do, m, l, di, lengths, scale, (dq,), plan)
     return dq
 
 
