@@ -14,7 +14,13 @@ and prints no result):
              f64, bit-identical on repeat at its three timed shapes, S =
              1,025 and 4,097 split over a thread-block cluster; K2 and K3 at every M from 1 to 64, bit-identical on
              repeat with one allocation a call at their timed shapes, no
-             register spills in their ptxas reports; L1's backward (dK/dV
+             register spills in their ptxas reports; K4 on full, one-key,
+             empty, inner and ragged ranges, at T = 12,288 and on caches off
+             a 16-byte boundary, within 1e-2 of each row's largest output
+             (a planted edge-group fault shown to exceed that), bit-identical
+             on repeat at its timed shapes (the self-attention ranges [0,
+             31], [0, 127] and [0, 223] of a decode step included), no
+             register spills; L1's backward (dK/dV
              and dQ) through autograd, bit-identical on repeat, no register
              spills, timed also on ragged rows and at the 30 s bucket
   3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
@@ -273,56 +279,157 @@ def _rand_kv(torch, g, dev, B, H, Dh, T, int8):
     return q, (k.to(torch.bfloat16), v.to(torch.bfloat16))
 
 
+# K4's limit in every (batch, head) row, relative to the row's largest
+# output: well above what the kernel reads and well below what a kernel
+# that takes one edge group of keys from the wrong place reads, at every
+# checked shape, T = 12,288 included (both logged; _planted).
+K4_REL = 1e-2
+
+
+def k4_rel_err(out, ref):
+    """max over (batch, head) rows of max_d |out - ref| / max_d |ref|."""
+    return float(((out - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def _planted(torch, FD, args, int8):
+    """What k4_rel_err reads when one edge group of keys is taken from the
+    neighbouring group: K's first group in range, V's first or V's last
+    (the plain version on so faulted inputs stands for a kernel that
+    misplaces a group). Rows with fewer than two groups in range are left
+    whole. Returns the smallest of the three readings."""
+    q, k, v, lo, hi, *sc = args
+    T = k.shape[-1]
+    ve = FD.flash_decode_vec(T, "int8" if int8 else "bf16") // (1 if int8 else 2)
+    ref = FD.flash_decode_reference(*args)
+    reads = []
+    for which in ("k first", "v first", "v last"):
+        kf, vf = k.clone(), v.clone()
+        dst, src = (kf, k) if which[0] == "k" else (vf, v)
+        for b, (l, h) in enumerate(zip(lo.tolist(), hi.tolist())):
+            t0, t1 = FD.flash_decode_range(l, h, T)
+            if t1 - t0 + 1 < 2 * ve:
+                continue
+            a, d = (t0, ve) if which.endswith("first") else (t1 + 1 - ve, -ve)
+            dst[b, ..., a:a + ve] = src[b, ..., a + d:a + d + ve]
+        reads.append(k4_rel_err(FD.flash_decode_reference(q, kf, vf, lo, hi, *sc), ref))
+    return min(reads)
+
+
 def check_flash_decode(torch, dev, int8):
+    """K4 against its plain version at the decoder's shapes (H=20, Dh=64; B
+    = 24, 40; T = 448, the self-attention cache, and 1,500, the encoder's
+    keys). Checked on rows with the full range, one key, an empty range (lo
+    > hi: every key masked, weighted alike), a range inside the cache and
+    ragged ranges, within 2e-2 and, in every (batch, head) row, within
+    K4_REL of the row's largest output (bf16 p may round the other way
+    where the two sum orders straddle a bf16 boundary; an output shrinks
+    as 1 / sqrt(T), so a fixed limit would pass wrong keys at long
+    ranges). Timed on the full range, and at T = 448 on self-attention
+    ranges of a decode step ([0, 31], [0, 127] and [0, 223]: B = 24 bf16,
+    40 int8), each timed call also checked, and repeated bit-identical (the
+    exchange over the cluster sums in rank order, no atomics). At every
+    timed shape and at T = MAX_T the check is shown to catch a planted
+    edge-group fault (_planted). The plan of every shape is logged; the
+    bound counts the bytes of the keys in range."""
     import torch.nn.functional as F
 
     from ssak_tpu_torch.ops import flash_decode as FD
 
     g = torch.Generator(device=dev).manual_seed(2 + int8)
     H, Dh = 20, 64
-    rows, worst = [], 0.0
-    for B in (24, 40):
-        for T in (448, 1500):
-            q, kv = _rand_kv(torch, g, dev, B, H, Dh, T, int8)
-            # ragged ranges for the check; the timed call uses the main
-            # path's full cross-attention range
+    tag = f"flash_decode_{'int8' if int8 else 'bf16'}"
+    rows, worst, worst_rel, weakest = [], 0.0, 0.0, float("inf")
+    timed = ([(B, T, 0, T - 1) for B in (24, 40) for T in (448, 1500)]
+             + [(40 if int8 else 24, 448, 0, n) for n in (31, 127, 223)])
+    for B, T, t_lo, t_hi in timed:
+        q, kv = _rand_kv(torch, g, dev, B, H, Dh, T, int8)
+        plan = FD.flash_decode_plan(B, H, Dh, T, "int8" if int8 else "bf16")
+        if t_hi == T - 1:  # ragged ranges for the check, once a shape
             lo = torch.randint(0, T // 4, (B,), generator=g, device=dev, dtype=torch.int32)
             hi = torch.randint(T // 2, T, (B,), generator=g, device=dev, dtype=torch.int32)
             lo[0], hi[0] = 0, T - 1
             lo[1], hi[1] = 5, 5
+            lo[2], hi[2] = 7, 3  # empty
+            lo[3], hi[3] = T // 3, T // 3 + 40
             args = (q, kv[0], kv[1], lo, hi) + tuple(kv[2:])
             out = FD.flash_decode_attention(*args)
             ref = FD.flash_decode_reference(*args)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            if not err <= 2e-2:
-                raise AssertionError(f"flash_decode int8={int8} B={B} T={T}: max|err| {err} > 2e-2")
-            worst = max(worst, err)
-            full_lo = torch.zeros(B, dtype=torch.int32, device=dev)
-            full_hi = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
-            elt = 1 if int8 else 2
-            kv_bytes = 2 * B * H * Dh * T * elt + (2 * B * H * T * 2 if int8 else 0)
-            sets = [(q, *(a.clone() for a in kv[:2]), full_lo, full_hi, *(a.clone() for a in kv[2:]))
-                    for _ in range(n_copies(kv_bytes))]
-            # library yardstick: SDPA on bf16 K/V in (B, H, T, Dh), range mask
-            mask = torch.ones(B, 1, 1, T, dtype=torch.bool, device=dev)
-            if int8:
-                kb = (kv[0].float() * kv[2].float()).to(torch.bfloat16)
-                vb = (kv[1].float() * kv[3].float()).to(torch.bfloat16)
-            else:
-                kb, vb = kv
-            lib_sets = [(q[:, :, None], kb.transpose(-1, -2).contiguous(), vb.transpose(-1, -2).contiguous(), mask)
-                        for _ in range(n_copies(2 * B * H * Dh * T * 2))]
-            row = dict(
-                B=B, T=T, max_abs_err=err,
-                ms=time_ms(torch, FD.flash_decode_attention, sets),
-                plain_ms=time_ms(torch, FD.flash_decode_reference, sets),
-                library_ms=time_ms(torch, lambda a, k, v, m: F.scaled_dot_product_attention(a, k, v, attn_mask=m, scale=1.0), lib_sets),
-            )
-            row["bound_ms"], row["bound_by"] = bound(kv_bytes + B * H * Dh * (2 + 4) + 8 * B, 4 * B * H * Dh * T)
-            rows.append(row)
-            log(f"flash_decode_{'int8' if int8 else 'bf16'} {row}")
-            del sets, lib_sets
+            err, rel = float((out - ref).abs().max()), k4_rel_err(out, ref)
+            if not (err <= 2e-2 and rel <= K4_REL):
+                raise AssertionError(f"{tag} B={B} T={T}: max|err| {err} > 2e-2 or {rel} > {K4_REL} of a row's "
+                                     "largest output (full, one key, empty, inner, ragged)")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        t_lo_v = torch.full((B,), t_lo, dtype=torch.int32, device=dev)
+        t_hi_v = torch.full((B,), t_hi, dtype=torch.int32, device=dev)
+        args = (q, kv[0], kv[1], t_lo_v, t_hi_v) + tuple(kv[2:])
+        out = FD.flash_decode_attention(*args)
+        again = FD.flash_decode_attention(*args)
+        ref = FD.flash_decode_reference(*args)
+        torch.cuda.synchronize()
+        err, rel, planted = float((out - ref).abs().max()), k4_rel_err(out, ref), _planted(torch, FD, args, int8)
+        if not (err <= 2e-2 and rel <= K4_REL):
+            raise AssertionError(f"{tag} B={B} T={T} range [{t_lo}, {t_hi}]: max|err| {err} > 2e-2 or {rel} > {K4_REL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{tag} B={B} T={T} range [{t_lo}, {t_hi}]: two launches differ")
+        if not planted > K4_REL:
+            raise AssertionError(f"{tag} B={B} T={T} range [{t_lo}, {t_hi}]: a planted edge-group fault reads "
+                                 f"{planted}, within the limit {K4_REL}")
+        worst, worst_rel, weakest = max(worst, err), max(worst_rel, rel), min(weakest, planted)
+        n, elt = t_hi - t_lo + 1, 1 if int8 else 2
+        kv_bytes = 2 * B * H * Dh * T * elt + (2 * B * H * T * 2 if int8 else 0)  # the caches, for the copies
+        sets = [(q, *(a.clone() for a in kv[:2]), t_lo_v, t_hi_v, *(a.clone() for a in kv[2:]))
+                for _ in range(n_copies(kv_bytes))]
+        # library yardstick: SDPA on bf16 K/V in (B, H, T, Dh), range mask
+        mask = torch.zeros(B, 1, 1, T, dtype=torch.bool, device=dev)
+        mask[..., t_lo:t_hi + 1] = True
+        if int8:
+            kb = (kv[0].float() * kv[2].float()).to(torch.bfloat16)
+            vb = (kv[1].float() * kv[3].float()).to(torch.bfloat16)
+        else:
+            kb, vb = kv
+        lib_sets = [(q[:, :, None], kb.transpose(-1, -2).contiguous(), vb.transpose(-1, -2).contiguous(), mask)
+                    for _ in range(n_copies(2 * B * H * Dh * T * 2))]
+        row = dict(
+            B=B, T=T, range=f"{t_lo}:{t_hi}", max_abs_err=err, max_rel_err=rel, planted_fault_reads=planted,
+            plan={k: plan[k] for k in ("cluster", "seg_rows", "stages", "warps", "smem", "ctas_per_sm", "clusters",
+                                       "sites_per_cluster", "vec")},
+            ms=time_ms(torch, FD.flash_decode_attention, sets),
+            plain_ms=time_ms(torch, FD.flash_decode_reference, sets),
+            library_ms=time_ms(torch, lambda a, k, v, m: F.scaled_dot_product_attention(a, k, v, attn_mask=m, scale=1.0), lib_sets),
+        )
+        # the keys in range of K and V (and their scales) read once, q read and o written once
+        in_range = 2 * B * H * Dh * n * elt + (2 * B * H * n * 2 if int8 else 0)
+        row["bound_ms"], row["bound_by"] = bound(in_range + B * H * Dh * (2 + 4) + 8 * B, 4 * B * H * Dh * n)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"{tag} {row}; repeat bit-identical")
+        del sets, lib_sets
+    # off the decoder's shapes: T = MAX_T (the ring cycles over row segments), odd T (vectors of one key) and
+    # caches that start off a 16-byte boundary (views one element into a buffer: plain loads at both ends)
+    for B, T, shift in ((3, FD.MAX_T, 0), (5, 1501, 0), (5, 448, 1)):
+        q, kv = _rand_kv(torch, g, dev, B, H, Dh, T, int8)
+        kv = tuple(torch.cat([a.new_zeros(shift), a.reshape(-1)])[shift:].view(a.shape) for a in kv)
+        lo = torch.tensor([0, 5, 7, T // 3, T // 5][:B], dtype=torch.int32, device=dev)
+        hi = torch.tensor([T - 1, 5, 3, T // 3 + 40, T - 1 - T // 7][:B], dtype=torch.int32, device=dev)
+        args = (q, kv[0], kv[1], lo, hi) + tuple(kv[2:])
+        out = FD.flash_decode_attention(*args)
+        again = FD.flash_decode_attention(*args)
+        ref = FD.flash_decode_reference(*args)
+        torch.cuda.synchronize()
+        err, rel = float((out - ref).abs().max()), k4_rel_err(out, ref)
+        if not (err <= 2e-2 and rel <= K4_REL) or not torch.equal(out, again):
+            raise AssertionError(f"{tag} B={B} T={T} shift={shift}: max|err| {err} > 2e-2, {rel} > {K4_REL} "
+                                 "or repeats differ")
+        planted = _planted(torch, FD, args, int8) if T == FD.MAX_T else None
+        if planted is not None and not planted > K4_REL:
+            raise AssertionError(f"{tag} B={B} T={T}: a planted edge-group fault reads {planted}, within {K4_REL}")
+        worst, worst_rel, weakest = max(worst, err), max(worst_rel, rel), min(weakest, planted or weakest)
+        log(f"{tag} B={B} T={T} base offset {kv[0].data_ptr() % 16} bytes: max|err| {err}, rel {rel}, planted "
+            f"fault reads {planted}, repeat bit-identical, plan {FD.flash_decode_plan(B, H, Dh, T, 'int8' if int8 else 'bf16')}")
+    log(f"{tag}: {len(timed)} timed shapes, 4 checked with full, one-key, empty, inner and ragged ranges, 3 more "
+        f"off the decoder's shapes, max|err| {worst}, largest error of a row {worst_rel} of its largest output "
+        f"(limit {K4_REL}); a planted edge-group fault reads at least {weakest}")
     return rows, worst
 
 
@@ -813,9 +920,10 @@ def run_slice(torch, kaldi_dir, ids, quantize_bits):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     reset_counts()
-    out = list(it)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with SelfRanges() as ranges:
+        out = list(it)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     launches, counted = decode_launches()
     del it
     tag = {0: "bf16", 8: "int8", 4: "int4"}[quantize_bits]
@@ -826,9 +934,47 @@ def run_slice(torch, kaldi_dir, ids, quantize_bits):
     audio_s = len(ids) * FILE_SECONDS
     res = dict(config=tag, files=len(ids), batch_size=batch, decode_steps=steps, load_s=t1 - t0, run_s=t2 - t1,
                audio_s_per_s=audio_s / (t2 - t1), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches, sample=out[0][1][:80])
+               launches=launches, self_attention_keys=ranges.summary(), sample=out[0][1][:80])
     log(f"slice {json.dumps(res)}")
     return res
+
+
+class SelfRanges:
+    """Records the key range [lo, hi] of each decode step's self-attention
+    (the calls of models.layers.decode_attention_bounded on a cache of
+    n_text_ctx slots, once a step: every layer takes the same bounds) while
+    installed. Keeps the bound tensors and reads them only in summary(), so
+    the run it watches is not synchronized."""
+
+    def __init__(self, n_ctx=448):
+        from ssak_tpu_torch.models import layers as L
+
+        self.L, self.n_ctx, self.bounds, self.orig = L, n_ctx, [], L.decode_attention_bounded
+
+    def __enter__(self):
+        def call(q, kv, lo, hi, *a, **kw):
+            if (kv["k8"] if "k8" in kv else kv["k"]).shape[-1] == self.n_ctx and not (self.bounds and self.bounds[-1][1] is hi):
+                self.bounds.append((lo, hi, q.shape[0]))
+            return self.orig(q, kv, lo, hi, *a, **kw)
+
+        self.L.decode_attention_bounded = call
+        return self
+
+    def __exit__(self, *exc):
+        self.L.decode_attention_bounded = self.orig
+
+    def summary(self):
+        """Keys in range (hi - lo + 1) over every row of every step: steps,
+        rows, median, 90th percentile and largest; and the largest hi."""
+        import torch
+
+        if not self.bounds:
+            return None
+        n = torch.cat([(torch.as_tensor(hi).expand(B) - torch.as_tensor(lo).expand(B) + 1).cpu().reshape(-1)
+                       for lo, hi, B in self.bounds]).double()
+        top = max(int(torch.as_tensor(hi).max()) for _, hi, _ in self.bounds)
+        return dict(steps=len(self.bounds), rows=int(n.numel()), median=float(n.median()),
+                    p90=float(n.quantile(0.9)), max=float(n.max()), max_hi=top)
 
 
 class DecodeCalls:
@@ -873,7 +1019,7 @@ def run_accurate(torch, kaldi_dir, ids):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with DecodeCalls() as rec:
+    with DecodeCalls() as rec, SelfRanges() as ranges:
         t0 = time.perf_counter()
         it = whisper_infer(None, kaldi_dir, seeded_test_config="whisper:large-v3", quantize_bits=4, beam_size=5,
                            best_of=5, temperature_fallback=True, max_tokens=MAX_TOKENS, output_ids=True)
@@ -895,7 +1041,7 @@ def run_accurate(torch, kaldi_dir, ids):
                batch_size=batch, decode_steps=steps, decode_calls=rec.calls,
                fallback_temperatures=sorted({t for _, t, _ in rec.calls if t > 0}), load_s=t1 - t0, run_s=t2 - t1,
                audio_s_per_s=len(ids) * ACC_SECONDS / (t2 - t1), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches, sample=out[0][1][:80])
+               launches=launches, self_attention_keys=ranges.summary(), sample=out[0][1][:80])
     log(f"slice {json.dumps(res)}")
     return res
 
@@ -918,7 +1064,7 @@ def run_longform(torch):
     torch.cuda.reset_peak_memory_stats()
     m = load_model(None, seeded_test_config="whisper:large-v3", quantize_bits=4)
     fuse_decode_qkv(m.module)
-    with DecodeCalls() as rec:
+    with DecodeCalls() as rec, SelfRanges() as ranges:
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -943,7 +1089,7 @@ def run_longform(torch):
                temperatures_used=sorted({sg["temperature"] for r in results for sg in r["segments"]}),
                segments=[len(r["segments"]) for r in results], decode_steps=steps, run_s=t1 - t0,
                audio_s_per_s=LF_FILES * LF_SECONDS / (t1 - t0), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches, sample=results[0]["text"][:80])
+               launches=launches, self_attention_keys=ranges.summary(), sample=results[0]["text"][:80])
     log(f"slice {json.dumps(res)}")
     del m
     return res
@@ -1654,8 +1800,8 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "C7515" in line:  # C7515: ptxas serialised wgmmas
                 log(f"  {name}: {line.strip()}")
-    # built in this run: K2's, K3's and L1 backward's ptxas reports show no spills
-    for name in ("int8_matmul", "int4_matmul", "flash_attention_bwd"):
+    # built in this run: K2's, K3's, K4's and L1 backward's ptxas reports show no spills
+    for name in ("int8_matmul", "int4_matmul", "flash_decode", "flash_attention_bwd"):
         if name in _build.build_log:
             spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log[name][1])
             if not spills or any(a != "0" or b != "0" for a, b in spills):
@@ -1721,9 +1867,9 @@ def main():
          k3_rows, k3_err, dict(M=32, K=1280, N=5120),
          slices["int4_accurate"]["launches"]["matmul_int4"] + slices["int4_longform"]["launches"]["matmul_int4"]),
         ("flash_decode_bf16", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:38",
-         *fd_rows["bf16"], dict(B=24, T=1500), slices["bf16"]["launches"]["flash_decode_bf16"]),
+         *fd_rows["bf16"], dict(B=24, T=1500, range="0:1499"), slices["bf16"]["launches"]["flash_decode_bf16"]),
         ("flash_decode_int8", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:58",
-         *fd_rows["int8"], dict(B=24, T=1500), slices["int8"]["launches"]["flash_decode_int8"]),
+         *fd_rows["int8"], dict(B=24, T=1500, range="0:1499"), slices["int8"]["launches"]["flash_decode_int8"]),
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
          k1_rows, k1_err, dict(V=32, T=749),
          slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]),
