@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
-  1. build   compile csrc/*.cu with nvcc for sm_90a (one process per source)
+  1. build   compile csrc/*.cu with nvcc for sm_90a (one process per source);
+             L1's wgmma kernels batched in their SASS (cuobjdump)
   2. kernels each kernel's wrapper at the main path's shapes against its
              plain PyTorch version on the card, with CUDA-event timings of
              the kernel, the plain version and one library call, and the
@@ -20,7 +21,11 @@ and prints no result):
              (a planted edge-group fault shown to exceed that), bit-identical
              on repeat at its timed shapes (the self-attention ranges [0,
              31], [0, 127] and [0, 223] of a decode step included), no
-             register spills; L1's backward (dK/dV
+             register spills; L1's forward bit-identical on repeat at every
+             checked case, no register spills and no serialised wgmma in
+             its ptxas report, its plan logged at every shape and its tile
+             counts on ragged rows, timed also with m and l written (the
+             training launch); L1's backward (dK/dV
              and dQ) through autograd, bit-identical on repeat, no register
              spills, timed also on ragged rows and at the 30 s bucket
   3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
@@ -93,6 +98,19 @@ def log(msg):
 def bound(n_bytes, n_flops, peak=BF16_FLOPS):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def hgmma_batching(sass):
+    """{function: (HGMMA instructions, those that carry gsb0)} of a cuobjdump
+    -sass listing, for the functions that have any. A batch of wgmmas ends
+    at the one HGMMA with gsb0; serialised, every HGMMA has it."""
+    out = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        lines = f.splitlines()
+        hg = [line for line in lines if "HGMMA" in line]
+        if hg:
+            out[lines[0].strip()] = (len(hg), sum("gsb0" in line for line in hg))
+    return out
 
 
 def time_ms(torch, fn, arg_sets, min_iters=20):
@@ -587,12 +605,17 @@ def check_flash_attention(torch, dev):
     q/k/v read through the strides of one fused (B, T, 3D) projection. The
     plain version computes the same masked softmax with p rounded to bf16
     against the global row max, the kernel against a running max: held to
-    2e-2 of max|out|. Timed at B = 6 and 1 (T = 7,001) against the plain
-    version (B = 1 only: at B = 6 its logits need about 56 GB) and SDPA in
-    bf16 with a (B, 1, 1, T) key-padding mask; and at the 30 s bucket
-    (B = 32, T = 1,499) against the plain version and the unfused attention
-    the encoder runs there (layers.attention), for the FLASH_MIN_SEQ
-    question only."""
+    2e-2 of max|out|; a second launch must give the same bits (no atomics).
+    The plan (flash_fwd_plan) is logged at every shape, and the tile counts
+    (flash_fwd_tile_counts) on the ragged rows. Timed at B = 6 and 1 (T =
+    7,001), and at B = 4, T = 6,999 with m and l written (the training
+    launch, `_flash_forward(..., stats=True)`), against the plain version
+    (B = 1 only: at B = 6 its logits need about 56 GB) and SDPA in bf16 with
+    a (B, 1, 1, T) key-padding mask, beside the operations bound (the
+    exponentials reckoned on the SFUs go to the log only; the training row
+    to the summary, not the kernels line); and at the 30 s bucket (B = 32, T =
+    1,499) against the plain version and the unfused attention the encoder
+    runs there (layers.attention), for the FLASH_MIN_SEQ question only."""
     import torch.nn.functional as F
 
     from ssak_tpu_torch.models import layers as L
@@ -618,38 +641,55 @@ def check_flash_attention(torch, dev):
             q, k, v = _qkv(torch, g, dev, c["B"], c["T"], H, Dh)
         lens = None if c["lengths"] is None else torch.tensor(c["lengths"], dtype=torch.int32, device=dev)
         out = L1.flash_self_attention(q, k, v, lens)
+        again = L1.flash_self_attention(q, k, v, lens)
         ref = L1.flash_self_attention_reference(q, k, v, lens)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = 2e-2 * float(ref.float().abs().max())
         if not (torch.isfinite(out).all() and out.shape == q.shape and err <= tol):
             raise AssertionError(f"flash_attention {c}: max|err| {err} > {tol} (finite {bool(torch.isfinite(out).all())})")
+        if not torch.equal(out, again):
+            raise AssertionError(f"flash_attention {c}: two launches differ")
         worst = max(worst, err)
-        log(f"flash_attention {c}: max|err| {err:.3g} (limit {tol:.3g})")
-        del q, k, v, out, ref
+        plan = L1.flash_fwd_plan(c["B"], c["T"], H, Dh)
+        ragged = c["lengths"] is not None and 0 < min(c["lengths"]) < c["T"]
+        tiles = f", tiles {L1.flash_fwd_tile_counts(plan, c['T'], H, c['lengths'])}" if ragged else ""
+        log(f"flash_attention {c}: max|err| {err:.3g} (limit {tol:.3g}), repeat bit-identical, plan {plan}{tiles}")
+        del q, k, v, out, again, ref
     rows = []
-    for B in (6, 1):
-        T, H, Dh = 7001, 16, 64
+    for B, T, stats in ((6, 7001, False), (1, 7001, False), (4, 6999, True)):
+        H, Dh = 16, 64
         q, k, v = _qkv(torch, g, dev, B, T)
         lens = torch.full((B,), T, dtype=torch.int32, device=dev)
         mask = torch.ones(B, 1, 1, T, dtype=torch.bool, device=dev)
         sets = [(q, k, v, lens)]
-        row = dict(B=B, T=T, H=H, Dh=Dh, ms=time_ms(torch, L1.flash_self_attention, sets, min_iters=10),
+        with torch.no_grad():
+            ms = time_ms(torch, lambda *a: L1._flash_forward(*a, None, stats=stats), sets, min_iters=10)
+        row = dict(B=B, T=T, H=H, Dh=Dh, ms=ms,
                    library_ms=time_ms(torch, lambda a, b, c, m: F.scaled_dot_product_attention(
                        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2), attn_mask=m), [(q, k, v, mask)],
                        min_iters=10),
                    plain_ms=time_ms(torch, L1.flash_self_attention_reference, sets, min_iters=3) if B == 1 else None)
-        # q, k, v read once and out written once; 4*B*H*T^2*Dh operations
-        row["bound_ms"], row["bound_by"] = bound(4 * B * T * H * Dh * 2, 4 * B * H * T * T * Dh)
+        # q, k, v read once and out (and m, l) written once; 4*B*H*T^2*Dh operations
+        n_bytes = 4 * B * T * H * Dh * 2 + (2 * B * H * T * 4 if stats else 0)
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, 4 * B * H * T * T * Dh)
         row["tflops"] = 4 * B * H * T * T * Dh / (row["ms"] * 1e-3) / 1e12
-        rows.append(row)
-        log(f"flash_attention {row}")
+        # B*H*T*Tp exponentials, reckoned (not measured) at 16 SFU results a clock per SM, 132 SMs, 1.98 GHz:
+        # logged only
+        ex2_ms = B * H * T * L1.padded_len(T) / (132 * 16 * 1.98e9) * 1e3
+        log(f"flash_attention {row}, m and l written: {stats}, plan {L1.flash_fwd_plan(B, T, H, Dh)}, "
+            f"exponentials reckoned at {ex2_ms:.4g} ms")
+        if stats:
+            training = row  # the training launch: in the summary, not in the kernels line
+        else:
+            rows.append(row)
         del q, k, v, sets
     B, T = 32, 1499
     q, k, v = _qkv(torch, g, dev, B, T)
     lens = torch.full((B,), T, dtype=torch.int32, device=dev)
     mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    short = dict(B=B, T=T, ms=time_ms(torch, L1.flash_self_attention, [(q, k, v, lens)], min_iters=10),
+    short = dict(B=B, T=T, plan=L1.flash_fwd_plan(B, T, 16, 64),
+                 ms=time_ms(torch, L1.flash_self_attention, [(q, k, v, lens)], min_iters=10),
                  plain_ms=time_ms(torch, L1.flash_self_attention_reference, [(q, k, v, lens)], min_iters=3),
                  unfused_ms=time_ms(torch, lambda a, b, c, m: L.attention(a, b, c, mask=m), [(q, k, v, mask)],
                                     min_iters=3))
@@ -657,7 +697,7 @@ def check_flash_attention(torch, dev):
     del q, k, v
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, worst, short
+    return rows, worst, short, training
 
 
 def _grads(torch, L1, q, k, v, lens, do):
@@ -1800,19 +1840,34 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "C7515" in line:  # C7515: ptxas serialised wgmmas
                 log(f"  {name}: {line.strip()}")
-    # built in this run: K2's, K3's, K4's and L1 backward's ptxas reports show no spills
-    for name in ("int8_matmul", "int4_matmul", "flash_decode", "flash_attention_bwd"):
-        if name in _build.build_log:
-            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log[name][1])
-            if not spills or any(a != "0" or b != "0" for a, b in spills):
-                raise AssertionError(f"{name} spills registers: {spills}")
+    # K2's, K3's, K4's and L1's ptxas reports (this run's, or kept beside a library built before) show no
+    # spills, and L1 forward's no serialised wgmma (C7515, or any other reason ptxas gives for it)
+    for name in ("int8_matmul", "int4_matmul", "flash_decode", "flash_attention", "flash_attention_bwd"):
+        if name not in _build.build_log:
+            raise AssertionError(f"{name}: no ptxas report beside its library")
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", _build.build_log[name][1])
+        if not spills or any(a != "0" or b != "0" for a, b in spills):
+            raise AssertionError(f"{name} spills registers: {spills}")
+    report = _build.build_log["flash_attention"][1]
+    if "C7515" in report or "are serialized" in report:
+        raise AssertionError(f"flash_attention: ptxas serialised its wgmmas:\n{report}")
+    # ptxas may also serialise them without a word: then every HGMMA in the SASS carries gsb0 and is
+    # waited on at once. In L1's kernels at most half of each function's HGMMAs may end a batch.
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([cuobjdump, "-sass", paths[name]], capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        counts = hgmma_batching(sass)
+        if not counts or any(2 * gsb > n for n, gsb in counts.values()):
+            raise AssertionError(f"{name}: serialised wgmma in the SASS (HGMMAs, of them with gsb0): {counts}")
+        log(f"  {name}: HGMMAs and batch ends (gsb0) per function {sorted(counts.values())}")
 
     log("phase 2: kernels against their plain versions")
     k2_rows, k2_err = check_matmul_int8(torch, dev)
     k3_rows, k3_err = check_matmul_int4(torch, dev)
     fd_rows = {v: check_flash_decode(torch, dev, v == "int8") for v in ("bf16", "int8")}
     k1_rows, k1_err = check_ctc_fused(torch, dev)
-    l1_rows, l1_err, l1_short = check_flash_attention(torch, dev)
+    l1_rows, l1_err, l1_short, l1_training = check_flash_attention(torch, dev)
     bwd_rows, bwd_err, bwd_pairs = check_flash_attention_bwd(torch, dev)
 
     log("phase 3: seeded large-v3 transcription (greedy bf16, int8, int4; int4 accurate; int4 long-form); "
@@ -1894,7 +1949,8 @@ def main():
         ))
     log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
                                  "ctc_serving_card_vs_cpu": serving_parity, "long_train_step_card_vs_cpu": long_step_parity,
-                                 "flash_attention_30s_bucket": l1_short, "flash_attention_bwd_pairs": bwd_pairs}))
+                                 "flash_attention_30s_bucket": l1_short, "flash_attention_training_launch": l1_training,
+                                 "flash_attention_bwd_pairs": bwd_pairs}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _lock = threading.Lock()
 _libs = {}
-build_log = {}  # name -> (seconds, ptxas report), filled by build_all
+build_log = {}  # name -> (seconds, ptxas report), filled by build_all (seconds 0 for a library built before)
 
 
 def _nvcc() -> str:
@@ -48,9 +48,15 @@ def _lib_path(name: str) -> str:
 
 def build_all() -> dict:
     """Compile every csrc/*.cu whose library is missing, one nvcc process
-    per source, all started together. Returns {name: library path}."""
+    per source, all started together; each ptxas report is kept beside its
+    library and read back into build_log when the library was there.
+    Returns {name: library path}."""
     paths = {name: _lib_path(name) for name in sources()}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    for name in paths.keys() - todo.keys():
+        if os.path.exists(paths[name] + ".ptxas"):
+            with open(paths[name] + ".ptxas") as f:
+                build_log[name] = (0.0, f.read())
     if not todo:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -67,6 +73,8 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{out}")
             continue
+        with open(todo[name] + ".ptxas", "w") as f:
+            f.write(out)
         os.replace(tmp, todo[name])
         build_log[name] = (time.perf_counter() - t0, out)
     if failed:

@@ -11,7 +11,11 @@ Without lengths and with T % 128 == 0 there is no mask.
 
 The CUDA kernels are `csrc/flash_attention.cu` (the forward; for training
 it also writes each row's max m and sum l) and `csrc/flash_attention_bwd.cu`
-(dK/dV and dQ, from q, k, v, dO, m, l and di = sum_d o * dO).
+(dK/dV and dQ, from q, k, v, dO, m, l and di = sum_d o * dO). Their tilings
+come from `flash_fwd_plan` and `flash_bwd_plan`, which the C entry points
+check; `flash_fwd_tile_class` and `flash_bwd_tile_class` mirror how each
+kernel classes a (64 rows, tile) pair: skipped across segments, unmasked
+within one, masked where it straddles a row's length (or, backward, T).
 `flash_self_attention_reference` and `flash_self_attention_backward_reference`
 are the plain PyTorch versions of the same functions, with the library's
 arithmetic, used for CPU tensors and by the on-card comparison.
@@ -35,6 +39,14 @@ FLASH_BWD_WALKS = {"dkv": {64: (64, 32), 128: (32,), 256: (32,)}, "dq": {64: (64
 FLASH_BWD_MAX_STAGES = 4
 SMEM_PER_BLOCK = 232448  # shared memory one block can use on the H100
 BWD_SKIP, BWD_WITHIN, BWD_MASKED = 0, 1, 2
+# L1's forward kernel: a CTA owns FLASH_FWD_ROWS[Dh] query rows (consumer
+# warpgroups of FLASH_FWD_WG_ROWS) and walks the keys of [0, Tp) in tiles of
+# FLASH_FWD_BN[Dh] rows
+FLASH_FWD_WG_ROWS = 64
+FLASH_FWD_ROWS = {64: 192, 128: 128, 256: 128}
+FLASH_FWD_BN = {64: 128, 128: 128, 256: 64}
+FLASH_FWD_MAX_STAGES = 4
+FWD_SKIP, FWD_WITHIN, FWD_MASKED = 0, 1, 2
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library kernel's DEFAULT_MASK_VALUE
 _fns = {}
 
@@ -209,12 +221,87 @@ def flash_bwd_tile_counts(plan: dict, T: int, H: int, lengths=None) -> dict:
     return out
 
 
+def _fwd_smem(Dh, rows, bn, stages):
+    """Shared bytes of a forward CTA, as csrc/flash_attention.cu lays them
+    out: 1024 of alignment slack, Q's rows, per stage a K and a V tile of bn
+    rows and two mbarriers; one more mbarrier."""
+    return 1024 + rows * Dh * 2 + stages * (2 * bn * Dh * 2 + 16) + 8
+
+
+def flash_fwd_plan(B: int, T: int, H: int, Dh: int, stages=None) -> dict:
+    """The forward kernel's plan: query rows per CTA (`rows`), key tile
+    `bn`, TMA ring `stages`, consumer `warpgroups`, `threads`, query
+    `tiles`, `key_tiles` over [0, Tp), shared bytes (`smem`) and `grid`.
+    Pure Python; the wrapper passes it to the C entry point, which checks it.
+
+    Why: each consumer warpgroup owns 64 query rows and issues wgmma; a
+    producer warpgroup feeds the ring; one CTA an SM. At Dh = 64 a key tile
+    of 128 halves the turns a tile against 64, and the live registers of a
+    consumer (S, 64 f32; the previous tile's bf16 P, 32; O, 32) fit the 160
+    that setmaxnreg gives each of three consumers (192 rows), which hide
+    more of the softmax's latency than two (128 rows, 224 registers each).
+    Dh = 128 takes 128 keys (O, 64) and Dh = 256 64 (O, 128), with two
+    consumers. Stages: the most, up to 4, that fit SMEM_PER_BLOCK. Grid:
+    ceil(T / rows) query tiles x H x B; at T = 7,001, H = 16 and 192 rows
+    that is 37 x 16 = 592 CTAs at B = 1 (4.48 waves of 132, the last about
+    half full: 90% of the slots busy; 128 rows would give 880, 6.67 waves)
+    and 3,552 at B = 6 (26.9 waves). `stages` overrides the default (the
+    variants tool times other ring depths)."""
+    if Dh not in HEAD_DIMS or min(B, T, H) < 1:
+        raise ValueError(f"flash_fwd_plan: Dh in {HEAD_DIMS} and B, T, H >= 1, got B={B} T={T} H={H} Dh={Dh}")
+    r, n = FLASH_FWD_ROWS[Dh], FLASH_FWD_BN[Dh]
+    fits = [x for x in range(2, FLASH_FWD_MAX_STAGES + 1) if _fwd_smem(Dh, r, n, x) <= SMEM_PER_BLOCK]
+    st = max(fits) if stages is None else stages
+    if st not in fits:
+        raise ValueError(f"flash_fwd_plan: Dh={Dh}, bn={n}: {st} stages do not fit {SMEM_PER_BLOCK} bytes "
+                         f"(or lie outside 2..{FLASH_FWD_MAX_STAGES})")
+    tiles, wgs = -(-T // r), r // FLASH_FWD_WG_ROWS
+    return dict(rows=r, bn=n, stages=st, warpgroups=wgs, threads=128 * (wgs + 1), tiles=tiles,
+                key_tiles=padded_len(T) // n, smem=_fwd_smem(Dh, r, n, st), grid=(tiles, H, B))
+
+
+def flash_fwd_tile_class(r0: int, c0: int, bn: int, length: int, T: int) -> int:
+    """The forward kernel's class of the pair (a warpgroup's query rows [r0,
+    r0 + 64), keys [c0, c0 + bn)) in a row of `length` valid frames (T where
+    there are no lengths), as csrc/flash_attention.cu `tile_class` decides
+    it. A query or key is segment 1 below the length and 0 from it on, the
+    zero keys of [T, Tp) included (within for pad queries, across for valid
+    ones). Rows past T are not written, so only those of [r0, min(r0 + 64,
+    T)) count: FWD_SKIP where every such pair lies across segments (p is
+    exactly 0) or there is no such row; FWD_WITHIN where every pair lies in
+    one segment (no mask); else FWD_MASKED."""
+    r1 = min(r0 + FLASH_FWD_WG_ROWS, T)
+    if r0 >= r1:
+        return FWD_SKIP
+    r_lo, r_hi = r1 <= length, r0 >= length
+    c_lo, c_hi = c0 + bn <= length, c0 >= length
+    if (r_lo and c_hi) or (r_hi and c_lo):
+        return FWD_SKIP
+    return FWD_WITHIN if (r_lo and c_lo) or (r_hi and c_hi) else FWD_MASKED
+
+
+def flash_fwd_tile_counts(plan: dict, T: int, H: int, lengths=None) -> dict:
+    """{"skip", "within", "masked": (warpgroup, key tile) pairs; "loaded":
+    key tiles the CTAs load} over every row and head, for `lengths` (a
+    list, or None: no mask)."""
+    n = {"skip": 0, "within": 0, "masked": 0, "loaded": 0}
+    for length in (lengths if lengths is not None else [T] * plan["grid"][2]):
+        for t in range(plan["tiles"]):
+            for c in range(plan["key_tiles"]):
+                cls = [flash_fwd_tile_class(t * plan["rows"] + w * FLASH_FWD_WG_ROWS, c * plan["bn"], plan["bn"],
+                                            length, T) for w in range(plan["warpgroups"])]
+                for x in cls:
+                    n[("skip", "within", "masked")[x]] += H
+                n["loaded"] += H * any(x != FWD_SKIP for x in cls)
+    return n
+
+
 def _kernel(name):
     if name not in _fns:
         if name == "fwd":
             fn = _build.library("flash_attention").ssak_flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         else:
             lib = _build.library("flash_attention_bwd")
             fn = lib.ssak_flash_attention_bwd_dkv if name == "dkv" else lib.ssak_flash_attention_bwd_dq
@@ -270,21 +357,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _flash_forward(q, k, v, lengths, scale, stats=False):
-    """o, or with stats (o, m, l) for the backward."""
+def _flash_forward(q, k, v, lengths, scale, stats=False, plan=None):
+    """o, or with stats (o, m, l) for the backward; CUDA tensors on
+    flash_fwd_plan's tiling, or `plan`."""
     if _check("flash_self_attention", (q, k, v), lengths) == "cpu":
         return flash_self_attention_reference(q, k, v, lengths, scale, return_stats=stats)
     _check_cuda("flash_self_attention", (q, k, v))
     B, T, H, Dh = q.shape
     scale = Dh**-0.5 if scale is None else scale
-    q, k, v = (_kernel_operand(a) for a in (q, k, v))
+    kp = plan or flash_fwd_plan(B, T, H, Dh)
+    q, k, v = (_tma_operand(a) for a in (q, k, v))
     lens = _kernel_lengths(lengths, B, T, q.device)
     out = torch.empty((B, T, H, Dh), dtype=torch.bfloat16, device=q.device)
     m = l = None
     if stats:
         m, l = (torch.empty((B, H, T), dtype=torch.float32, device=q.device) for _ in range(2))
+    strides = (ctypes.c_longlong * 9)(*(s for a in (q, k, v) for s in a.stride()[:3]))
     rc = _kernel("fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens), out.data_ptr(), _ptr(m), _ptr(l),
-                        B, T, H, Dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+                        B, T, H, Dh, strides, float(scale), kp["rows"], kp["stages"], kp["smem"],
                         _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
