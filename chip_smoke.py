@@ -28,17 +28,25 @@ and prints no result):
              training launch); L1's backward (dK/dV
              and dQ) through autograd, bit-identical on repeat, no register
              spills, timed also on ragged rows and at the 30 s bucket
-  3. slices  seeded Whisper large-v3 greedy transcription of synthetic wav
-             files listed in a Kaldi dir, bf16, --load_in_8bit and
-             --load_in_4bit; the --load_in_4bit --accurate chain (beam 5,
+  3. slices  a seeded Whisper large-v3 written as an HF model directory
+             (config.json, model.safetensors in F16 under HF names, a
+             byte-level vocab.json + merges.txt + added_tokens.json with
+             large-v3's specials) and loaded back bit-identical to
+             whisper_from_tree of its f16 tree; from that directory,
+             greedy transcription of synthetic wav files listed in a Kaldi
+             dir, bf16, --load_in_8bit and --load_in_4bit, transcripts the
+             tokenizer's text; the --load_in_4bit --accurate chain (beam 5,
              best_of 5, temperature fallback) over a Kaldi dir of short
              files; the int4 long-form seek loop over 70 s files (full
              temperature chain, best_of 5, 32-token windows); then
              wav2vec2-base CTC training at full width (CTCTrainer, batch 32
              of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
-             dir of 64 wavs; then wav2vec2-xlsr CTC serving at full width
-             through ctc_infer over a Kaldi dir of 16 files (30 s, 140 s
-             and chunked 200 s audio), greedy, and with the device beam
+             dir of 64 wavs, exported by train.finalize and reloaded with
+             load_model (the trainer's log-probs on an eval batch); then
+             wav2vec2-xlsr CTC serving at full width from an HF directory
+             (pytorch_model.bin) through ctc_infer over a Kaldi dir of 16
+             files (30 s, 140 s and chunked 200 s audio), greedy, and with
+             the device beam
              (width 16, lexicon, word 3-gram) over the 14 files of one
              chunk; then wav2vec2-xlsr CTC training at full width and depth
              at the 140 s bucket (CTCTrainer, batch 4 x 6,999 frames, 6
@@ -64,6 +72,7 @@ limit from nvidia-smi; before it, one JSON line lists every ported kernel.
 The last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import gc
 import json
 import math
@@ -895,6 +904,303 @@ def write_corpus(root, n_files=N_FILES, seconds=FILE_SECONDS, seed=0):
     return ids
 
 
+# Model directories in HF layout, written here: the card host has no safetensors, tokenizers or
+# transformers. Whisper large-v3's special tokens, in id order from <|endoftext|> = 50,257.
+WHISPER_LANGUAGES = ("en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms cs ro da hu ta no th ur "
+                     "hr bg lt la mi ml cy sk te fa lv bn sr az sl kn et mk br eu is hy ne mn bs kk sq sw gl mr pa si km "
+                     "sn yo so af oc ka be tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as tt haw ln ha ba jw "
+                     "su yue").split()
+WHISPER_SPECIALS = (["<|endoftext|>", "<|startoftranscript|>"] + [f"<|{lang}|>" for lang in WHISPER_LANGUAGES]
+                    + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>", "<|nospeech|>",
+                       "<|notimestamps|>"] + [f"<|{i * 0.02:.2f}|>" for i in range(1501)])
+SAFETENSORS_CODES = {"float16": "F16", "float32": "F32"}
+
+
+def write_safetensors(path, tensors):
+    """name -> numpy array, in the safetensors format: 8-byte little-endian
+    header length, the JSON header (dtype, shape, data_offsets), the raw
+    little-endian bytes in the header's order."""
+    import numpy as np
+
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": SAFETENSORS_CODES[a.dtype.name], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in tensors.values():
+            np.ascontiguousarray(a, a.dtype.newbyteorder("<")).tofile(f)
+
+
+def hf_whisper_tensors(tree, dtype):
+    """An ssak_tpu Whisper tree as HF WhisperForConditionalGeneration's
+    tensors (the ones a loader reads), torch layouts, cast to `dtype`."""
+    import numpy as np
+
+    out = {}
+
+    def put(name, a, t=None):
+        a = np.asarray(a)
+        out["model." + name] = np.ascontiguousarray(a.transpose(t) if t else a).astype(dtype)
+
+    def attn(pfx, p):
+        for ours, hf in (("query", "q_proj"), ("key", "k_proj"), ("value", "v_proj"), ("out", "out_proj")):
+            put(f"{pfx}.{hf}.weight", p[ours]["kernel"], (1, 0))
+            if "bias" in p[ours]:
+                put(f"{pfx}.{hf}.bias", p[ours]["bias"])
+
+    def ln(name, p):
+        put(f"{name}.weight", p["scale"])
+        put(f"{name}.bias", p["bias"])
+
+    def block(pfx, b):
+        ln(f"{pfx}.self_attn_layer_norm", b["attn_ln"])
+        attn(f"{pfx}.self_attn", b["attn"])
+        if "cross_attn" in b:
+            ln(f"{pfx}.encoder_attn_layer_norm", b["cross_attn_ln"])
+            attn(f"{pfx}.encoder_attn", b["cross_attn"])
+        ln(f"{pfx}.final_layer_norm", b["mlp_ln"])
+        for fc in ("fc1", "fc2"):
+            put(f"{pfx}.{fc}.weight", b["mlp"][fc]["kernel"], (1, 0))
+            put(f"{pfx}.{fc}.bias", b["mlp"][fc]["bias"])
+
+    enc, dec = tree["encoder"], tree["decoder"]
+    for conv in ("conv1", "conv2"):
+        put(f"encoder.{conv}.weight", enc[conv]["kernel"], (2, 1, 0))
+        put(f"encoder.{conv}.bias", enc[conv]["bias"])
+    for i, b in enumerate(enc["blocks"]):
+        block(f"encoder.layers.{i}", b)
+    ln("encoder.layer_norm", enc["ln_post"])
+    put("decoder.embed_tokens.weight", dec["token_embedding"])
+    put("decoder.embed_positions.weight", dec["positional_embedding"])
+    for i, b in enumerate(dec["blocks"]):
+        block(f"decoder.layers.{i}", b)
+    ln("decoder.layer_norm", dec["ln"])
+    return out
+
+
+def write_byte_level_vocab(root, n_base=50257):
+    """A byte-level BPE vocabulary of n_base tokens as vocab.json +
+    merges.txt: the 256 characters of GPT-2's byte table, then merges that
+    spell lower-case words (' a'..' z', 'aa'..'zz', ' aa'..' zz', 'aaa'..,
+    ' aaa'.., 'aaaa'.. until n_base), with large-v3's specials and
+    timestamps from n_base on in added_tokens.json: every id below 51,866
+    is in the vocabulary. Returns the number of ids."""
+    from ssak_tpu_torch.models.tokenizer import bytes_to_unicode
+
+    table = bytes_to_unicode()
+    vocab = {c: i for i, c in enumerate(table.values())}
+    sp = table[32]  # the table's character for the space byte
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    merges = []
+
+    def add(a, b):
+        if len(vocab) < n_base:
+            merges.append((a, b))
+            vocab[a + b] = len(vocab)
+
+    for c in letters:
+        add(sp, c)
+    level = letters
+    while len(vocab) < n_base:
+        for w in level:
+            for c in letters:
+                add(w, c)
+        for w in level:
+            for c in letters:
+                add(sp + w, c)
+        level = [w + c for w in level for c in letters]
+    with open(os.path.join(root, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(root, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(os.path.join(root, "added_tokens.json"), "w", encoding="utf-8") as f:
+        json.dump({t: n_base + i for i, t in enumerate(WHISPER_SPECIALS)}, f, ensure_ascii=False)
+    return n_base + len(WHISPER_SPECIALS)
+
+
+def write_whisper_dir(root, tree, cfg):
+    """An HF Whisper directory from an ssak_tpu tree: config.json,
+    model.safetensors in F16 (the tree rounded to f16) and the byte-level
+    tokenizer files. Returns the seconds it took."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    d = cfg.n_audio_state
+    conf = {"architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper", "num_mel_bins": cfg.n_mels,
+            "max_source_positions": cfg.n_audio_ctx, "max_target_positions": cfg.n_text_ctx, "d_model": d,
+            "encoder_attention_heads": cfg.n_audio_head, "decoder_attention_heads": cfg.n_text_head,
+            "encoder_layers": cfg.n_audio_layer, "decoder_layers": cfg.n_text_layer, "encoder_ffn_dim": 4 * d,
+            "decoder_ffn_dim": 4 * d, "vocab_size": cfg.n_vocab, "decoder_start_token_id": cfg.sot,
+            "eos_token_id": cfg.eot, "torch_dtype": "float16"}
+    with open(os.path.join(root, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(conf, f, indent=1)
+    write_safetensors(os.path.join(root, "model.safetensors"), hf_whisper_tensors(tree, np.float16))
+    n = write_byte_level_vocab(root)
+    if n != cfg.n_vocab:
+        raise AssertionError(f"tokenizer covers {n} ids, the model {cfg.n_vocab}")
+    return time.perf_counter() - t0
+
+
+def write_wav2vec2_dir(root, module, cfg, tokenizer):
+    """An HF wav2vec2-CTC directory from the port's module: config.json,
+    pytorch_model.bin (torch.save of the HF state dict; the positional
+    conv as weight_g / weight_v with g = ||v|| over (out, in)) and
+    vocab.json. Returns the seconds it took."""
+    import numpy as np
+    import torch
+
+    from ssak_tpu_torch.models.convert import wav2vec2_to_tree
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    tree, sd = wav2vec2_to_tree(module), {}
+
+    def put(name, a, t=None):
+        a = np.asarray(a, np.float32)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(a.transpose(t) if t else a))
+
+    def dense(name, p):
+        put(f"{name}.weight", p["kernel"], (1, 0))
+        if "bias" in p:
+            put(f"{name}.bias", p["bias"])
+
+    def ln(name, p):
+        put(f"{name}.weight", p["scale"])
+        put(f"{name}.bias", p["bias"])
+
+    w = "wav2vec2."
+    for i, c in enumerate(tree["feature_extractor"]["convs"]):
+        pfx = f"{w}feature_extractor.conv_layers.{i}"
+        put(f"{pfx}.conv.weight", c["conv"]["kernel"], (2, 1, 0))
+        if "bias" in c["conv"]:
+            put(f"{pfx}.conv.bias", c["conv"]["bias"])
+        for norm in ("layer_norm", "group_norm"):
+            if norm in c:
+                ln(f"{pfx}.layer_norm", c[norm])
+    ln(f"{w}feature_projection.layer_norm", tree["feature_projection"]["layer_norm"])
+    dense(f"{w}feature_projection.projection", tree["feature_projection"]["projection"])
+    enc = tree["encoder"]
+    v = np.ascontiguousarray(np.asarray(enc["pos_conv"]["kernel"]).transpose(2, 1, 0))
+    sd[f"{w}encoder.pos_conv_embed.conv.weight_v"] = torch.from_numpy(v)
+    sd[f"{w}encoder.pos_conv_embed.conv.weight_g"] = torch.from_numpy(np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True)))
+    put(f"{w}encoder.pos_conv_embed.conv.bias", enc["pos_conv"]["bias"])
+    ln(f"{w}encoder.layer_norm", enc["layer_norm"])
+    for i, b in enumerate(enc["blocks"]):
+        pfx = f"{w}encoder.layers.{i}"
+        for ours, hf in (("query", "q_proj"), ("key", "k_proj"), ("value", "v_proj"), ("out", "out_proj")):
+            dense(f"{pfx}.attention.{hf}", b["attn"][ours])
+        ln(f"{pfx}.layer_norm", b["attn_ln"])
+        dense(f"{pfx}.feed_forward.intermediate_dense", b["mlp"]["fc1"])
+        dense(f"{pfx}.feed_forward.output_dense", b["mlp"]["fc2"])
+        ln(f"{pfx}.final_layer_norm", b["mlp_ln"])
+    dense("lm_head", tree["lm_head"])
+    torch.save(sd, os.path.join(root, "pytorch_model.bin"))
+    conf = {"architectures": ["Wav2Vec2ForCTC"], "model_type": "wav2vec2", "conv_dim": list(cfg.conv_dim),
+            "conv_kernel": list(cfg.conv_kernel), "conv_stride": list(cfg.conv_stride), "conv_bias": cfg.conv_bias,
+            "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "intermediate_size": cfg.intermediate_size, "num_conv_pos_embeddings": cfg.num_conv_pos_embeddings,
+            "num_conv_pos_embedding_groups": cfg.num_conv_pos_embedding_groups,
+            "do_stable_layer_norm": cfg.do_stable_layer_norm, "vocab_size": cfg.vocab_size, "pad_token_id": cfg.blank_id,
+            "adapter_attn_dim": cfg.adapter_attn_dim or None}
+    with open(os.path.join(root, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(conf, f, indent=1)
+    tokenizer.save(os.path.join(root, "vocab.json"))
+    return time.perf_counter() - t0
+
+
+def prepare_whisper_dir(torch, dev, root):
+    """Writes the seeded large-v3 (seeded_tree, seed 0) as an HF Whisper
+    directory and loads it back with load_model: the module must equal
+    whisper_from_tree of the f16-rounded tree, bit for bit, and the
+    tokenizer's specials be large-v3's. Returns the timings."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.models.convert import whisper_from_tree
+    from ssak_tpu_torch.models.whisper import make_config
+
+    cfg = make_config("large-v3")
+    t0 = time.perf_counter()
+    tree = seeded_tree(cfg)
+    seed_s = time.perf_counter() - t0
+    write_s = write_whisper_dir(root, tree, cfg)
+    tree16 = tree_map(lambda a: a.astype(np.float16), tree)
+    del tree
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = load_model(root, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ref = whisper_from_tree(tree16, dev).state_dict()
+    got = m.module.state_dict()
+    if sorted(got) != sorted(ref) or not all(got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]) for k in ref):
+        raise AssertionError("the Whisper directory did not load as whisper_from_tree of its f16 tree")
+    tok = m.tokenizer
+    specials = (tok.sot, tok.eot, tok.no_timestamps, tok.timestamp_begin, tok.sot_prev, tok.no_speech)
+    cfg_ids = (m.cfg.sot, m.cfg.eot, m.cfg.no_timestamps, m.cfg.timestamp_begin, m.cfg.sot_prev, m.cfg.no_speech)
+    if not specials == cfg_ids == (50258, 50257, 50364, 50365, 50362, 50363) or m.cfg.n_vocab != 51866:
+        raise AssertionError(f"tokenizer specials {specials}, config's {cfg_ids}, vocabulary {m.cfg.n_vocab}")
+    size = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+    res = dict(seed_s=seed_s, write_s=write_s, load_s=load_s, bytes=size, tensors=len(ref), bit_identical=True)
+    log(f"whisper dir {json.dumps(res)}")
+    del m, ref, got, tree16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def prepare_serving_dir(torch, dev, root):
+    """Writes the seeded xlsr CTC model (what seeded_test_config
+    'wav2vec2:xlsr' draws: init_params seed 0, the 48-token vocabulary) as an
+    HF wav2vec2 directory with pytorch_model.bin and loads it back: the same
+    config and vocabulary, every parameter equal but the recomposed
+    weight-normed positional conv (f32 rounding). Returns the timings."""
+    from ssak_tpu_torch.infer.general import load_model, seeded_ctc_tokenizer
+    from ssak_tpu_torch.models import wav2vec2
+
+    cfg = wav2vec2.make_config(SERVE_MODEL.split(":")[1], vocab_size=48)
+    src = wav2vec2.init_params(cfg, seed=0)
+    tok = seeded_ctc_tokenizer(cfg.vocab_size)
+    write_s = write_wav2vec2_dir(root, src, cfg, tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = load_model(root, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if m.cfg != cfg or m.tokenizer.vocab != tok.vocab:
+        raise AssertionError(f"xlsr directory: config {m.cfg} or vocabulary differs")
+    ref, got = src.state_dict(), {k: v.cpu() for k, v in m.module.state_dict().items()}
+    pos = "encoder.pos_conv.weight"
+    if sorted(got) != sorted(ref) or not all(torch.equal(got[k], ref[k]) for k in ref if k != pos):
+        raise AssertionError("the xlsr directory did not load as the module it was written from")
+    pos_rel = float((got[pos] - ref[pos]).abs().max() / ref[pos].abs().max())
+    if not pos_rel <= 1e-6:
+        raise AssertionError(f"xlsr directory: positional conv {pos_rel} off its source")
+    size = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+    res = dict(write_s=write_s, load_s=load_s, bytes=size, pos_conv_rel_err=pos_rel)
+    log(f"xlsr dir {json.dumps(res)}")
+    del m, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def counters():
     """The launch counters of every kernel wrapper and the port's decode-step counter."""
     from ssak_tpu_torch.models import whisper as W
@@ -934,16 +1240,48 @@ def want_decode(bits, steps):
     }
 
 
-def check_transcripts(tag, out, ids, cfg, max_tokens):
-    if [i for i, _ in out] != ids:
-        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
-    for i, text in out:
-        toks = [int(x) for x in text.split()]
-        if not all(0 <= x < cfg.n_vocab for x in toks) or len(toks) > max_tokens:
-            raise AssertionError(f"{tag}: bad transcript for {i}: {text!r}")
+class Decodes:
+    """Records each WhisperTokenizer.decode call (the ids and the text)
+    while installed."""
+
+    def __init__(self):
+        from ssak_tpu_torch.models.tokenizer import WhisperTokenizer
+
+        self.cls, self.calls, self.orig = WhisperTokenizer, [], WhisperTokenizer.decode
+
+    def __enter__(self):
+        orig, calls = self.orig, self.calls
+
+        def decode(tok, ids, *a, **kw):
+            text = orig(tok, ids, *a, **kw)
+            calls.append(([int(i) for i in ids], text))
+            return text
+
+        self.cls.decode = decode
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.decode = self.orig
 
 
-def run_slice(torch, kaldi_dir, ids, quantize_bits):
+def check_transcripts(tag, texts, decodes, cfg, max_tokens, in_order):
+    """Transcripts are the tokenizer's text: every decode call's ids lie in
+    the vocabulary and within the token budget; each transcript is a
+    decoded text; with in_order, the decodes are in file order and some
+    transcripts hold letters (text, not ids)."""
+    for ids, _text in decodes.calls:
+        if not all(0 <= x < cfg.n_vocab for x in ids) or len(ids) > max_tokens:
+            raise AssertionError(f"{tag}: decoded ids outside the vocabulary or budget: {ids}")
+    decoded = [t.strip() for _, t in decodes.calls]
+    if in_order and decoded != list(texts):
+        raise AssertionError(f"{tag}: transcripts {list(texts)[:3]} are not the decoded texts {decoded[:3]}")
+    if not all(isinstance(t, str) and (not t or t in decoded) for t in texts):
+        raise AssertionError(f"{tag}: transcripts that no decode gave: {[t for t in texts if t not in decoded][:3]}")
+    if in_order and not any(re.search("[a-z]", t) for t in texts):
+        raise AssertionError(f"{tag}: no transcript holds text: {list(texts)[:3]}")
+
+
+def run_slice(torch, kaldi_dir, ids, quantize_bits, model_dir):
     from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
     from ssak_tpu_torch.models.whisper import make_config
 
@@ -955,19 +1293,20 @@ def run_slice(torch, kaldi_dir, ids, quantize_bits):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    it = whisper_infer(None, kaldi_dir, seeded_test_config="whisper:large-v3", quantize_bits=quantize_bits,
-                       max_tokens=MAX_TOKENS, output_ids=True)
+    it = whisper_infer(model_dir, kaldi_dir, quantize_bits=quantize_bits, max_tokens=MAX_TOKENS, output_ids=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     reset_counts()
-    with SelfRanges() as ranges:
+    with SelfRanges() as ranges, Decodes() as decodes:
         out = list(it)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches, counted = decode_launches()
     del it
     tag = {0: "bf16", 8: "int8", 4: "int4"}[quantize_bits]
-    check_transcripts(tag, out, ids, cfg, MAX_TOKENS)
+    if [i for i, _ in out] != ids:
+        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
+    check_transcripts(tag, [t for _, t in out], decodes, cfg, MAX_TOKENS, in_order=True)
     want = want_decode(quantize_bits, steps)
     if launches != want or counted != steps:
         raise AssertionError(f"{tag}: launch counters {launches} != expected {want} ({steps} decode steps, {counted} counted)")
@@ -1046,11 +1385,11 @@ class DecodeCalls:
         return call
 
 
-def run_accurate(torch, kaldi_dir, ids):
-    """python -m ssak_tpu_torch.infer.whisper_infer DIR m --seeded_test_config
-    whisper:large-v3 --load_in_4bit --accurate, through whisper_infer, with
-    the token budget cut to MAX_TOKENS: beam 5 at T = 0, then sampled
-    best-of-5 at each fallback temperature for the windows that fail."""
+def run_accurate(torch, kaldi_dir, ids, model_dir):
+    """python -m ssak_tpu_torch.infer.whisper_infer DIR MODEL_DIR
+    --load_in_4bit --accurate, through whisper_infer, with the token budget
+    cut to MAX_TOKENS: beam 5 at T = 0, then sampled best-of-5 at each
+    fallback temperature for the windows that fail."""
     from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
     from ssak_tpu_torch.models.whisper import make_config
 
@@ -1059,10 +1398,10 @@ def run_accurate(torch, kaldi_dir, ids):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with DecodeCalls() as rec, SelfRanges() as ranges:
+    with DecodeCalls() as rec, SelfRanges() as ranges, Decodes() as decodes:
         t0 = time.perf_counter()
-        it = whisper_infer(None, kaldi_dir, seeded_test_config="whisper:large-v3", quantize_bits=4, beam_size=5,
-                           best_of=5, temperature_fallback=True, max_tokens=MAX_TOKENS, output_ids=True)
+        it = whisper_infer(model_dir, kaldi_dir, quantize_bits=4, beam_size=5, best_of=5, temperature_fallback=True,
+                           max_tokens=MAX_TOKENS, output_ids=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         reset_counts()
@@ -1071,7 +1410,9 @@ def run_accurate(torch, kaldi_dir, ids):
         t2 = time.perf_counter()
         launches, steps = decode_launches()
     del it
-    check_transcripts("int4 accurate", out, ids, cfg, MAX_TOKENS)
+    if [i for i, _ in out] != ids:
+        raise AssertionError(f"int4 accurate: expected one transcript per file in order, got {[i for i, _ in out]}")
+    check_transcripts("int4 accurate", [t for _, t in out], decodes, cfg, MAX_TOKENS, in_order=False)
     want = want_decode(4, steps)
     if launches != want or not steps:
         raise AssertionError(f"int4 accurate: launch counters {launches} != expected {want} ({steps} decode steps)")
@@ -1086,9 +1427,9 @@ def run_accurate(torch, kaldi_dir, ids):
     return res
 
 
-def run_longform(torch):
-    """transcribe_longform_batch on the seeded int4 large-v3 (as
-    --load_in_4bit loads it) over LF_FILES files of LF_SECONDS (tones +
+def run_longform(torch, model_dir):
+    """transcribe_longform_batch on the int4 large-v3 loaded from model_dir
+    (as --load_in_4bit loads it) over LF_FILES files of LF_SECONDS (tones +
     noise): timestamps, conditioning, the full temperature chain with
     best_of 5, the no-speech skip, windows cut to MAX_TOKENS tokens."""
     import numpy as np
@@ -1102,9 +1443,12 @@ def run_longform(torch):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    m = load_model(None, seeded_test_config="whisper:large-v3", quantize_bits=4)
+    t0 = time.perf_counter()
+    m = load_model(model_dir, quantize_bits=4)
     fuse_decode_qkv(m.module)
-    with DecodeCalls() as rec, SelfRanges() as ranges:
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with DecodeCalls() as rec, SelfRanges() as ranges, Decodes() as decodes:
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -1123,11 +1467,15 @@ def run_longform(torch):
             if not (0.0 <= sg["start"] <= sg["end"] <= LF_SECONDS + 30.0 and 0.0 <= sg["no_speech_prob"] <= 1.0
                     and math.isfinite(sg["avg_logprob"])):
                 raise AssertionError(f"int4 long-form: bad segment {sg}")
+        if r["text"] != "".join(sg["text"] for sg in r["segments"]).strip():
+            raise AssertionError(f"int4 long-form: text {r['text'][:80]!r} is not its segments' text")
+    check_transcripts("int4 long-form", [sg["text"].strip() for r in results for sg in r["segments"]], decodes,
+                      m.cfg, m.cfg.n_text_ctx, in_order=False)
     res = dict(config="int4 long-form (full temperature chain, best_of 5)", files=LF_FILES, file_s=LF_SECONDS,
                max_tokens=MAX_TOKENS, seek_iterations=sum(1 for _, t, _ in rec.calls if t == 0.0),
                decode_window_calls=len(rec.calls), windows_per_call=sorted({r for _, _, r in rec.calls}),
                temperatures_used=sorted({sg["temperature"] for r in results for sg in r["segments"]}),
-               segments=[len(r["segments"]) for r in results], decode_steps=steps, run_s=t1 - t0,
+               segments=[len(r["segments"]) for r in results], decode_steps=steps, load_s=load_s, run_s=t1 - t0,
                audio_s_per_s=LF_FILES * LF_SECONDS / (t1 - t0), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, self_attention_keys=ranges.summary(), sample=results[0]["text"][:80])
     log(f"slice {json.dumps(res)}")
@@ -1176,20 +1524,54 @@ def write_ctc_corpus(root, n, seed, seconds=(10.0, 15.0)):
 LONG_REMAT = False
 CTC_RUNS = {
     "ctc": dict(config="wav2vec2-base ctc", model="base", files=CTC_FILES, eval_files=CTC_EVAL_FILES, seconds=(10.0, 15.0),
-                batch=CTC_BATCH, steps=CTC_STEPS, bucket_s=15.0, buckets=None, remat=False),
+                batch=CTC_BATCH, steps=CTC_STEPS, bucket_s=15.0, buckets=None, remat=False, finalize=True),
     "ctc_long": dict(config="wav2vec2-xlsr ctc, 140 s bucket", model="xlsr", files=16, eval_files=4,
-                     seconds=(90.0, 140.0), batch=4, steps=6, bucket_s=140.0, buckets=(140.0,), remat=LONG_REMAT),
+                     seconds=(90.0, 140.0), batch=4, steps=6, bucket_s=140.0, buckets=(140.0,), remat=LONG_REMAT,
+                     finalize=False),
 }
+
+
+def check_finalized(torch, dev, run_dir, trainer, cfg, batches_fn, eval_rows):
+    """python -m ssak_tpu_torch.train.finalize RUN_DIR: the run's last
+    checkpoint exported as a model directory, then load_model(final) on the
+    card gives the trainer's final log-probs on one eval batch (1e-5)."""
+    from ssak_tpu_torch.infer.general import LoadedModel, ModelType, compute_log_probas, load_model
+    from ssak_tpu_torch.train.finalize import finalize_run
+
+    t0 = time.perf_counter()
+    final = finalize_run(run_dir)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = load_model(final, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with open(os.path.join(final, "finalize_info.json")) as f:
+        step = json.load(f)["step"]
+    if step != int(trainer.state["step"]) or m.cfg != cfg:
+        raise AssertionError(f"finalized step {step} (trained {int(trainer.state['step'])}) or config {m.cfg} differ")
+    batch = next(iter(batches_fn(eval_rows)))[0]
+    trained = LoadedModel(ModelType.WAV2VEC2_CTC, trainer.state["model"], cfg, dev, m.tokenizer)
+    want, want_fl = compute_log_probas(trained, batch["audio"], batch["audio_lengths"])
+    got, got_fl = compute_log_probas(m, batch["audio"], batch["audio_lengths"])
+    err = float((got - want).abs().max())
+    if not (torch.equal(got_fl, want_fl) and got.shape == want.shape and err <= 1e-5):
+        raise AssertionError(f"finalized model's log-probs off the trainer's by {err} (shapes {tuple(got.shape)}, "
+                             f"{tuple(want.shape)})")
+    size = sum(os.path.getsize(os.path.join(final, f)) for f in os.listdir(final))
+    del m
+    return dict(step=step, export_s=export_s, load_s=load_s, bytes=size, log_probs_max_abs_err=err,
+                batch=list(batch["audio"].shape))
 
 
 def run_ctc_training(torch, dev, root, run):
     """CTCTrainer at full width (`run`, from CTC_RUNS): bf16 compute over f32
     master weights, frozen feature encoder, the trainer's default
     mask_time_prob, `steps` steps on a seeded Kaldi dir, one eval, a final
-    checkpoint, and resume into a fresh trainer. Launch counters exact: K1
-    once per step and eval batch; L1's forward 24 x (steps x (1 + remat) +
-    eval batches) and each backward kernel 24 x steps at >= FLASH_MIN_SEQ
-    frames, none below; every other kernel 0."""
+    checkpoint, and resume into a fresh trainer; with run["finalize"], the
+    run exported by train.finalize and loaded back (check_finalized). Launch
+    counters exact: K1 once per step and eval batch; L1's forward 24 x
+    (steps x (1 + remat) + eval batches) and each backward kernel 24 x steps
+    at >= FLASH_MIN_SEQ frames, none below; every other kernel 0."""
     from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
     from ssak_tpu_torch.models import wav2vec2
     from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
@@ -1210,6 +1592,10 @@ def run_ctc_training(torch, dev, root, run):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out_dir = os.path.join(root, "run")
+    os.makedirs(out_dir, exist_ok=True)
+    tok.save(os.path.join(out_dir, "vocab.json"))  # as python -m ssak_tpu_torch.train.cli writes them
+    with open(os.path.join(out_dir, "ssak_config.json"), "w") as f:
+        json.dump({"model_type": "wav2vec2_ctc", "config": dataclasses.asdict(cfg)}, f, indent=1)
     kw = dict(learning_rate=1e-4, warmup_steps=2, total_steps=n_steps, batch_size=B, eval_steps=0, device=dev)
     if run["buckets"]:
         kw["buckets"] = run["buckets"]
@@ -1280,6 +1666,8 @@ def run_ctc_training(torch, dev, root, run):
                eval_ms=eval_ms[-1], eval_wer=evals[0]["eval_wer"], eval_loss=evals[0]["eval_loss"],
                losses=[h["loss"] for h in steps], grad_norms=[h["grad_norm"] for h in steps], run_s=run_s,
                peak_mem_gib=peak, launches=launches, resumed_step=resumed.state["step"])
+    if run["finalize"]:
+        res["finalized"] = check_finalized(torch, dev, out_dir, trainer, cfg, batches_fn, eval_rows)
     log(f"slice {json.dumps(res)}")
     del trainer, resumed
     gc.collect()
@@ -1418,12 +1806,13 @@ def write_lexicon_lm(root, seed=11, n_words=500, n_sentences=2000):
     return lexicon, arpa
 
 
-def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, lexicon=None, arpa=None):
-    """python -m ssak_tpu_torch.infer.ctc_infer DIR m --seeded_test_config
-    wav2vec2:xlsr (xlsr widths, 24 layers, bf16, auto packing), greedy or
-    with the device beam (width 16, lexicon, word 3-gram fused on the
-    card), through ctc_infer; L1's launches checked against 24 x the
-    encoder calls at >= FLASH_MIN_SEQ frames, every other kernel at 0."""
+def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, arpa=None):
+    """python -m ssak_tpu_torch.infer.ctc_infer DIR MODEL_DIR on the xlsr
+    directory of prepare_serving_dir (xlsr widths, 24 layers, bf16, auto
+    packing), greedy or with the device beam (width 16, lexicon, word
+    3-gram fused on the card), through ctc_infer; L1's launches checked
+    against 24 x the encoder calls at >= FLASH_MIN_SEQ frames, every other
+    kernel at 0."""
     from ssak_tpu_torch.infer.ctc_infer import ctc_infer
     from ssak_tpu_torch.infer.general import seeded_ctc_tokenizer
     from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
@@ -1437,7 +1826,7 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, lexicon=None, arpa=None):
     torch.cuda.reset_peak_memory_stats()
     with EncoderCalls() as enc, BeamCalls(torch) as beams:
         t0 = time.perf_counter()
-        it = ctc_infer(None, kaldi_dir, seeded_test_config=SERVE_MODEL, output_ids=True, **kw)
+        it = ctc_infer(model_dir, kaldi_dir, output_ids=True, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         reset_counts()
@@ -1534,8 +1923,6 @@ def teacher_forced_logits(torch, model, cfg, mel, tokens):
 
 
 def check_card_vs_cpu(torch, dev):
-    import dataclasses
-
     import numpy as np
 
     from ssak_tpu_torch.models import whisper as W
@@ -1870,18 +2257,22 @@ def main():
     l1_rows, l1_err, l1_short, l1_training = check_flash_attention(torch, dev)
     bwd_rows, bwd_err, bwd_pairs = check_flash_attention_bwd(torch, dev)
 
-    log("phase 3: seeded large-v3 transcription (greedy bf16, int8, int4; int4 accurate; int4 long-form); "
-        "wav2vec2-base CTC training; wav2vec2-xlsr CTC serving (greedy; device beam with lexicon and word LM); "
-        "wav2vec2-xlsr CTC training at the 140 s bucket")
+    log("phase 3: large-v3 transcription from an HF directory (greedy bf16, int8, int4; int4 accurate; int4 "
+        "long-form); wav2vec2-base CTC training, finalized and reloaded; wav2vec2-xlsr CTC serving from an HF directory "
+        "(greedy; device beam with lexicon and word LM); wav2vec2-xlsr CTC training at the 140 s bucket")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
-        ids = write_corpus(tmp)
-        slices = {r["config"]: r for r in (run_slice(torch, tmp, ids, b) for b in (0, 8, 4))}
+        model_dir = os.path.join(tmp, "whisper-large-v3")
+        dirs = {"whisper_large_v3": prepare_whisper_dir(torch, dev, model_dir)}
+        corpus = os.path.join(tmp, "corpus")
+        ids = write_corpus(corpus)
+        slices = {r["config"]: r for r in (run_slice(torch, corpus, ids, b, model_dir) for b in (0, 8, 4))}
         acc_dir = os.path.join(tmp, "accurate")
-        slices["int4_accurate"] = run_accurate(torch, acc_dir, write_corpus(acc_dir, ACC_FILES, ACC_SECONDS, seed=3))
+        slices["int4_accurate"] = run_accurate(torch, acc_dir, write_corpus(acc_dir, ACC_FILES, ACC_SECONDS, seed=3),
+                                               model_dir)
+        slices["int4_longform"] = run_longform(torch, model_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    slices["int4_longform"] = run_longform(torch)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_ctc_")
     try:
         slices["ctc"] = run_ctc_training(torch, dev, tmp, CTC_RUNS["ctc"])
@@ -1889,12 +2280,15 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_serve_")
     try:
-        ids, lens = write_serving_corpus(tmp)
-        slices["ctc_serving_greedy"] = run_ctc_serving(torch, tmp, ids, lens, "greedy")
+        model_dir = os.path.join(tmp, "xlsr")
+        dirs["wav2vec2_xlsr"] = prepare_serving_dir(torch, dev, model_dir)
+        corpus = os.path.join(tmp, "corpus")
+        ids, lens = write_serving_corpus(corpus)
+        slices["ctc_serving_greedy"] = run_ctc_serving(torch, corpus, ids, lens, "greedy", model_dir)
         n_beam = sum(n for n, _lo, hi in SERVE_GROUPS if hi <= 140.0)  # the files of one chunk at most
         lexicon, arpa = write_lexicon_lm(tmp)
-        slices["ctc_serving_beam"] = run_ctc_serving(torch, kaldi_subset(os.path.join(tmp, "beam"), tmp, n_beam),
-                                                     ids[:n_beam], lens[:n_beam], "beam", lexicon, arpa)
+        slices["ctc_serving_beam"] = run_ctc_serving(torch, kaldi_subset(os.path.join(tmp, "beam"), corpus, n_beam),
+                                                     ids[:n_beam], lens[:n_beam], "beam", model_dir, lexicon, arpa)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_long_")
@@ -1947,7 +2341,7 @@ def main():
             max_abs_err=err, ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by=h["bound_by"],
             library_ms=h["library_ms"], max_err=err, kernel_ms=h["ms"], shape=shape, shapes=rows,
         ))
-    log("summary " + json.dumps({"slices": slices, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
+    log("summary " + json.dumps({"slices": slices, "model_dirs": dirs, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
                                  "ctc_serving_card_vs_cpu": serving_parity, "long_train_step_card_vs_cpu": long_step_parity,
                                  "flash_attention_30s_bucket": l1_short, "flash_attention_training_launch": l1_training,
                                  "flash_attention_bwd_pairs": bwd_pairs}))

@@ -371,7 +371,8 @@ def cli(argv=None):
 
     parser = argparse.ArgumentParser(description="Transcribe audio with a wav2vec2-CTC model (PyTorch/CUDA port)")
     parser.add_argument("data", help="audio file, Kaldi dir, or list file")
-    parser.add_argument("model", help="model directory (only seeded models are ported: pass any name with --seeded_test_config)")
+    parser.add_argument("model", help="model directory: an HF wav2vec2-CTC checkpoint (config.json, *.safetensors or "
+                                          "*.bin, vocab.json) or an export of train.finalize")
     parser.add_argument("--output", default=None, help="output file (default stdout)")
     parser.add_argument("--batch_size", type=int, default=0,
                         help="0 (default) = auto: pack batches to ~960 audio-s of padded samples")

@@ -1,14 +1,19 @@
 """Model loading and the CTC forward for inference (counterpart of
 ssak_tpu.infer.general).
 
-Whisper and wav2vec2-CTC, from seeded weights (`seeded_test_config`) or
-from an ssak_tpu parameter tree (`from_tree`, used by the tests).
-Checkpoint directories, the Conformer family, quantized CTC models,
-tensor-parallel sharding and MMS adapter loading are later slices
-(ROADMAP.md) and raise NotImplementedError.
+Whisper and wav2vec2-CTC from a model directory, in ssak_tpu's order: an
+export of `train.finalize` (ssak_config.json), else an HF checkpoint
+(config.json: Whisper with its tokenizer, wav2vec2 with its vocab.json);
+MMS per-language adapters (`load_adapter`); seeded weights
+(`seeded_test_config`) or an ssak_tpu parameter tree (`from_tree`, used by
+the tests). NeMo archives (the Conformer family, slice 7), quantized CTC
+models (8b) and tensor-parallel sharding (8g) are later slices of
+ROADMAP.md and raise NotImplementedError.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -19,6 +24,7 @@ from ssak_tpu_torch.utils.env import resolve_device
 class ModelType:
     WAV2VEC2_CTC = "wav2vec2_ctc"
     WHISPER = "whisper"
+    CONFORMER_CTC = "conformer_ctc"
 
 
 CTC_TYPES = (ModelType.WAV2VEC2_CTC,)
@@ -29,8 +35,10 @@ _SEEDED_CTC_CHARS = "abcdefghijklmnopqrstuvwxyz'-éèàùâêîôûç0123456789"
 
 
 class LoadedModel:
-    """Bundle of (type, module, config, device, tokenizer). Whisper models
-    carry no tokenizer yet (slice 6)."""
+    """Bundle of (type, module, config, device, tokenizer): a
+    WhisperTokenizer for an HF Whisper directory, a CTCTokenizer for a CTC
+    model, None for a Whisper model without one (seeded, from a tree or
+    exported), whose transcripts are then its token ids."""
 
     def __init__(self, model_type, module, cfg, device, tokenizer=None):
         self.type = model_type
@@ -51,27 +59,84 @@ class LoadedModel:
         raise ValueError("vocab() only defined for CTC models")
 
 
+def get_model_type(model_dir: str) -> str:
+    """The family of a model directory: a NeMo archive (.nemo, or
+    model_config.yaml) is a Conformer; else config.json's architectures or
+    model_type say Whisper or wav2vec2."""
+    if model_dir.endswith(".nemo") or os.path.exists(os.path.join(model_dir, "model_config.yaml")):
+        return ModelType.CONFORMER_CTC
+    with open(os.path.join(model_dir, "config.json"), encoding="utf-8") as f:
+        cfg = json.load(f)
+    archs = cfg.get("architectures") or []
+    mt = (cfg.get("model_type") or "").lower()
+    if any("whisper" in a.lower() for a in archs) or mt == "whisper":
+        return ModelType.WHISPER
+    if any("wav2vec2" in a.lower() for a in archs) or mt == "wav2vec2":
+        return ModelType.WAV2VEC2_CTC
+    raise ValueError(f"cannot determine model type of {model_dir}")
+
+
 def load_model(model_dir, seeded_test_config: str = None, quantize_bits: int = 0, device=None) -> LoadedModel:
-    """Seeded model (`seeded_test_config`: 'whisper[:preset]' or
-    'wav2vec2[:preset]') on `device` (default cuda; raises when there is
-    none). quantize_bits=8 or 4 replaces a Whisper model's dense kernels by
-    int8 / int4 QuantLinears on the device and turns on the int8 K/V caches,
-    as ssak_tpu's load_model does."""
+    """A model directory (an HF Whisper or wav2vec2 checkpoint, or an export
+    of train.finalize), or a seeded model (`seeded_test_config`:
+    'whisper[:preset]' or 'wav2vec2[:preset]'), on `device` (default cuda;
+    raises when there is none). quantize_bits=8 or 4 replaces a Whisper
+    model's dense kernels by int8 / int4 QuantLinears on the device and
+    turns on the int8 K/V caches, as ssak_tpu's load_model does."""
     dev = resolve_device(device)
-    if not seeded_test_config:
-        raise NotImplementedError(f"{model_dir}: checkpoint loading is not ported yet; use seeded_test_config")
-    model = _seeded_model(seeded_test_config, dev)
+    model = _seeded_model(seeded_test_config, dev) if seeded_test_config else _load_dir(model_dir, dev)
     if quantize_bits:
         if quantize_bits not in (4, 8):
             raise ValueError(f"quantize_bits must be 4 or 8, got {quantize_bits}")
         if model.type != ModelType.WHISPER:
-            raise NotImplementedError("quantized CTC models (--load_in_8bit / --load_in_4bit) are not ported yet (ROADMAP.md)")
+            raise NotImplementedError("quantized CTC models (--load_in_8bit / --load_in_4bit) are not ported yet "
+                                      "(ROADMAP.md slice 8b)")
         from ssak_tpu_torch.models.quant import quantize_params
 
         quantize_params(model.module, bits=quantize_bits)
         # int8 K/V caches ride along with int8 and int4 weights (ssak_tpu infer/general.py)
         model.cfg = dataclasses.replace(model.cfg, kv_int8=True)
     return model
+
+
+def _load_dir(model_dir: str, device) -> LoadedModel:
+    if os.path.exists(os.path.join(model_dir, "ssak_config.json")):
+        from ssak_tpu_torch.train.finalize import load_exported
+
+        mtype, params, cfg, tokenizer = load_exported(model_dir)
+        return _from_params(mtype, params, cfg, device, tokenizer)
+    mtype = get_model_type(model_dir)
+    if mtype == ModelType.CONFORMER_CTC:
+        raise NotImplementedError(f"{model_dir}: NeMo Conformer-CTC checkpoints are not ported yet (ROADMAP.md slice 7)")
+    from ssak_tpu_torch.models import hf_loader
+    from ssak_tpu_torch.models.tokenizer import CTCTokenizer, WhisperTokenizer
+
+    if mtype == ModelType.WHISPER:
+        params, cfg = hf_loader.load_whisper(model_dir)
+        tok = WhisperTokenizer(model_dir)
+        return _from_params(mtype, params, _with_tokenizer_ids(cfg, tok), device, tok)
+    params, cfg = hf_loader.load_wav2vec2(model_dir)
+    if "lm_head" not in params:
+        raise ValueError(f"{model_dir}: the checkpoint has no CTC head (lm_head); fine-tune it with "
+                         "python -m ssak_tpu_torch.train.cli --base_model")
+    return _from_params(mtype, params, cfg, device, CTCTokenizer(model_dir))
+
+
+def _with_tokenizer_ids(cfg, tok):
+    """The Whisper config with the tokenizer's no_timestamps, sot_prev,
+    no_speech and timestamp_begin ids, which config.json does not carry.
+    ssak_tpu keeps its config's defaults, which are large-v2's: on a
+    large-v3 checkpoint (one more language) they name the token before
+    each (ROADMAP.md §3)."""
+    ids = {k: getattr(tok, k) for k in ("no_timestamps", "sot_prev", "no_speech", "timestamp_begin")}
+    return dataclasses.replace(cfg, **{k: v for k, v in ids.items() if v is not None})
+
+
+def _from_params(mtype, params, cfg, device, tokenizer) -> LoadedModel:
+    from ssak_tpu_torch.models.convert import wav2vec2_from_tree, whisper_from_tree
+
+    build = whisper_from_tree if mtype == ModelType.WHISPER else wav2vec2_from_tree
+    return LoadedModel(mtype, build(params, device), cfg, device, tokenizer)
 
 
 def _seeded_model(kind: str, device) -> LoadedModel:
@@ -116,21 +181,65 @@ def from_tree(params, cfg, device=None, tokenizer=None) -> LoadedModel:
     by default the seeded vocabulary)."""
     dev = resolve_device(device)
     if "feature_extractor" in params:
-        from ssak_tpu_torch.models.convert import wav2vec2_from_tree
-
         tok = tokenizer if tokenizer is not None else seeded_ctc_tokenizer(cfg.vocab_size)
-        return LoadedModel(ModelType.WAV2VEC2_CTC, wav2vec2_from_tree(params, dev), cfg, dev, tok)
-    from ssak_tpu_torch.models.convert import whisper_from_tree
-
-    return LoadedModel(ModelType.WHISPER, whisper_from_tree(params, dev), cfg, dev, tokenizer)
+        return _from_params(ModelType.WAV2VEC2_CTC, params, cfg, dev, tok)
+    return _from_params(ModelType.WHISPER, params, cfg, dev, tokenizer)
 
 
 def shard_model(model: LoadedModel, model_axis: int = None, mesh=None):
-    raise NotImplementedError("tensor-parallel sharding is not ported yet (comes with parallel/, ROADMAP.md)")
+    raise NotImplementedError("tensor-parallel sharding is not ported yet (comes with parallel/, ROADMAP.md slice 8g)")
 
 
 def load_adapter(model: LoadedModel, model_dir: str, language: str) -> bool:
-    raise NotImplementedError("MMS adapter loading is not ported yet (comes with checkpoint loading, ROADMAP.md)")
+    """MMS per-language adapter swap: merges adapter.<language>.safetensors
+    (or .bin) of `model_dir` into the module (each layer's adapter and the
+    language's lm_head), switches the tokenizer to the language's
+    vocabulary where vocab.json is nested by language, and resizes
+    cfg.vocab_size to the new head. Returns False, changing nothing, for a
+    non-CTC model or a checkpoint without that adapter."""
+    if model.type != ModelType.WAV2VEC2_CTC:
+        return False
+    if not any(os.path.exists(os.path.join(model_dir, f"adapter.{language}.{ext}")) for ext in ("safetensors", "bin")):
+        return False
+    from ssak_tpu_torch.models import wav2vec2 as W2V
+    from ssak_tpu_torch.models.convert import linear_from_tree, ln_from_tree
+    from ssak_tpu_torch.models.hf_loader import read_wav2vec2_adapter
+
+    blocks = model.module.encoder.blocks
+    adapters, lm_head = read_wav2vec2_adapter(model_dir, language, len(blocks))
+    for i, a in adapters.items():
+        blocks[i].adapter = W2V.Adapter(ln_from_tree(a["norm"], model.device), linear_from_tree(a["down"], model.device),
+                                        linear_from_tree(a["up"], model.device))
+    if lm_head is not None:
+        model.module.lm_head = linear_from_tree(lm_head, model.device)
+    vp = os.path.join(model_dir, "vocab.json")
+    if os.path.exists(vp):
+        with open(vp, encoding="utf-8") as f:
+            v = json.load(f)
+        if language in v and isinstance(v[language], dict):
+            from ssak_tpu_torch.models.tokenizer import CTCTokenizer
+
+            model.tokenizer = CTCTokenizer(v[language])
+    new_v = int(model.module.lm_head.weight.shape[0])
+    if getattr(model.cfg, "vocab_size", new_v) != new_v:
+        model.cfg = dataclasses.replace(model.cfg, vocab_size=new_v)
+    return True
+
+
+def infer(model: LoadedModel, audio_batches, language: str = None, **kwargs):
+    """Generator of transcripts over batches of 1-D float arrays (CTC
+    greedy, or Whisper with `language` and the other options of
+    whisper_transcribe_batch)."""
+    if model.type in CTC_TYPES:
+        from ssak_tpu_torch.infer.ctc_infer import ctc_transcribe_batch
+
+        for batch in audio_batches:
+            yield from ctc_transcribe_batch(model, batch)
+    else:
+        from ssak_tpu_torch.infer.whisper_infer import whisper_transcribe_batch
+
+        for batch in audio_batches:
+            yield from whisper_transcribe_batch(model, batch, language=language, **kwargs)
 
 
 def compute_log_probas(model: LoadedModel, audio, lengths=None):

@@ -16,12 +16,14 @@ Three paths, as in the JAX package:
 The accurate and long-form paths read tokens on the host once per decode
 call, by design, and resolve eagerly.
 
-Tokenizers are a later slice: a transcript is the generated token ids
-joined by spaces, prompts use the config's special ids (as ssak_tpu does
-for a model without tokenizer), and `language=` / `task=` raise
-NotImplementedError.
+With a tokenizer (a model loaded from an HF directory), prompts are its
+sot_sequence(language, task, timestamps) and transcripts its decoded text;
+its eot, sot_prev, timestamp_begin and no_speech ids drive the loops. A
+model without one (seeded, from a tree or an export) uses the config's
+special ids, ignores language= and task=, and gives the generated token
+ids joined by spaces, as ssak_tpu does.
 
-CLI: python -m ssak_tpu_torch.infer.whisper_infer <audio|list|kaldi_dir> <model>
+CLI: python -m ssak_tpu_torch.infer.whisper_infer <audio|list|kaldi_dir> <model_dir> [--language fr]
 """
 
 import os
@@ -44,13 +46,9 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _needs_tokenizer(language, task):
-    if language is not None or task != "transcribe":
-        raise NotImplementedError("language= and task= need the Whisper tokenizer, which is not ported yet")
-
-
-def _ids_text(ids) -> str:
-    return " ".join(map(str, ids))
+def _ids_text(model, ids) -> str:
+    """The tokenizer's text of `ids`, or the ids joined by spaces for a model without one."""
+    return model.tokenizer.decode(ids) if model.tokenizer is not None else " ".join(map(str, ids))
 
 
 def compression_ratio(text: str) -> float:
@@ -70,6 +68,7 @@ def transcribe_with_fallback(model, mel, prompt, max_tokens: int = 224, beam_siz
     from ssak_tpu_torch.models import whisper
 
     cfg = model.cfg
+    eot = model.tokenizer.eot if model.tokenizer is not None else cfg.eot
     B = mel.shape[0]
     texts = [None] * B
     pending = list(range(B))
@@ -93,7 +92,7 @@ def transcribe_with_fallback(model, mel, prompt, max_tokens: int = 224, beam_siz
         for j, b in enumerate(rows):
             if texts[b] is not None:
                 continue
-            text = _ids_text(int(t) for t in tokens[j][: int(lengths[j])] if int(t) != cfg.eot)
+            text = _ids_text(model, [int(t) for t in tokens[j][: int(lengths[j])] if int(t) != eot])
             ok = compression_ratio(text) <= compression_ratio_threshold and (
                 avg_lp[j] >= logprob_threshold or temp == temperatures[-1]
             )
@@ -161,10 +160,14 @@ def transcribe_longform_batch(model, audios, language: str = None, task: str = "
     from ssak_tpu_torch.audio.wire import encode_rows, to_device_f32
     from ssak_tpu_torch.models import whisper
 
-    _needs_tokenizer(language, task)
     cfg = model.cfg
-    sot_seq = [cfg.sot] + ([] if with_timestamps else [cfg.no_timestamps])
-    eot, sot_prev, ts_begin = cfg.eot, cfg.sot_prev, cfg.timestamp_begin
+    tok = model.tokenizer
+    if tok is not None:
+        sot_seq = tok.sot_sequence(language=language, task=task, timestamps=with_timestamps)
+        eot, sot_prev, ts_begin = tok.eot, tok.sot_prev, tok.timestamp_begin
+    else:
+        sot_seq = [cfg.sot] + ([] if with_timestamps else [cfg.no_timestamps])
+        eot, sot_prev, ts_begin = cfg.eot, cfg.sot_prev, cfg.timestamp_begin
 
     window_samples = cfg.n_audio_ctx * 2 * 160
     precision = 2 * 160 / sample_rate  # seconds per timestamp unit (0.02 s)
@@ -189,7 +192,7 @@ def transcribe_longform_batch(model, audios, language: str = None, task: str = "
     decode = batch_decode_fn or default_batch_decode
 
     def decode_text(ids):
-        return _ids_text(i for i in ids if i < ts_begin)
+        return tok.decode(ids) if tok is not None else " ".join(str(i) for i in ids if i < ts_begin)
 
     audios = [np.asarray(a, np.float32) for a in audios]
     B = len(audios)
@@ -289,7 +292,8 @@ def transcribe_longform_batch(model, audios, language: str = None, task: str = "
             else:
                 st["seek"] += max(int(advance * sample_rate), 2 * 160)
 
-    return [{"text": " ".join(s["text"] for s in st["segments"]).strip(), "segments": st["segments"],
+    sep = "" if tok is not None else " "  # decoded segments carry their own leading spaces
+    return [{"text": sep.join(s["text"] for s in st["segments"]).strip(), "segments": st["segments"],
              "language": language} for st in state]
 
 
@@ -338,10 +342,13 @@ def whisper_transcribe_batch(model, batch, language: str = None, task: str = "tr
     from ssak_tpu_torch.audio.wire import encode_rows, to_device_f32
     from ssak_tpu_torch.models import whisper
 
-    _needs_tokenizer(language, task)
     cfg = model.cfg
-    prompt = [cfg.sot, cfg.no_timestamps]
-    eot = cfg.eot
+    if model.tokenizer is not None:
+        prompt = model.tokenizer.sot_sequence(language=language, task=task)
+        eot = model.tokenizer.eot
+    else:
+        prompt = [cfg.sot, cfg.no_timestamps]
+        eot = cfg.eot
     temperatures = TEMPERATURES if temperature_fallback else (0.0,)
 
     window_samples = cfg.n_audio_ctx * 2 * 160
@@ -351,8 +358,8 @@ def whisper_transcribe_batch(model, batch, language: str = None, task: str = "tr
         long_idx = [bi for bi, a in enumerate(batch) if len(a) > window_samples]
         short_idx = [bi for bi, a in enumerate(batch) if len(a) <= window_samples]
         if long_idx:
-            results = transcribe_longform_batch(model, [batch[bi] for bi in long_idx], temperatures=temperatures,
-                                                best_of=best_of)
+            results = transcribe_longform_batch(model, [batch[bi] for bi in long_idx], language=language, task=task,
+                                                temperatures=temperatures, best_of=best_of)
             texts_long = {bi: r["text"] for bi, r in zip(long_idx, results)}
     else:
         short_idx = list(range(len(batch)))
@@ -391,7 +398,7 @@ def whisper_transcribe_batch(model, batch, language: str = None, task: str = "tr
         for w0, glen, tokens, lengths in handles:
             tk, ln = _host(tokens), _host(lengths)
             for gi in range(glen):
-                add_piece(origins[w0 + gi], _ids_text(int(t) for t in tk[gi, : ln[gi]] if int(t) != eot))
+                add_piece(origins[w0 + gi], _ids_text(model, [int(t) for t in tk[gi, : ln[gi]] if int(t) != eot]))
         for bi, t in texts_long.items():
             texts[bi] = t
         return texts
@@ -439,18 +446,18 @@ def whisper_infer(model_dir, audios, batch_size: int = 0, output_ids: bool = Fal
     from ssak_tpu_torch.infer.general import load_model
     from ssak_tpu_torch.models.whisper import fuse_decode_qkv
 
-    _needs_tokenizer(language, "transcribe")
     model = load_model(model_dir, seeded_test_config=seeded_test_config, quantize_bits=quantize_bits, device=device)
     if not quantize_bits:
-        # decode-only: bf16 weights (quantized models keep their kernels' payloads + f32 leaves)
+        # decode-only: bf16 weights (quantized models keep their kernels' payloads and the other leaves as loaded,
+        # f32 or a checkpoint's f16)
         model.module.to(torch.bfloat16)
     fuse_decode_qkv(model.module)
     if not batch_size or batch_size <= 0:
         batch_size = auto_window_batch(model.cfg, quantize_bits, beam_size=beam_size, best_of=best_of)
     batches = to_audio_batches(audios, batch_size=batch_size, sample_rate=16000, output_ids=True,
                                io_threads=min(4, os.cpu_count() or 2))
-    options = dict(max_tokens=max_tokens, beam_size=beam_size, temperature_fallback=temperature_fallback,
-                   best_of=best_of)
+    options = dict(language=language, max_tokens=max_tokens, beam_size=beam_size,
+                   temperature_fallback=temperature_fallback, best_of=best_of)
     return _transcripts(model, batches, options, output_ids)
 
 
@@ -474,7 +481,9 @@ def cli(argv=None):
 
     parser = argparse.ArgumentParser(description="Transcribe audio with Whisper (PyTorch/CUDA port)")
     parser.add_argument("data", help="audio file, list file of audio files, or Kaldi dir (wav.scp of plain paths)")
-    parser.add_argument("model", help="model directory (only seeded models are ported: pass any name with --seeded_test_config)")
+    parser.add_argument("model", help="model directory: an HF Whisper checkpoint (config.json, *.safetensors or *.bin, "
+                                          "tokenizer.json or vocab.json + merges.txt) or an export of train.finalize")
+    parser.add_argument("--language", default=None, help="language code of the audio (e.g. fr); default: the model's choice")
     parser.add_argument("--output", default=None)
     parser.add_argument("--batch_size", type=int, default=0,
                         help="0 (default) = auto window batch by model size/precision; beam/best_of keep "
@@ -495,7 +504,7 @@ def cli(argv=None):
     best_of = 5 if args.accurate else (1 if args.efficient else args.best_of)
 
     texts = whisper_infer(
-        args.model, args.data, batch_size=args.batch_size, output_ids=args.use_ids,
+        args.model, args.data, batch_size=args.batch_size, language=args.language, output_ids=args.use_ids,
         beam_size=beam, temperature_fallback=args.accurate, best_of=best_of,
         quantize_bits=4 if args.load_in_4bit else (8 if args.load_in_8bit else 0),
         seeded_test_config=args.seeded_test_config, device=args.device,

@@ -9,8 +9,8 @@ layer norm, pre-LN blocks), MMS attention adapters, block rematerialization
 waveform (B, T), hidden (B, F, D), logits (B, F, V).
 
 Not ported here: the Mixture-of-Experts FFN (`num_experts > 0`, with the
-port of `parallel/`), and weight import from HF checkpoints (with
-`hf_loader`); both raise NotImplementedError (ROADMAP.md §1).
+port of `parallel/`), which raises NotImplementedError (ROADMAP.md §1). HF
+checkpoints load through `models.hf_loader`.
 """
 
 from dataclasses import dataclass

@@ -1,5 +1,4 @@
-"""Number verbalization for fr/en: the port's own copy of
-ssak_tpu.text.numbers (Russian comes with the port of `text/ru`).
+"""Number verbalization (the port's own copy of ssak_tpu.text.numbers).
 
 Number verbalization engine: digits → words for fr/en (ru/ar in their
 language modules).
@@ -174,7 +173,9 @@ def cardinal(n: int, language: str = "fr") -> str:
     if lang == "en":
         return en_cardinal(n)
     if lang == "ru":
-        raise NotImplementedError("Russian text normalization is not ported yet (ROADMAP.md)")
+        from ssak_tpu_torch.text.ru import ru_cardinal
+
+        return ru_cardinal(n)
     raise ValueError(f"no cardinal verbalizer for language {language}")
 
 

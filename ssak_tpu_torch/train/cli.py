@@ -5,14 +5,16 @@
 
 Kaldi dirs (or list files of "<dir> [weight]") in; a run dir named from a
 hash of the arguments; README + source snapshot + vocab.json +
-ssak_config.json for provenance; resume from the last checkpoint. Without
---base_model the model is the seeded tiny_test wav2vec2 with a character
-vocabulary built from the training text. Runs on cuda unless --device cpu.
+ssak_config.json for provenance; resume from the last checkpoint. With
+--base_model DIR the model is an HF wav2vec2 checkpoint with its own
+vocab.json (a checkpoint without a CTC head gets a fresh seeded one);
+without it, the seeded tiny_test wav2vec2 with a character vocabulary
+built from the training text. Runs on cuda unless --device cpu. Export a
+run with `python -m ssak_tpu_torch.train.finalize RUN_DIR`.
 
-Not ported yet, refused at start: --config / --set (YAML configs),
---base_model (HF and NeMo checkpoints, ROADMAP.md slice 6 / 7),
---data_augment (slice 8), --use_manifest_cache, and the ar / ru text
-normalizers.
+Not ported yet, refused at start: --config / --set (YAML configs, ROADMAP.md
+slice 8e), a NeMo --base_model (slice 7), --data_augment (slice 8f) and
+--use_manifest_cache (8e).
 """
 
 import argparse
@@ -29,7 +31,7 @@ def build_parser():
     p.add_argument("--config", default=None, help="YAML config file (not ported yet)")
     p.add_argument("--set", dest="overrides", action="append", default=[], help="config override a.b=value (not ported yet)")
     p.add_argument("--mask_time_prob", type=float, default=0.05, help="on-device span-mask probability")
-    p.add_argument("--base_model", default=None, help="checkpoint dir (not ported yet: omit for a seeded tiny model)")
+    p.add_argument("--base_model", default=None, help="HF wav2vec2 checkpoint dir (omit for a seeded tiny model)")
     p.add_argument("--output_dir", default="runs")
     p.add_argument("--language", default="fr")
     p.add_argument("--batch_size", type=int, default=8)
@@ -72,18 +74,36 @@ def args_to_run_name(args) -> str:
 
 
 def _refuse_unported(args):
-    from ssak_tpu_torch.text import LATIN_LANGUAGES
-
     if args.config or args.overrides:
-        raise NotImplementedError("--config / --set (YAML configs) are not ported yet (ROADMAP.md)")
-    if args.base_model:
-        raise NotImplementedError("--base_model (HF / NeMo checkpoint import) is not ported yet (ROADMAP.md slices 6, 7)")
+        raise NotImplementedError("--config / --set (YAML configs) are not ported yet (ROADMAP.md slice 8e)")
+    if args.base_model and (args.base_model.endswith(".nemo")
+                            or os.path.exists(os.path.join(args.base_model, "model_config.yaml"))):
+        raise NotImplementedError("a NeMo --base_model (Conformer-CTC) is not ported yet (ROADMAP.md slice 7)")
     if args.data_augment:
-        raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 8)")
+        raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 8f)")
     if args.use_manifest_cache:
-        raise NotImplementedError("--use_manifest_cache is not ported yet (ROADMAP.md)")
-    if args.language.split("-")[0].lower() not in LATIN_LANGUAGES:
-        raise NotImplementedError(f"text normalization for --language {args.language} is not ported yet (ROADMAP.md)")
+        raise NotImplementedError("--use_manifest_cache is not ported yet (ROADMAP.md slice 8e)")
+
+
+def base_model(model_dir: str, seed: int, device):
+    """(module, config, tokenizer) of an HF wav2vec2 checkpoint to fine-tune:
+    its tree as ssak_tpu's load_wav2vec2 gives it, and its vocab.json. A
+    checkpoint without a CTC head gets a fresh one from the port's seeded
+    initializer (N(0, 1/d) weights, zero bias, torch.Generator `seed`),
+    which is not the JAX package's PRNGKey draw."""
+    import torch
+
+    from ssak_tpu_torch.models.convert import wav2vec2_from_tree
+    from ssak_tpu_torch.models.hf_loader import load_wav2vec2
+    from ssak_tpu_torch.models.layers import linear_init
+    from ssak_tpu_torch.models.tokenizer import CTCTokenizer
+
+    params, cfg = load_wav2vec2(model_dir)
+    tokenizer = CTCTokenizer(os.path.join(model_dir, "vocab.json"))
+    if "lm_head" not in params:
+        head = linear_init(torch.Generator().manual_seed(seed), cfg.hidden_size, cfg.vocab_size)
+        params["lm_head"] = {"kernel": head.weight.detach().numpy().T.copy(), "bias": head.bias.detach().numpy()}
+    return wav2vec2_from_tree(params, device), cfg, tokenizer
 
 
 def main(argv=None):
@@ -116,9 +136,12 @@ def main(argv=None):
     meta_va, valid_rows = kaldi_folder_to_manifest(args.valid, max_duration=args.max_duration, seed=args.seed)
     logger.info(f"train: {meta_tr} valid: {meta_va}")
 
-    tokenizer = CTCTokenizer.from_corpus([norm(r["text"] or "") for r in train_rows])
-    cfg = wav2vec2.make_config("tiny_test", vocab_size=max(32, len(tokenizer)))
-    model = wav2vec2.init_params(cfg, seed=args.seed, device=device)
+    if args.base_model:
+        model, cfg, tokenizer = base_model(args.base_model, args.seed, device)
+    else:
+        tokenizer = CTCTokenizer.from_corpus([norm(r["text"] or "") for r in train_rows])
+        cfg = wav2vec2.make_config("tiny_test", vocab_size=max(32, len(tokenizer)))
+        model = wav2vec2.init_params(cfg, seed=args.seed, device=device)
 
     with open(os.path.join(run_dir, "README.txt"), "w") as f:
         f.write(" ".join(sys.argv) + "\n\n")

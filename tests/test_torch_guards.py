@@ -1,7 +1,8 @@
 """Guards of the port's rules: ssak_tpu_torch (and chip_smoke.py) import
-neither JAX nor ssak_tpu; every module imports with both blocked; entry
-points default to the GPU and raise without one instead of running on the
-CPU; the CLI runs on the CPU only when asked to."""
+neither JAX nor ssak_tpu, nor the tokenizers, safetensors or transformers
+packages that the card host lacks; every module imports with all of them
+blocked; entry points default to the GPU and raise without one instead of
+running on the CPU; the CLI runs on the CPU only when asked to."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ssak_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ssak_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers")
 
 
 def _port_files():
@@ -44,7 +45,7 @@ def test_no_jax_or_ssak_tpu_imports_by_ast():
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCK = ("jax", "jaxlib", "ssak_tpu")
+BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCK:
@@ -73,11 +74,27 @@ def _need_gpu_less_host():
         pytest.skip("checks the behaviour of a host without a CUDA device")
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     _need_gpu_less_host()
+    from ssak_tpu_torch.eval import cli as eval_cli
+    from ssak_tpu_torch.infer import cli as infer_cli
     from ssak_tpu_torch.infer.general import from_tree, load_model
     from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+    from ssak_tpu_torch.train import finalize
     from ssak_tpu_torch.utils.env import resolve_device
+
+    for family in ("whisper", "wav2vec2"):  # model directories, read only once a device is there
+        d = tmp_path / family
+        d.mkdir()
+        (d / "config.json").write_text('{"model_type": "%s"}' % family)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_model(str(d))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            infer_cli.main([str(tmp_path), str(d)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finalize.main([str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_cli.main([str(tmp_path / "ref"), str(tmp_path / "hyp")])
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model(None, seeded_test_config="whisper")

@@ -154,28 +154,31 @@ def test_transcribe_batch_from_wav_files(tiny, tmp_path):
     assert got == ref and len(got) == 3 and all(got)
 
 
-def test_transcribe_batch_not_ported_paths_raise(tiny):
-    """What still needs a later slice raises at the call: checkpoint
-    directories and language= / task= (both need the tokenizer). Long-form
-    audio and the accurate chain run."""
-    from ssak_tpu_torch.infer.general import load_model
+def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
+    """What still needs a later slice raises at the call: NeMo checkpoints
+    (slice 7), quantized CTC models (8b), tensor-parallel sharding (8g). A
+    model without a tokenizer ignores language= and task=, as ssak_tpu's
+    does. Long-form audio and the accurate chain run."""
+    from ssak_tpu_torch.infer.general import load_model, shard_model
     from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch, whisper_infer
 
     cfg, params, _ = tiny
     m = from_tree(params, _port_cfg(cfg), device="cpu")
     long_audio = np.zeros(cfg.n_audio_ctx * 320 + 1, np.float32)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        load_model("some/checkpoint_dir", device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        whisper_infer("some/checkpoint_dir", [long_audio], device="cpu")
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        whisper_infer(None, [long_audio], seeded_test_config="whisper", language="fr", device="cpu")
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        whisper_transcribe_batch(m, [long_audio], language="fr")
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        whisper_transcribe_batch(m, [long_audio[:100]], task="translate", beam_size=5)
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        transcribe_longform_batch(m, [long_audio], language="en")
+    (tmp_path / "nemo").mkdir()
+    (tmp_path / "nemo" / "model_config.yaml").write_text("name: ConformerCTC\n")
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        load_model("some/model.nemo", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        whisper_infer(str(tmp_path / "nemo"), [long_audio], device="cpu")
+    with pytest.raises(NotImplementedError, match="8b"):
+        load_model(None, seeded_test_config="wav2vec2", quantize_bits=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="8g"):
+        shard_model(m)
+    short = long_audio[:3000]
+    assert whisper_transcribe_batch(m, [short], language="fr", max_tokens=3) == whisper_transcribe_batch(m, [short], max_tokens=3)
+    assert len(whisper_transcribe_batch(m, [short], task="translate", beam_size=5, max_tokens=3)) == 1
+    assert len(transcribe_longform_batch(m, [long_audio], language="en", max_tokens=3)) == 1
     # longform=False cuts windows instead, as in ssak_tpu; long-form and beam run
     assert len(whisper_transcribe_batch(m, [long_audio], longform=False, max_tokens=3)) == 1
     assert len(whisper_transcribe_batch(m, [long_audio, long_audio[:100]], beam_size=2, max_tokens=3)) == 2

@@ -3,6 +3,7 @@
 
     python3 tools/torch_whisper_profile.py [--configs bf16 int8 int4] [--batch 24] [--max_tokens 32]
                                            [--step_pos 0 200] [--root DIR] [--ab_parent DIR --pairs 6]
+                                           [--ab_leaves --configs int8 int4 --pairs 4]
 
 For each configuration: a seeded large-v3 model prepared as whisper_infer
 prepares it (bf16 cast, or int8 / int4 quantization; fused decoder q/k/v
@@ -30,8 +31,15 @@ Prints one JSON object per configuration. --root DIR profiles another
 checkout's package (e.g. the parent commit unpacked with `git archive`)
 with this script. --ab_parent DIR [--pairs N] runs only k4_ab: greedy
 decoding and K4's wrapper with this tree's K4 and with DIR's, in one
-process on one model, N pairs alternating which goes first. Numbers are only meaningful on the card; the script
-refuses to run without one.
+process on one model, N pairs alternating which goes first. --ab_leaves
+[--pairs N] runs only leaves_ab: chip_smoke.py's seeded large-v3 tree,
+quantized (int8 / int4 only), built once with f32 leaves and once with the
+leaves rounded to f16 (what an F16 checkpoint directory loads), each
+without and with chip_smoke.py's byte-level tokenizer, then N rounds of
+chip_smoke.py's greedy slice (its 24-file corpus through whisper_infer's
+batching, prefetch and transcripts) over every side in a rotating order,
+and of greedy_decode alone on one batch of windows. Numbers are only
+meaningful on the card; the script refuses to run without one.
 """
 
 import argparse
@@ -139,6 +147,89 @@ def k4_ab(torch, bits, batch, max_tokens, parent, pairs):
         finally:
             L.flash_decode_attention = own
     del m, model, kv, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def leaves_ab(torch, bits, rounds, preset="large-v3", device="cuda"):
+    """f32 against f16 leaves, and no tokenizer against chip_smoke.py's,
+    on one seeded tree in one process (see the module docstring), TF32 off
+    as in chip_smoke.py. Returns wall ms of each slice run and of each
+    greedy_decode per side, in run order, and the dtypes of each side's
+    parameters."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    import chip_smoke as CS
+    from ssak_tpu_torch.data.dataset import to_audio_batches
+    from ssak_tpu_torch.infer import whisper_infer as WI
+    from ssak_tpu_torch.infer.general import LoadedModel, ModelType, _with_tokenizer_ids
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.models.convert import whisper_from_tree
+    from ssak_tpu_torch.models.quant import quantize_params
+    from ssak_tpu_torch.models.tokenizer import WhisperTokenizer
+    from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(W.make_config(preset), kv_int8=True)
+    tree = CS.seeded_tree(cfg)
+    root = tempfile.mkdtemp(prefix="leaves_ab_")
+    CS.write_byte_level_vocab(root)
+    tok = WhisperTokenizer(root)
+    kaldi = os.path.join(root, "corpus")
+    ids = CS.write_corpus(kaldi)
+    modules, sides = {}, {}
+    for leaf in ("f32", "f16"):
+        src = tree if leaf == "f32" else CS.tree_map(lambda a: a.astype(np.float16), tree)
+        module = whisper_from_tree(src, device)
+        del src
+        quantize_params(module, bits=bits)
+        W.fuse_decode_qkv(module)
+        modules[leaf] = module
+        sides[leaf] = LoadedModel(ModelType.WHISPER, module, cfg, device, None)
+        sides[leaf + "+tokenizer"] = LoadedModel(ModelType.WHISPER, module, _with_tokenizer_ids(cfg, tok), device, tok)
+    del tree
+    batch = WI.auto_window_batch(cfg, bits)
+    options = dict(language=None, max_tokens=CS.MAX_TOKENS, beam_size=0, temperature_fallback=False, best_of=1)
+    g = torch.Generator(device=device).manual_seed(0)
+    audio = torch.randn(batch, cfg.n_audio_ctx * 320, generator=g, device=device) * 0.1
+    names = list(sides)
+    res = {"config": {8: "int8", 4: "int4"}[bits], "batch": batch, "files": len(ids), "max_tokens": CS.MAX_TOKENS,
+           "card": torch.cuda.get_device_name(0) if device == "cuda" else device, "order": [],
+           "param_dtypes": {k: sorted({str(p.dtype) for p in m.parameters()}) for k, m in modules.items()},
+           "slice_ms": {k: [] for k in names}, "greedy_decode_ms": {k: [] for k in modules}}
+
+    def run_slice(model):
+        batches = to_audio_batches(kaldi, batch_size=batch, sample_rate=16000, output_ids=True,
+                                   io_threads=min(4, os.cpu_count() or 2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = list(WI._transcripts(model, batches, options, True))
+        torch.cuda.synchronize()
+        if [i for i, _ in out] != ids:
+            raise AssertionError("leaves_ab: one transcript per file, in order")
+        return (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, cfg.n_mels)
+        prompt = [cfg.sot, cfg.no_timestamps]
+        for name in names:  # warm-up
+            run_slice(sides[name])
+        for i in range(rounds):
+            order = names[i % len(names):] + names[: i % len(names)]
+            res["order"].append(order)
+            for name in order:
+                res["slice_ms"][name].append(run_slice(sides[name]))
+            for leaf in (("f32", "f16") if i % 2 == 0 else ("f16", "f32")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                W.greedy_decode(modules[leaf], mel, cfg, prompt, max_tokens=CS.MAX_TOKENS)
+                torch.cuda.synchronize()
+                res["greedy_decode_ms"][leaf].append((time.perf_counter() - t0) * 1e3)
+    del sides, modules
     torch.cuda.empty_cache()
     return res
 
@@ -259,6 +350,7 @@ def main():
     ap.add_argument("--step_pos", type=int, nargs="*", default=[], help="also time and trace 8 decode steps from each")
     ap.add_argument("--root", default="", help="profile this checkout's ssak_tpu_torch instead")
     ap.add_argument("--ab_parent", default="", help="instead, K4 of this tree against DIR's, alternating (k4_ab)")
+    ap.add_argument("--ab_leaves", action="store_true", help="instead, f32 against f16 leaves (leaves_ab)")
     ap.add_argument("--pairs", type=int, default=6)
     args = ap.parse_args()
     if args.root:
@@ -269,6 +361,10 @@ def main():
         print("torch_whisper_profile: no CUDA device", file=sys.stderr)
         return 3
     for c in args.configs:
+        if args.ab_leaves:
+            if c != "bf16":  # bf16 casts every leaf to bf16
+                print(json.dumps(leaves_ab(torch, {"int8": 8, "int4": 4}[c], args.pairs)), flush=True)
+            continue
         if args.ab_parent:
             bits = {"bf16": 0, "int8": 8, "int4": 4}[c]
             print(json.dumps(k4_ab(torch, bits, args.batch, args.max_tokens, args.ab_parent, args.pairs)), flush=True)
