@@ -13,7 +13,10 @@ and prints no result):
              least time the card could take (bytes or operations bound);
              K1 at the 140 s bucket also against the same recursion in
              f64, bit-identical on repeat at its three timed shapes, S =
-             1,025 and 4,097 split over a thread-block cluster; K2 and K3 at every M from 1 to 64, bit-identical on
+             1,025 and 4,097 split over a thread-block cluster, and at the
+             Conformer fine-tuning shape (V = 129, blank 128: the branch
+             that reads emissions from device memory), beside
+             F.ctc_loss(blank=128); K2 and K3 at every M from 1 to 64, bit-identical on
              repeat with one allocation a call at their timed shapes, no
              register spills in their ptxas reports; K4 on full, one-key,
              empty, inner and ragged ranges, at T = 12,288 and on caches off
@@ -48,7 +51,16 @@ and prints no result):
              files (30 s, 140 s and chunked 200 s audio), greedy, and with
              the device beam
              (width 16, lexicon, word 3-gram) over the 14 files of one
-             chunk; then wav2vec2-xlsr CTC training at full width and depth
+             chunk; then a seeded NeMo Conformer-CTC Large written as a
+             .nemo archive (model_config.yaml by hand, model_weights.ckpt
+             by torch.save; 18 layers of d 512, rel-pos attention, 128
+             pieces + the blank last), loaded back against what was
+             written, served through ctc_infer over the same 16 files
+             (greedy; the device beam of width 16 over the 14 of one
+             chunk) and fine-tuned through the train CLI's --base_model
+             (batch 16 x 15 s, 6 steps, eval, checkpoint, resume, then
+             sak-finalize and load_model of the export: the trainer's
+             log-probs); then wav2vec2-xlsr CTC training at full width and depth
              at the 140 s bucket (CTCTrainer, batch 4 x 6,999 frames, 6
              steps, eval, checkpoint, resume; L1 forward and backward on
              every layer); each with the kernels' launch counters checked
@@ -63,7 +75,10 @@ and prints no result):
              and CTC log-probs of a 140 s row card (through L1) against CPU
              in bf16 (xlsr widths, 2 layers), same weights; one bf16 train
              step at the 100 s bucket (xlsr widths, 2 layers, remat), the
-             card through L1 forward and backward, the CPU unfused
+             card through L1 forward and backward, the CPU unfused; a NeMo
+             archive at Conformer Large widths and 2 layers in f32: the
+             log-probs of a 30 s and a 140 s row, and two train steps,
+             card against CPU
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 = False): f32 products on the card are full
@@ -600,6 +615,89 @@ def check_ctc_fused(torch, dev):
         gc.collect()
         torch.cuda.empty_cache()
     return rows, worst
+
+
+def ctc_conformer_case(torch, dev, seed, B=16, T=376, U=256, blank=128):
+    """Phase 3's Conformer fine-tuning batch: log_probs (B, T, V=129) with
+    NeMo's blank last (128), 15 s rows (1,501 mel frames, 376 encoder frames)
+    of 300-376 frames with 150-210 labels (~14 chars/s, one a character) in a
+    label width of 256 (S = 513), labels in [0, 128); a batch-pad dummy (1
+    frame, label length 0), an infeasible row (200 labels in 100 frames) and
+    a row of repeated labels."""
+    V = blank + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = torch.log_softmax(2 * torch.randn(B, T, V, generator=g, device=dev), dim=-1)
+    labels = torch.randint(0, blank, (B, U), generator=g, device=dev, dtype=torch.int32)
+    lab_len = torch.randint(150, 211, (B,), generator=g, device=dev, dtype=torch.int32)
+    t_len = torch.randint(300, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    t_len[0], lab_len[0] = T, 210
+    t_len[1], lab_len[1] = 1, 0
+    t_len[2], lab_len[2] = 100, 200
+    labels[3, :] = labels[3, 0]
+    return lp, t_len, labels, lab_len
+
+
+def check_ctc_fused_conformer(torch, dev):
+    """K1 at the Conformer-CTC Large fine-tuning shape (ctc_conformer_case:
+    B=16, T=376, V=129, blank 128): V % 4 != 0 sends the sweeps down the
+    branch that reads emissions from device memory instead of the bulk-copy
+    ring (csrc/ctc_fused.cu), with a blank other than 0. Against the plain
+    version at K1's limits (loss 1e-5 relative, grad 2e-3 absolute), the
+    dummy and infeasible rows zeroed, bit-identical on repeat; timed beside
+    F.ctc_loss(blank=128) and the bound. Returns the row."""
+    import torch.nn.functional as F
+
+    from ssak_tpu_torch.ops import ctc_fused as K1
+
+    blank = 128
+    lp, t_len, labels, lab_len = ctc_conformer_case(torch, dev, seed=129, blank=blank)
+    B, T, V = lp.shape
+    S = 2 * labels.shape[1] + 1
+    ringed = V % 4 == 0 and lp.data_ptr() % 16 == 0  # the kernel's own test (csrc/ctc_fused.cu)
+    cluster, threads, kpt, _ = K1.ctc_plan(B, T, S, V)
+    plan = dict(cluster=cluster, threads=threads, kpt=kpt)
+    loss, grad = K1.ctc_fused(lp, t_len, labels, lab_len, blank_id=blank)
+    ref_loss, ref_grad = K1.ctc_fused_reference(lp, t_len, labels, lab_len, blank_id=blank)
+    torch.cuda.synchronize()
+    loss_rel = float(((loss - ref_loss).abs() / ref_loss.abs().clamp(min=1.0)).max())
+    err = float((grad - ref_grad).abs().max())
+    tag = f"ctc_fused V={V} blank={blank} (the Conformer's shape, {'ringed' if ringed else 'un-ringed'} branch)"
+    if ringed or not (loss_rel <= 1e-5 and err <= 2e-3 and torch.isfinite(loss).all()):
+        raise AssertionError(f"{tag}: loss rel err {loss_rel} (<= 1e-5), grad max|err| {err} (<= 2e-3), ringed {ringed}")
+    if not (loss[1] == 0 and loss[2] == 0 and not grad[1].any() and not grad[2].any() and (loss[4:] > 0).all()):
+        raise AssertionError(f"{tag}: dummy or infeasible row not zeroed, or a feasible row without loss")
+    loss2, grad2 = K1.ctc_fused(lp, t_len, labels, lab_len, blank_id=blank)
+    if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
+        raise AssertionError(f"{tag}: a repeat is not bit-identical")
+    del grad, ref_grad, grad2
+    sets = [(lp.clone(), t_len, labels, lab_len) for _ in range(n_copies(B * T * V * 4))]
+    lib_in = lp.detach().transpose(0, 1).contiguous()
+
+    def kernel(x, tl, lab, ll):
+        return K1.ctc_fused(x, tl, lab, ll, blank_id=blank)
+
+    def plain(x, tl, lab, ll):
+        return K1.ctc_fused_reference(x, tl, lab, ll, blank_id=blank)
+
+    def library(x, tl=t_len, lab=labels, ll=lab_len):
+        x = x.detach().requires_grad_(True)
+        F.ctc_loss(x, lab, tl, ll, blank=blank, reduction="sum", zero_infinity=True).backward()
+        return x.grad
+
+    live = int(sum(max(0, min(int(t), T)) * (2 * min(int(l), S // 2) + 1) for t, l in zip(t_len.tolist(), lab_len.tolist())))
+    row = dict(B=B, T=T, V=V, S=S, blank=blank, ringed=ringed, max_abs_err=err, loss_rel_err=loss_rel,
+               ms=time_ms(torch, kernel, sets), plain_ms=time_ms(torch, plain, sets[:2], min_iters=3),
+               library_ms=time_ms(torch, library, [(lib_in.clone(),) for _ in range(2)], min_iters=5),
+               chain_steps=T, live_states=live, plan=plan, repeat_bit_identical=True)
+    row["us_per_step"] = row["ms"] * 1e3 / T
+    # as check_ctc_fused: lp read once, labels and lengths read once, loss and
+    # grad written once; about 32 f32 operations per live (t, s) state
+    row["bound_ms"], row["bound_by"] = bound(2 * B * T * V * 4 + B * labels.shape[1] * 4 + 3 * B * 4, 32 * live, F32_FLOPS)
+    log(f"{tag}: {row}")
+    del sets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def _qkv(torch, g, dev, B, T, H=16, Dh=64):
@@ -1193,6 +1291,15 @@ def prepare_serving_dir(torch, dev, root):
     return res
 
 
+def leaves(tree):
+    """The leaves of a parameter tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -1717,23 +1824,30 @@ def kaldi_subset(root, src, n):
     return root
 
 
-def expected_encoder_frames(lens):
+def expected_encoder_frames(lens, frames_of=None):
     """Frames of every encoder call ctc_infer makes over files of `lens`
     samples, in order, from the port's own packing (auto_pack_batches,
-    padded_batch_shape) and chunking (chunk_lengths and the buckets)."""
+    padded_batch_shape) and chunking (chunk_lengths and the buckets).
+    frames_of(samples): the family's encoder frames, by default the xlsr
+    wav2vec2's conv stack."""
     from ssak_tpu_torch.infer import ctc_infer as CI
     from ssak_tpu_torch.models.wav2vec2 import feature_extract_output_length, make_config
 
-    cfg = make_config(SERVE_MODEL.split(":")[1])
+    if frames_of is None:
+        cfg = make_config(SERVE_MODEL.split(":")[1])
+
+        def frames_of(n):
+            return feature_extract_output_length(cfg, n)
+
     frames = []
     for batch, _ids in CI.auto_pack_batches((range(n), i) for i, n in enumerate(lens)):
         sizes = [len(a) for a in batch]
         short = [n for n in sizes if n <= CI.MAX_CHUNK_SAMPLES]
         if short:
-            frames.append(feature_extract_output_length(cfg, CI.padded_batch_shape(short)[1]))
+            frames.append(frames_of(CI.padded_batch_shape(short)[1]))
         for n in sizes:
             if n > CI.MAX_CHUNK_SAMPLES:
-                frames += [feature_extract_output_length(cfg, CI._bucket_len(c)) for c in CI.chunk_lengths(n)]
+                frames += [frames_of(CI._bucket_len(c)) for c in CI.chunk_lengths(n)]
     return frames
 
 
@@ -1863,6 +1977,468 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, 
         res["device_beam_ms_140s_batch"] = [b["card_ms"] for b in beam if b["shape"][1] >= FLASH_MIN_SEQ]
     log(f"slice {json.dumps(res)}")
     return res
+
+
+# --- phase 3: NeMo Conformer-CTC Large, written as a .nemo archive ---------------------
+
+# stt_en_conformer_ctc_large's encoder (NeMo examples/asr/conf/conformer/conformer_ctc_bpe.yaml,
+# the Large column): 18 layers of d_model 512, 8 heads, FFN x4, depthwise kernel 31, 80 mels,
+# "striding" x4 subsampling, rel-pos attention with xscaling; 128 BPE pieces + the blank.
+NEMO_LARGE = dict(feat_in=80, n_layers=18, d_model=512, n_heads=8, ff_expansion_factor=4, conv_kernel_size=31)
+NEMO_PIECES = 128
+NEMO_TRAIN_FILES, NEMO_EVAL_FILES, NEMO_BATCH, NEMO_STEPS = 64, 16, 16, 6
+NEMO_SERVE_BEAM = 16
+
+
+def nemo_vocabulary(n=NEMO_PIECES, seed=0):
+    """A SentencePiece-like vocabulary of n pieces: <unk>, the word-start
+    mark, the letters and the apostrophe, then seeded 2-4 letter pieces, half
+    of them starting a word ('▁th'), as NeMo's BPE vocabularies hold."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pieces = ["<unk>", "▁"] + list(CHARS) + ["'"]
+    while len(pieces) < n:
+        p = "".join(rng.choice(list(CHARS), size=rng.randint(2, 5)))
+        p = "▁" + p if rng.rand() < 0.5 else p
+        if p not in pieces:
+            pieces.append(p)
+    return pieces[:n]
+
+
+def nemo_model_config_yaml(enc, vocabulary):
+    """model_config.yaml of an EncDecCTCModelBPE, written by hand (the card
+    host has no YAML package): the sections of NeMo's conformer_ctc_bpe.yaml,
+    the encoder's widths from `enc`, the vocabulary as double-quoted pieces."""
+    pieces = "\n".join(f"  - {json.dumps(p, ensure_ascii=False)}" for p in vocabulary)
+    return f"""# EncDecCTCModelBPE (NeMo examples/asr/conf/conformer/conformer_ctc_bpe.yaml)
+sample_rate: 16000
+log_prediction: true
+ctc_reduction: mean_batch
+skip_nan_grad: false
+train_ds:
+  manifest_filepath: null
+  sample_rate: ${{model.sample_rate}}
+  batch_size: 16
+  shuffle: true
+  num_workers: 8
+  pin_memory: true
+  max_duration: 16.7
+  min_duration: 0.1
+  is_tarred: false
+  tarred_audio_filepaths: null
+  shuffle_n: 2048
+  bucketing_strategy: synced_randomized
+  bucketing_batch_size: null
+validation_ds:
+  manifest_filepath: null
+  sample_rate: ${{model.sample_rate}}
+  batch_size: 16
+  shuffle: false
+  use_start_end_token: false
+tokenizer:
+  dir: null  # tokenizer.model sits beside the weights in a real archive
+  type: bpe
+preprocessor:
+  _target_: nemo.collections.asr.modules.AudioToMelSpectrogramPreprocessor
+  sample_rate: ${{model.sample_rate}}
+  normalize: per_feature
+  window_size: 0.025
+  window_stride: 0.01
+  window: hann
+  features: {enc["feat_in"]}
+  n_fft: 512
+  log: true
+  frame_splicing: 1
+  dither: 1.0e-05
+  pad_to: 0
+  pad_value: 0.0
+spec_augment:
+  _target_: nemo.collections.asr.modules.SpectrogramAugmentation
+  freq_masks: 2
+  time_masks: 10
+  freq_width: 27
+  time_width: 0.05
+encoder:
+  _target_: nemo.collections.asr.modules.ConformerEncoder
+  feat_in: {enc["feat_in"]}
+  feat_out: -1
+  n_layers: {enc["n_layers"]}
+  d_model: {enc["d_model"]}
+  subsampling: striding
+  subsampling_factor: 4
+  subsampling_conv_channels: -1
+  ff_expansion_factor: {enc["ff_expansion_factor"]}
+  self_attention_model: rel_pos
+  n_heads: {enc["n_heads"]}
+  att_context_size: [-1, -1]
+  xscaling: true
+  untie_biases: true
+  pos_emb_max_len: 5000
+  conv_kernel_size: {enc["conv_kernel_size"]}
+  conv_norm_type: batch_norm
+  dropout: 0.1
+  dropout_pre_encoder: 0.1
+  dropout_emb: 0.0
+  dropout_att: 0.1
+decoder:
+  _target_: nemo.collections.asr.modules.ConvASRDecoder
+  feat_in: null
+  num_classes: {len(vocabulary)}
+  vocabulary:
+{pieces}
+optim:
+  name: adamw
+  lr: 2.0
+  betas:
+  - 0.9
+  - 0.98
+  weight_decay: 0.001
+  sched:
+    name: NoamAnnealing
+    d_model: ${{model.encoder.d_model}}
+    warmup_steps: 10000
+    warmup_ratio: null
+    min_lr: 1.0e-06
+target: nemo.collections.asr.models.ctc_bpe_models.EncDecCTCModelBPE
+"""
+
+
+def nemo_state_dict(enc, n_classes, seed=0):
+    """A seeded f32 state dict in NeMo's EncDecCTCModel key layout (torch
+    Conv2d / Conv1d / Linear weights, BatchNorm with its running statistics),
+    drawn from a torch.Generator: dense N(0, 1/fan_in), norms near 1."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    d, k, ff = enc["d_model"], enc["conv_kernel_size"], enc["ff_expansion_factor"] * enc["d_model"]
+    dh = d // enc["n_heads"]
+    sd = {}
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=g) * std + mean
+
+    def lin(pfx, din, dout, bias=True):
+        sd[f"{pfx}.weight"] = rand(dout, din, std=din ** -0.5)
+        if bias:
+            sd[f"{pfx}.bias"] = rand(dout, std=0.02)
+
+    def norm(pfx):
+        sd[f"{pfx}.weight"] = rand(d, std=0.05, mean=1.0)
+        sd[f"{pfx}.bias"] = rand(d, std=0.05)
+
+    f4 = ((enc["feat_in"] + 1) // 2 + 1) // 2
+    sd["encoder.pre_encode.conv.0.weight"] = rand(d, 1, 3, 3, std=1 / 3)
+    sd["encoder.pre_encode.conv.0.bias"] = rand(d, std=0.02)
+    sd["encoder.pre_encode.conv.2.weight"] = rand(d, d, 3, 3, std=(9 * d) ** -0.5)
+    sd["encoder.pre_encode.conv.2.bias"] = rand(d, std=0.02)
+    lin("encoder.pre_encode.out", d * f4, d)
+    for i in range(enc["n_layers"]):
+        p = f"encoder.layers.{i}"
+        for name in ("norm_feed_forward1", "norm_self_att", "norm_conv", "norm_feed_forward2", "norm_out"):
+            norm(f"{p}.{name}")
+        for ffn in ("feed_forward1", "feed_forward2"):
+            lin(f"{p}.{ffn}.linear1", d, ff)
+            lin(f"{p}.{ffn}.linear2", ff, d)
+        for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            lin(f"{p}.self_attn.{q}", d, d)
+        lin(f"{p}.self_attn.linear_pos", d, d, bias=False)
+        sd[f"{p}.self_attn.pos_bias_u"] = rand(enc["n_heads"], dh, std=0.1)
+        sd[f"{p}.self_attn.pos_bias_v"] = rand(enc["n_heads"], dh, std=0.1)
+        sd[f"{p}.conv.pointwise_conv1.weight"] = rand(2 * d, d, 1, std=d ** -0.5)
+        sd[f"{p}.conv.pointwise_conv1.bias"] = rand(2 * d, std=0.02)
+        sd[f"{p}.conv.depthwise_conv.weight"] = rand(d, 1, k, std=k ** -0.5)
+        sd[f"{p}.conv.depthwise_conv.bias"] = rand(d, std=0.02)
+        norm(f"{p}.conv.batch_norm")
+        sd[f"{p}.conv.batch_norm.running_mean"] = rand(d, std=0.1)
+        sd[f"{p}.conv.batch_norm.running_var"] = torch.rand(d, generator=g) + 0.5
+        sd[f"{p}.conv.batch_norm.num_batches_tracked"] = torch.tensor(1000)
+        sd[f"{p}.conv.pointwise_conv2.weight"] = rand(d, d, 1, std=d ** -0.5)
+        sd[f"{p}.conv.pointwise_conv2.bias"] = rand(d, std=0.02)
+    sd["decoder.decoder_layers.0.weight"] = rand(n_classes + 1, d, 1, std=d ** -0.5)
+    sd["decoder.decoder_layers.0.bias"] = rand(n_classes + 1, std=0.02)
+    return sd
+
+
+def write_nemo_archive(path, enc, vocabulary, seed=0, extracted=False):
+    """A NeMo Conformer-CTC archive at `path`: a .nemo tar of
+    model_config.yaml (nemo_model_config_yaml) and model_weights.ckpt
+    (torch.save of nemo_state_dict), or with `extracted` a directory of the
+    two. Returns (state dict, seconds to write, bytes)."""
+    import io
+    import tarfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    sd = nemo_state_dict(enc, len(vocabulary), seed)
+    config = nemo_model_config_yaml(enc, vocabulary).encode("utf-8")
+    if extracted:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "model_config.yaml"), "wb") as f:
+            f.write(config)
+        torch.save(sd, os.path.join(path, "model_weights.ckpt"))
+        size = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+    else:
+        weights = io.BytesIO()
+        torch.save(sd, weights)
+        with tarfile.open(path, "w") as tar:
+            for name, data in (("./model_config.yaml", config), ("./model_weights.ckpt", weights.getbuffer())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+        size = os.path.getsize(path)
+    return sd, time.perf_counter() - t0, size
+
+
+def check_nemo_load(torch, sd, m, enc):
+    """The loaded model against the state dict it was written from: every
+    dense, conv and norm leaf equal after the layout change, the folded
+    BatchNorm to f32 rounding, the parameter count that of the archive less
+    the BatchNorm statistics."""
+    import numpy as np
+
+    mod = m.module
+    checks = {
+        "pre_encode.conv.0": (mod.subsampling.conv1.weight, sd["encoder.pre_encode.conv.0.weight"]),
+        "pre_encode.out": (mod.subsampling.proj.weight, sd["encoder.pre_encode.out.weight"]),
+        "layers.0.linear_q": (mod.blocks[0].attn.query.weight, sd["encoder.layers.0.self_attn.linear_q.weight"]),
+        "layers.-1.pos_bias_v": (mod.blocks[-1].attn.pos_bias_v, sd[f"encoder.layers.{enc['n_layers'] - 1}.self_attn.pos_bias_v"]),
+        "layers.-1.depthwise": (mod.blocks[-1].conv.depthwise.weight,
+                                sd[f"encoder.layers.{enc['n_layers'] - 1}.conv.depthwise_conv.weight"]),
+        "decoder": (mod.lm_head.weight, sd["decoder.decoder_layers.0.weight"][:, :, 0]),
+    }
+    for name, (got, want) in checks.items():
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"nemo archive: {name} did not load as written")
+    bn = "encoder.layers.0.conv.batch_norm"
+    var = sd[f"{bn}.running_var"].numpy()
+    scale = sd[f"{bn}.weight"].numpy() / np.sqrt(var + 1e-5)
+    if not np.array_equal(mod.blocks[0].conv.bn.scale.cpu().numpy(), scale.astype(np.float32)):
+        raise AssertionError("nemo archive: the folded BatchNorm scale differs")
+    stats = sum(v.numel() for k, v in sd.items() if k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    n_params = sum(p.numel() for p in mod.parameters())
+    if n_params != sum(v.numel() for v in sd.values()) - stats:
+        raise AssertionError(f"nemo archive: {n_params} parameters loaded")
+    return n_params
+
+
+def nemo_frames(cfg, n_samples):
+    from ssak_tpu_torch.models.conformer import mel_frame_count, subsampled_length
+
+    return subsampled_length(cfg, mel_frame_count(cfg, n_samples))
+
+
+def run_nemo_serving(torch, dev, kaldi_dir, ids, lens, mode, archive, cfg):
+    """python -m ssak_tpu_torch.infer.ctc_infer DIR ARCHIVE on the NeMo
+    Conformer-CTC Large archive: greedy, or the device beam (width 16, no
+    lexicon or LM: those read character vocabularies), through ctc_infer;
+    the encoder's frames per call against the port's packing, every kernel
+    counter at 0 (the Conformer's attention stays unfused, as in ssak_tpu)."""
+    from ssak_tpu_torch.infer.ctc_infer import ctc_infer
+
+    kw = dict(beam_width=NEMO_SERVE_BEAM) if mode == "beam" else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with EncoderCalls() as enc, BeamCalls(torch) as beams:
+        t0 = time.perf_counter()
+        it = ctc_infer(archive, kaldi_dir, output_ids=True, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        out = list(it)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = kernel_launches()
+    del it
+    tag = f"nemo serving {mode}"
+    if [i for i, _ in out] != ids:
+        raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
+    alphabet = set("".join(nemo_vocabulary())) - {"▁"} | {" "}
+    if not all(isinstance(t, str) and set(t) <= alphabet for _, t in out):
+        raise AssertionError(f"{tag}: transcripts outside the vocabulary: {out[:3]}")
+    want_frames = expected_encoder_frames(lens, lambda n: nemo_frames(cfg, n))
+    if enc.frames != want_frames:
+        raise AssertionError(f"{tag}: encoder calls at {enc.frames} frames, expected {want_frames}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected none")
+    beam = beams.summary()
+    if mode == "beam" and len(beam) != len(want_frames):
+        raise AssertionError(f"{tag}: {len(beam)} device-beam calls for {len(want_frames)} batches")
+    audio_s = sum(lens) / 16000.0
+    res = dict(config="nemo conformer-ctc large " + mode + (f" (width {NEMO_SERVE_BEAM})" if kw else ""),
+               files=len(ids), audio_s=audio_s, encoder_calls=len(enc.frames), encoder_frames=enc.frames,
+               load_s=t1 - t0, run_s=t2 - t1, audio_s_per_s=audio_s / (t2 - t1),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+               nonempty=sum(bool(t) for _, t in out), sample=out[-1][1][:80])
+    if beam:
+        res["device_beam"] = beam
+    log(f"slice {json.dumps(res)}")
+    return res
+
+
+def run_nemo_training(torch, dev, root, archive):
+    """python -m ssak_tpu_torch.train.cli TRAIN VALID --base_model ARCHIVE:
+    the NeMo Conformer-CTC Large archive fine-tuned in bf16 over f32 masters
+    (family conformer, the archive's vocabulary, text encoded character by
+    character), batch 16 at the 15 s bucket (1,501 mel frames, 376 encoder
+    frames), 6 steps, one eval, a checkpoint; then resume into a fresh
+    trainer, `sak-finalize` the run and load_model the export: the trainer's
+    log-probs on an eval batch. K1 launched once a step and once an eval
+    batch, V = 129 with the blank last; every other kernel 0."""
+    import contextlib
+    import io
+
+    from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
+    from ssak_tpu_torch.infer.general import LoadedModel, ModelType, compute_log_probas, load_model
+    from ssak_tpu_torch.train import cli, finalize
+    from ssak_tpu_torch.train import loop as LOOP
+
+    train_dir = write_ctc_corpus(os.path.join(root, "train"), NEMO_TRAIN_FILES, seed=1)
+    eval_dir = write_ctc_corpus(os.path.join(root, "eval"), NEMO_EVAL_FILES, seed=2)
+    _, eval_rows = kaldi_folder_to_manifest(eval_dir)
+    bucket = 15 * 16000
+    marks, audio_s, label_widths, metrics, trained = [], [], [], [], {}
+    make_step, batches_fn = LOOP.make_ctc_train_step, LOOP.CTCTrainer._batches
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(state, batch):
+            out = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            metrics.append(out[1])  # the CLI's trainer logs every 10th step; every step's loss is read here
+            trained["model"] = state["model"]
+            return out
+
+        return timed
+
+    def counted_batches(self, rows, shuffle_seed=None):
+        for item in batches_fn(self, rows, shuffle_seed=shuffle_seed):
+            audio_s.append(item[2])
+            label_widths.append(int(item[0]["labels"].shape[1]))
+            if item[0]["audio"].shape != (NEMO_BATCH, bucket):
+                raise AssertionError(f"nemo training: batch audio {tuple(item[0]['audio'].shape)}")
+            yield item
+
+    argv = [train_dir, eval_dir, "--base_model", archive, "--output_dir", os.path.join(root, "runs"),
+            "--batch_size", str(NEMO_BATCH), "--max_steps", str(NEMO_STEPS), "--eval_steps", "0", "--warmup_steps", "2",
+            "--learning_rate", "1e-4", "--language", "en"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LOOP.make_ctc_train_step, LOOP.CTCTrainer._batches = timed_make_step, counted_batches
+    stdout = io.StringIO()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        LOOP.make_ctc_train_step, LOOP.CTCTrainer._batches = make_step, batches_fn
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    run_dir = json.loads(stdout.getvalue().strip().splitlines()[-1])["run_dir"]
+    with open(os.path.join(run_dir, "trainer_state.json")) as f:
+        history = json.load(f)["log_history"]
+    with open(os.path.join(run_dir, "ssak_config.json")) as f:
+        saved = json.load(f)
+    steps = [{"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])} for m in metrics]
+    evals = [h for h in history if "eval_wer" in h]
+    eval_batches = -(-len(eval_rows) // NEMO_BATCH)
+    want = {k: 0 for k in launches}
+    want["ctc_fused"] = NEMO_STEPS + eval_batches
+    tag = "nemo conformer-ctc large training"
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counters {launches} != expected {want}")
+    if saved["model_type"] != "conformer_ctc" or saved["config"]["blank_id"] != NEMO_PIECES \
+            or saved["config"]["vocab_size"] != NEMO_PIECES + 1:
+        raise AssertionError(f"{tag}: run config {saved}")
+    if len(steps) != NEMO_STEPS or [h["step"] for h in history if "loss" in h] != [1] or len(evals) != 1:
+        raise AssertionError(f"{tag}: steps {steps}, history {history}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["loss"] > 0 for h in steps) \
+            or not math.isfinite(evals[0]["eval_loss"]):
+        raise AssertionError(f"{tag}: non-finite losses or grad norms {steps} {evals}")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]  # steps 2.. on the card's clock
+    base = load_model(archive, device=dev)
+    cfg, tok = base.cfg, base.tokenizer
+    resumed = LOOP.CTCTrainer(cfg, base.module, tok, run_dir, batch_size=NEMO_BATCH, family="conformer", device=dev)
+    if not resumed.resume() or resumed.state["step"] != NEMO_STEPS:
+        raise AssertionError(f"{tag}: resume gave step {resumed.state['step']}, want {NEMO_STEPS}")
+    if not all(torch.equal(a, b) for a, b in zip(trained["model"].parameters(), resumed.state["model"].parameters())):
+        raise AssertionError(f"{tag}: resumed parameters differ from the trained ones")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        finalize.main([run_dir])
+    final = out.getvalue().strip().splitlines()[-1]
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = load_model(final, device=dev)
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+    if m.type != ModelType.CONFORMER_CTC or m.cfg != cfg:
+        raise AssertionError(f"{tag}: finalized model {m.type} {m.cfg}")
+    batch = next(iter(resumed._batches(eval_rows)))[0]
+    want_lp, want_fl = compute_log_probas(LoadedModel(ModelType.CONFORMER_CTC, trained["model"], cfg, dev, tok),
+                                          batch["audio"], batch["audio_lengths"])
+    got_lp, got_fl = compute_log_probas(m, batch["audio"], batch["audio_lengths"])
+    err = float((got_lp - want_lp).abs().max())
+    if not (torch.equal(got_fl, want_fl) and err <= 1e-5):
+        raise AssertionError(f"{tag}: the export's log-probs off the trainer's by {err}")
+    frames = nemo_frames(cfg, bucket)
+    res = dict(config=tag, batch_size=NEMO_BATCH, bucket_s=15.0, mel_frames=bucket // 160 + 1, frames=frames,
+               steps=NEMO_STEPS, label_widths=sorted(set(label_widths)), step_ms=sum(step_ms) / len(step_ms),
+               step_ms_each=step_ms, train_audio_s_per_s=sum(audio_s[1:NEMO_STEPS]) / (sum(step_ms) / 1e3),
+               eval_wer=evals[0]["eval_wer"], eval_loss=evals[0]["eval_loss"],
+               losses=[h["loss"] for h in steps], grad_norms=[h["grad_norm"] for h in steps], run_s=run_s,
+               peak_mem_gib=peak, launches=launches, resumed_step=resumed.state["step"],
+               finalized=dict(export_s=export_s, load_s=reload_s, log_probs_max_abs_err=err,
+                              bytes=sum(os.path.getsize(os.path.join(final, f)) for f in os.listdir(final))))
+    log(f"slice {json.dumps(res)}")
+    del resumed, m, base, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_nemo(torch, dev, tmp, serving_corpus):
+    """Phase 3's Conformer runs on one NeMo Conformer-CTC Large archive
+    (seed 0, NEMO_LARGE, nemo_vocabulary): written, loaded back against what
+    was written, served (greedy over the CTC serving corpus, the device beam
+    over its files of one chunk) and fine-tuned through the train CLI."""
+    from ssak_tpu_torch.infer.general import load_model
+
+    archive = os.path.join(tmp, "stt_conformer_ctc_large.nemo")
+    sd, write_s, size = write_nemo_archive(archive, NEMO_LARGE, nemo_vocabulary())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = load_model(archive, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not (m.cfg.vocab_size == NEMO_PIECES + 1 and m.cfg.blank_id == NEMO_PIECES and m.cfg.num_layers == 18
+            and m.cfg.d_model == 512 and m.cfg.pos_type == "relpos" and m.tokenizer.word_delimiter == "▁"):
+        raise AssertionError(f"nemo archive: config {m.cfg}, delimiter {m.tokenizer.word_delimiter!r}")
+    n_params = check_nemo_load(torch, sd, m, NEMO_LARGE)
+    archive_res = dict(write_s=write_s, load_s=load_s, bytes=size, parameters=n_params)
+    log(f"nemo archive {json.dumps(archive_res)}")
+    cfg = m.cfg
+    del m, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    corpus, ids, lens = serving_corpus
+    out = {"nemo_archive": archive_res,
+           "nemo_serving_greedy": run_nemo_serving(torch, dev, corpus, ids, lens, "greedy", archive, cfg)}
+    n_beam = sum(n for n, _lo, hi in SERVE_GROUPS if hi <= 140.0)
+    out["nemo_serving_beam"] = run_nemo_serving(torch, dev, kaldi_subset(os.path.join(tmp, "nemo_beam"), corpus, n_beam),
+                                                ids[:n_beam], lens[:n_beam], "beam", archive, cfg)
+    out["nemo_training"] = run_nemo_training(torch, dev, os.path.join(tmp, "nemo_train"), archive)
+    return out
 
 
 # --- phase 4: the whole path, card against CPU -----------------------------------
@@ -2113,13 +2689,6 @@ def check_train_step_card_vs_cpu(torch, dev):
     loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card_m, cpu_m))
     gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card_m, cpu_m))
 
-    def leaves(t):
-        if isinstance(t, dict):
-            return [x for k in sorted(t) for x in leaves(t[k])]
-        if isinstance(t, list):
-            return [x for v in t for x in leaves(v)]
-        return [t]
-
     diffs = np.concatenate([np.abs(a - b).ravel() for a, b in zip(leaves(card_p), leaves(cpu_p))])
     moved = max(float(np.abs(a - b).max()) for a, b in zip(leaves(cpu_p), leaves(tree)))
     far = float((diffs > lr / 100).mean())
@@ -2198,6 +2767,102 @@ def check_long_train_step_card_vs_cpu(torch, dev):
     return res
 
 
+NEMO_PARITY = dict(NEMO_LARGE, n_layers=2)  # Large widths at 2 layers
+
+
+def check_nemo_card_vs_cpu(torch, dev, root):
+    """A NeMo archive at Large widths and 2 layers (write_nemo_archive, seed
+    3) loaded on the card and on the CPU, in f32: the log-probs of a 30 s row
+    (the 30 s bucket, 751 frames) and of a 140 s row (a 135 s file padded to
+    the 140 s bucket, 3,501 frames) must correlate >= 0.9999 over the valid
+    frames, with the same frame counts; max |err| logged."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer import ctc_infer as CI
+    from ssak_tpu_torch.infer.general import compute_log_probas, load_model
+
+    archive = os.path.join(root, "parity.nemo")
+    write_nemo_archive(archive, NEMO_PARITY, nemo_vocabulary(), seed=3)
+    models = {}
+    for where in ("cpu", dev):
+        m = load_model(archive, device=where)
+        m.cfg = dataclasses.replace(m.cfg, dtype="float32")
+        models[str(where)] = m
+    rng = np.random.RandomState(13)
+    res = {}
+    for secs in (30.0, 135.0):
+        audio = tones(rng, secs)
+        x = CI._padded([audio], CI._bucket_len(audio.size))
+        out = {}
+        for where, m in models.items():
+            lp, fl = compute_log_probas(m, x, [audio.size])
+            out[where] = (lp.float().cpu()[0, : int(fl[0])], int(fl[0]), lp.shape[1])
+        (a, fa, ta), (b, fb, tb) = out[str(dev)], out["cpu"]
+        corr = float(np.corrcoef(a.flatten().numpy(), b.flatten().numpy())[0, 1])
+        r = dict(frames=fa, padded_frames=ta, correlation=corr, max_abs_err=float((a - b).abs().max()),
+                 argmax_agreement=float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+        res[f"{secs:.0f}s"] = r
+        if not (fa == fb == nemo_frames(models["cpu"].cfg, audio.size) and ta == tb and corr >= 0.9999
+                and torch.isfinite(a).all()):
+            raise AssertionError(f"nemo card vs cpu, {secs} s row: {r} (frames cpu {fb}, padded {tb})")
+    log(f"nemo conformer card vs cpu (Large widths, 2 layers, f32): {json.dumps(res)}")
+    del models
+    gc.collect()
+    return res
+
+
+def check_nemo_train_step_card_vs_cpu(torch, dev, root):
+    """Two f32 Conformer train steps (family conformer) on the card and on the
+    CPU from the same archive (Large widths, 2 layers, seed 3): batch 4 x 4 s
+    with one batch-pad dummy row, labels in [0, 128) with the blank 128,
+    mask_time_prob 0. As for wav2vec2: the loss to 1e-4 relative, the grad
+    norm to 1e-3, every parameter within lr of the CPU's."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.models.convert import conformer_to_tree
+    from ssak_tpu_torch.train import steps as TS
+
+    lr = 1e-4
+    archive = os.path.join(root, "parity.nemo")
+    rng = np.random.RandomState(4)
+    n = 64000
+    lens = np.array([n, 50000, 40000, 1], np.int32)
+    audio = np.zeros((4, n), np.float32)
+    for i, m in enumerate(lens[:3]):
+        audio[i, :m] = tones(rng, m / 16000.0)
+    lab_len = np.array([50, 40, 30, 0], np.int32)
+    labels = rng.randint(0, NEMO_PIECES, (4, 64)).astype(np.int32)
+    labels[np.arange(64)[None, :] >= lab_len[:, None]] = 0
+    out = {}
+    for where in ("cpu", dev):
+        m = load_model(archive, device=where)
+        cfg = dataclasses.replace(m.cfg, dtype="float32")
+        batch = {k: torch.from_numpy(v.copy()).to(where) for k, v in
+                 dict(audio=audio, audio_lengths=lens, labels=labels, label_lengths=lab_len).items()}
+        opt = TS.make_optimizer(learning_rate=lr, warmup_steps=1, total_steps=10)
+        state = TS.init_train_state(m.module, opt)
+        step = TS.make_ctc_train_step(cfg, opt, mask_time_prob=0.0, family="conformer")
+        metrics = []
+        for _ in range(2):
+            state, mt = step(state, batch)
+            metrics.append((mt["loss"].item(), mt["grad_norm"].item()))
+        out[str(where)] = (metrics, conformer_to_tree(state["model"]))
+        del state, m
+    (cpu_m, cpu_p), (card_m, card_p) = out["cpu"], out[str(dev)]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card_m, cpu_m))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card_m, cpu_m))
+
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in zip(leaves(card_p), leaves(cpu_p))])
+    res = dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=float(diffs.max()),
+               param_median_abs=float(np.median(diffs)), param_share_beyond_lr_100=float((diffs > lr / 100).mean()),
+               card=card_m, cpu=cpu_m)
+    log(f"nemo conformer train step card vs cpu (Large widths, 2 layers, f32): {json.dumps(res)}")
+    if not (loss_rel <= 1e-4 and gn_rel <= 1e-3 and diffs.max() <= lr and all(math.isfinite(v) for v, _ in card_m)):
+        raise AssertionError(f"nemo conformer train step card vs cpu out of tolerance: {res}")
+    return res
+
+
 def main():
     try:
         import torch
@@ -2254,12 +2919,17 @@ def main():
     k3_rows, k3_err = check_matmul_int4(torch, dev)
     fd_rows = {v: check_flash_decode(torch, dev, v == "int8") for v in ("bf16", "int8")}
     k1_rows, k1_err = check_ctc_fused(torch, dev)
+    k1_conformer = check_ctc_fused_conformer(torch, dev)
+    k1_rows.append(k1_conformer)
+    k1_err = max(k1_err, k1_conformer["max_abs_err"])
     l1_rows, l1_err, l1_short, l1_training = check_flash_attention(torch, dev)
     bwd_rows, bwd_err, bwd_pairs = check_flash_attention_bwd(torch, dev)
 
     log("phase 3: large-v3 transcription from an HF directory (greedy bf16, int8, int4; int4 accurate; int4 "
         "long-form); wav2vec2-base CTC training, finalized and reloaded; wav2vec2-xlsr CTC serving from an HF directory "
-        "(greedy; device beam with lexicon and word LM); wav2vec2-xlsr CTC training at the 140 s bucket")
+        "(greedy; device beam with lexicon and word LM); NeMo Conformer-CTC Large from a .nemo archive (greedy and "
+        "device beam serving; fine-tuning through the train CLI, finalized and reloaded); wav2vec2-xlsr CTC training "
+        "at the 140 s bucket")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
@@ -2289,6 +2959,10 @@ def main():
         lexicon, arpa = write_lexicon_lm(tmp)
         slices["ctc_serving_beam"] = run_ctc_serving(torch, kaldi_subset(os.path.join(tmp, "beam"), corpus, n_beam),
                                                      ids[:n_beam], lens[:n_beam], "beam", model_dir, lexicon, arpa)
+        shutil.rmtree(model_dir)
+        nemo = run_nemo(torch, dev, tmp, (corpus, ids, lens))
+        dirs["nemo_conformer_ctc_large"] = nemo.pop("nemo_archive")
+        slices.update(nemo)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_long_")
@@ -2299,11 +2973,17 @@ def main():
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
         "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row; a bf16 train step at the 100 s "
-        "bucket)")
+        "bucket); NeMo Conformer-CTC Large widths at 2 layers, f32 (log-probs of a 30 s and a 140 s row; train steps)")
     corr = check_card_vs_cpu(torch, dev)
     train_parity = check_train_step_card_vs_cpu(torch, dev)
     serving_parity = check_ctc_serving_card_vs_cpu(torch, dev)
     long_step_parity = check_long_train_step_card_vs_cpu(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_nemo_")
+    try:
+        nemo_parity = check_nemo_card_vs_cpu(torch, dev, tmp)
+        nemo_step_parity = check_nemo_train_step_card_vs_cpu(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def head(rows, **shape):
         return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
@@ -2321,7 +3001,8 @@ def main():
          *fd_rows["int8"], dict(B=24, T=1500, range="0:1499"), slices["int8"]["launches"]["flash_decode_int8"]),
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
          k1_rows, k1_err, dict(V=32, T=749),
-         slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]),
+         slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]
+         + slices["nemo_training"]["launches"]["ctc_fused"]),
         ("flash_attention", "ssak_tpu_torch/csrc/flash_attention.cu", "ssak_tpu/models/layers.py:290",
          l1_rows, l1_err, dict(B=1, T=7001),
          slices["ctc_serving_greedy"]["launches"]["flash_attention"]
@@ -2343,6 +3024,7 @@ def main():
         ))
     log("summary " + json.dumps({"slices": slices, "model_dirs": dirs, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
                                  "ctc_serving_card_vs_cpu": serving_parity, "long_train_step_card_vs_cpu": long_step_parity,
+                                 "nemo_card_vs_cpu": nemo_parity, "nemo_train_step_card_vs_cpu": nemo_step_parity,
                                  "flash_attention_30s_bucket": l1_short, "flash_attention_training_launch": l1_training,
                                  "flash_attention_bwd_pairs": bwd_pairs}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,10 +4,11 @@ read from the model directory (counterpart of ssak_tpu.infer.cli).
     python -m ssak_tpu_torch.infer.cli DATA MODEL_DIR [options of the Whisper or CTC CLI] [--device cpu]
 
 An HF Whisper directory goes to infer.whisper_infer's CLI; an HF wav2vec2
-directory, an export of train.finalize (CTC or Whisper, by its
-ssak_config.json) or a NeMo archive goes to the CTC CLI or the Whisper
-one by its family (NeMo: ROADMAP.md slice 7). With --seeded_test_config
-(a test hook) the family is that of the seeded model.
+directory and a NeMo Conformer-CTC archive (.nemo, or its extracted
+directory with model_config.yaml) go to the CTC CLI; an export of
+train.finalize goes to the one of its family (its ssak_config.json's
+model_type). With --seeded_test_config (a test hook) the family is that
+of the seeded model.
 """
 
 import json

@@ -1,5 +1,5 @@
-"""wav2vec2-CTC inference over files and Kaldi folders, with long-audio
-chunking (counterpart of ssak_tpu.infer.ctc_infer).
+"""CTC inference (wav2vec2 or Conformer) over files and Kaldi folders, with
+long-audio chunking (counterpart of ssak_tpu.infer.ctc_infer).
 
 Inputs are padded to duration buckets (up to the 140 s chunk,
 MAX_CHUNK_SAMPLES); rows are packed under a samples budget
@@ -10,8 +10,10 @@ beam (optionally with a lexicon, and a word n-gram LM of order <= 3 fused
 on the device), or the host prefix beam (char/word LM without lexicon
 tables, and chunked files under an LM, a lexicon or a beam).
 
-At the 140 s bucket the encoder runs 7,001 frames, and its self-attention
-goes through the fused kernel L1 (models.layers._can_flash).
+At the 140 s bucket a wav2vec2 encoder runs 7,001 frames, and its
+self-attention goes through the fused kernel L1 (models.layers._can_flash);
+a Conformer's 3,501 frames stay on its unfused rel-pos attention, as in
+ssak_tpu.
 
 Not ported yet (ROADMAP.md): the host-beam process pool (`num_workers` > 1,
 decode/pool), tensor parallelism, quantized CTC models, the native C++ LM
@@ -369,10 +371,12 @@ def _pipelined(batches, submit, sample_rate, output_ids, log_memtime):
 def cli(argv=None):
     import argparse
 
-    parser = argparse.ArgumentParser(description="Transcribe audio with a wav2vec2-CTC model (PyTorch/CUDA port)")
+    parser = argparse.ArgumentParser(
+        description="Transcribe audio with a CTC model, wav2vec2 or Conformer (PyTorch/CUDA port)")
     parser.add_argument("data", help="audio file, Kaldi dir, or list file")
     parser.add_argument("model", help="model directory: an HF wav2vec2-CTC checkpoint (config.json, *.safetensors or "
-                                          "*.bin, vocab.json) or an export of train.finalize")
+                                          "*.bin, vocab.json), a NeMo Conformer-CTC archive (.nemo, or its extracted "
+                                          "directory) or an export of train.finalize")
     parser.add_argument("--output", default=None, help="output file (default stdout)")
     parser.add_argument("--batch_size", type=int, default=0,
                         help="0 (default) = auto: pack batches to ~960 audio-s of padded samples")

@@ -1,14 +1,16 @@
 """Model loading and the CTC forward for inference (counterpart of
 ssak_tpu.infer.general).
 
-Whisper and wav2vec2-CTC from a model directory, in ssak_tpu's order: an
-export of `train.finalize` (ssak_config.json), else an HF checkpoint
-(config.json: Whisper with its tokenizer, wav2vec2 with its vocab.json);
-MMS per-language adapters (`load_adapter`); seeded weights
-(`seeded_test_config`) or an ssak_tpu parameter tree (`from_tree`, used by
-the tests). NeMo archives (the Conformer family, slice 7), quantized CTC
-models (8b) and tensor-parallel sharding (8g) are later slices of
-ROADMAP.md and raise NotImplementedError.
+Whisper, wav2vec2-CTC and Conformer-CTC from a model directory, in
+ssak_tpu's order: an export of `train.finalize` (ssak_config.json), else a
+NeMo archive (.nemo, or a directory with model_config.yaml: a Conformer
+with the archive's vocabulary), else an HF checkpoint (config.json: Whisper
+with its tokenizer, wav2vec2 with its vocab.json); MMS per-language
+adapters (`load_adapter`); seeded weights (`seeded_test_config`, Whisper
+and wav2vec2, the families ssak_tpu seeds) or an ssak_tpu parameter tree
+(`from_tree`, used by the tests). Quantized CTC models (8b) and
+tensor-parallel sharding (8g) are later slices of ROADMAP.md and raise
+NotImplementedError.
 """
 
 import dataclasses
@@ -27,7 +29,7 @@ class ModelType:
     CONFORMER_CTC = "conformer_ctc"
 
 
-CTC_TYPES = (ModelType.WAV2VEC2_CTC,)
+CTC_TYPES = (ModelType.WAV2VEC2_CTC, ModelType.CONFORMER_CTC)
 
 # the seeded CTC models' 48-token character vocabulary (ssak_tpu's)
 _SEEDED_CTC_SPECIALS = ("<pad>", "<s>", "</s>", "<unk>", "|")
@@ -77,8 +79,9 @@ def get_model_type(model_dir: str) -> str:
 
 
 def load_model(model_dir, seeded_test_config: str = None, quantize_bits: int = 0, device=None) -> LoadedModel:
-    """A model directory (an HF Whisper or wav2vec2 checkpoint, or an export
-    of train.finalize), or a seeded model (`seeded_test_config`:
+    """A model directory (an HF Whisper or wav2vec2 checkpoint, a NeMo
+    Conformer-CTC archive or its extracted directory, or an export of
+    train.finalize), or a seeded model (`seeded_test_config`:
     'whisper[:preset]' or 'wav2vec2[:preset]'), on `device` (default cuda;
     raises when there is none). quantize_bits=8 or 4 replaces a Whisper
     model's dense kernels by int8 / int4 QuantLinears on the device and
@@ -106,10 +109,17 @@ def _load_dir(model_dir: str, device) -> LoadedModel:
         mtype, params, cfg, tokenizer = load_exported(model_dir)
         return _from_params(mtype, params, cfg, device, tokenizer)
     mtype = get_model_type(model_dir)
-    if mtype == ModelType.CONFORMER_CTC:
-        raise NotImplementedError(f"{model_dir}: NeMo Conformer-CTC checkpoints are not ported yet (ROADMAP.md slice 7)")
     from ssak_tpu_torch.models import hf_loader
     from ssak_tpu_torch.models.tokenizer import CTCTokenizer, WhisperTokenizer
+
+    if mtype == ModelType.CONFORMER_CTC:
+        params, cfg, vocabulary = hf_loader.load_nemo_conformer(model_dir)
+        # NeMo's blank is the LAST id and has no token; char vocabularies
+        # delimit words with a space, BPE ones mark word starts with '▁'
+        vocab = {tok: i for i, tok in enumerate(vocabulary)}
+        vocab.setdefault("<pad>", cfg.blank_id)
+        delim = "▁" if any(t.startswith("▁") for t in vocabulary) else " "
+        return _from_params(mtype, params, cfg, device, CTCTokenizer(vocab, word_delimiter=delim))
 
     if mtype == ModelType.WHISPER:
         params, cfg = hf_loader.load_whisper(model_dir)
@@ -133,9 +143,10 @@ def _with_tokenizer_ids(cfg, tok):
 
 
 def _from_params(mtype, params, cfg, device, tokenizer) -> LoadedModel:
-    from ssak_tpu_torch.models.convert import wav2vec2_from_tree, whisper_from_tree
+    from ssak_tpu_torch.models.convert import conformer_from_tree, wav2vec2_from_tree, whisper_from_tree
 
-    build = whisper_from_tree if mtype == ModelType.WHISPER else wav2vec2_from_tree
+    build = {ModelType.WHISPER: whisper_from_tree, ModelType.CONFORMER_CTC: conformer_from_tree}.get(mtype,
+                                                                                                     wav2vec2_from_tree)
     return LoadedModel(mtype, build(params, device), cfg, device, tokenizer)
 
 
@@ -154,7 +165,7 @@ def _seeded_model(kind: str, device) -> LoadedModel:
             module = whisper.init_params(gen, cfg, device)
         return LoadedModel(ModelType.WHISPER, module, cfg, device)
     if not family.startswith("wav2vec2"):
-        raise NotImplementedError(f"seeded {family!r} models are not ported yet (Whisper and wav2vec2 only)")
+        raise NotImplementedError(f"no seeded {family!r} model: ssak_tpu seeds Whisper and wav2vec2 only")
     from ssak_tpu_torch.models import wav2vec2
 
     cfg = wav2vec2.make_config(preset, vocab_size=48) if preset else wav2vec2.make_config("tiny_test")
@@ -176,13 +187,16 @@ def seeded_ctc_tokenizer(vocab_size: int):
 def from_tree(params, cfg, device=None, tokenizer=None) -> LoadedModel:
     """LoadedModel from an ssak_tpu parameter tree (numpy leaves) and its
     config, on `device` (default cuda; raises when there is none): a Whisper
-    tree (float, int8- or int4-quantized; models.whisper.WhisperConfig) or a
-    wav2vec2 tree (models.wav2vec2.Wav2Vec2Config, with the CTC `tokenizer`,
-    by default the seeded vocabulary)."""
+    tree (float, int8- or int4-quantized; models.whisper.WhisperConfig), a
+    wav2vec2 tree (models.wav2vec2.Wav2Vec2Config) or a Conformer tree
+    (models.conformer.ConformerConfig); a CTC model takes the `tokenizer`,
+    by default the seeded vocabulary."""
     dev = resolve_device(device)
-    if "feature_extractor" in params:
-        tok = tokenizer if tokenizer is not None else seeded_ctc_tokenizer(cfg.vocab_size)
-        return _from_params(ModelType.WAV2VEC2_CTC, params, cfg, dev, tok)
+    ctc = {"feature_extractor": ModelType.WAV2VEC2_CTC, "subsampling": ModelType.CONFORMER_CTC}
+    for key, mtype in ctc.items():
+        if key in params:
+            tok = tokenizer if tokenizer is not None else seeded_ctc_tokenizer(cfg.vocab_size)
+            return _from_params(mtype, params, cfg, dev, tok)
     return _from_params(ModelType.WHISPER, params, cfg, dev, tokenizer)
 
 
@@ -250,7 +264,11 @@ def compute_log_probas(model: LoadedModel, audio, lengths=None):
     if model.type not in CTC_TYPES:
         raise ValueError(f"compute_log_probas needs a CTC model, got {model.type}")
     from ssak_tpu_torch.audio.wire import SCALE, to_device_f32
-    from ssak_tpu_torch.models import wav2vec2
+
+    if model.type == ModelType.CONFORMER_CTC:
+        from ssak_tpu_torch.models import conformer as family
+    else:
+        from ssak_tpu_torch.models import wav2vec2 as family
 
     if isinstance(audio, np.ndarray):
         x = to_device_f32(audio, model.device)
@@ -262,7 +280,7 @@ def compute_log_probas(model: LoadedModel, audio, lengths=None):
     lengths = torch.as_tensor(np.asarray(lengths) if isinstance(lengths, (list, tuple)) else lengths,
                               device=model.device)
     with torch.no_grad():
-        return wav2vec2.ctc_log_probs(model.module, x, model.cfg, lengths)
+        return family.ctc_log_probs(model.module, x, model.cfg, lengths)
 
 
 def decode_log_probas(model: LoadedModel, log_probs, frame_lengths):

@@ -1,11 +1,14 @@
 """ssak_tpu parameter trees <-> the port's modules.
 
-Takes the JAX package's Whisper or wav2vec2 parameter tree with numpy (or
-array-like) leaves — as from `init_params`, `quantize_params` or a
-checkpoint — and builds a `WhisperModel` or `Wav2Vec2Model`; a wav2vec2
-model also goes back to such a tree (`wav2vec2_to_tree`), which is how
-training checkpoints keep ssak_tpu's layout. Dense kernels (in, out) become torch-layout
-(out, in) weights, conv kernels (K, Cin, Cout) become (Cout, Cin, K);
+Takes the JAX package's Whisper, wav2vec2 or Conformer parameter tree with
+numpy (or array-like) leaves — as from `init_params`, `quantize_params`, a
+checkpoint or a NeMo archive — and builds a `WhisperModel`,
+`Wav2Vec2Model` or `ConformerModel`; a CTC model also goes back to such a
+tree (`wav2vec2_to_tree`, `conformer_to_tree`, or `ctc_to_tree` for either),
+which is how training checkpoints keep ssak_tpu's layout. Dense kernels
+(in, out) become torch-layout (out, in) weights, conv kernels (K, Cin,
+Cout) become (Cout, Cin, K), 2-D conv kernels (KH, KW, Cin, Cout) become
+(Cout, Cin, KH, KW);
 quantized leaves, int8 {"q8", "scale"} and int4 {"q4", "scale"}, are
 carried as they are (QuantLinear keeps ssak_tpu's (in, out) layout).
 """
@@ -13,6 +16,7 @@ carried as they are (QuantLinear keeps ssak_tpu's (in, out) layout).
 import numpy as np
 import torch
 
+from ssak_tpu_torch.models import conformer as C
 from ssak_tpu_torch.models import layers as L
 from ssak_tpu_torch.models import wav2vec2 as W2V
 from ssak_tpu_torch.models import whisper as W
@@ -159,11 +163,92 @@ def wav2vec2_to_tree(model) -> dict:
     }
 
 
-def load_wav2vec2_tree_(model, params):
-    """Copy an ssak_tpu wav2vec2 tree into `model`'s parameters IN PLACE
-    (same structure required). Returns the model."""
-    src = dict(wav2vec2_from_tree(params, "cpu").named_parameters())
-    dst = dict(model.named_parameters())
+# --- conformer -------------------------------------------------------------------------
+
+
+def _mlp_from_tree(p, device) -> L.MLP:
+    return L.MLP(linear_from_tree(p["fc1"], device), linear_from_tree(p["fc2"], device))
+
+
+def _sub_conv_from_tree(p, device):
+    k = np.asarray(p["kernel"])
+    if k.ndim == 4:  # striding2d: HWIO -> OIHW
+        return C.Conv2d(_t(k.transpose(3, 2, 0, 1), device), _t(p["bias"], device))
+    return conv_from_tree(p, device)
+
+
+def conformer_from_tree(params, device="cpu") -> C.ConformerModel:
+    """ssak_tpu Conformer tree (`conformer.init_params` or
+    `hf_loader.load_nemo_conformer` layout) -> ConformerModel on `device`."""
+    sub = params["subsampling"]
+    blocks = []
+    for b in params["blocks"]:
+        a = b["attn"]
+        proj = {n: linear_from_tree(a[n], device) for n in ("out", "query", "key", "value")}
+        if "linear_pos" in a:
+            attn = C.RelPosAttention(**proj, linear_pos=linear_from_tree(a["linear_pos"], device),
+                                     pos_bias_u=_t(a["pos_bias_u"], device), pos_bias_v=_t(a["pos_bias_v"], device))
+        else:
+            attn = L.MultiHeadAttention(**proj)
+        c = b["conv"]
+        conv = C.ConvModule(linear_from_tree(c["pointwise1"], device), conv_from_tree(c["depthwise"], device),
+                            ln_from_tree(c["bn"], device), linear_from_tree(c["pointwise2"], device))
+        blocks.append(C.ConformerBlock(
+            ln_from_tree(b["ff1_ln"], device), _mlp_from_tree(b["ff1"], device), ln_from_tree(b["attn_ln"], device), attn,
+            ln_from_tree(b["conv_ln"], device), conv, ln_from_tree(b["ff2_ln"], device), _mlp_from_tree(b["ff2"], device),
+            ln_from_tree(b["final_ln"], device)))
+    subsampling = C.Subsampling(_sub_conv_from_tree(sub["conv1"], device), _sub_conv_from_tree(sub["conv2"], device),
+                                linear_from_tree(sub["proj"], device))
+    return C.ConformerModel(subsampling, blocks, linear_from_tree(params["lm_head"], device))
+
+
+def _sub_conv_to_tree(p):
+    if isinstance(p, C.Conv2d):
+        return {"kernel": _np(p.weight).transpose(2, 3, 1, 0).copy(), "bias": _np(p.bias)}
+    return _conv_to_tree(p)
+
+
+def conformer_to_tree(model) -> dict:
+    """ConformerModel -> ssak_tpu Conformer tree with f32 numpy leaves."""
+    blocks = []
+    for b in model.blocks:
+        a = b.attn
+        attn = {n: _linear_to_tree(getattr(a, n)) for n in ("query", "key", "value", "out")}
+        if isinstance(a, C.RelPosAttention):
+            attn.update(linear_pos=_linear_to_tree(a.linear_pos), pos_bias_u=_np(a.pos_bias_u),
+                        pos_bias_v=_np(a.pos_bias_v))
+        c = b.conv
+        blocks.append({
+            "ff1_ln": _ln_to_tree(b.ff1_ln),
+            "ff1": {"fc1": _linear_to_tree(b.ff1.fc1), "fc2": _linear_to_tree(b.ff1.fc2)},
+            "attn_ln": _ln_to_tree(b.attn_ln),
+            "attn": attn,
+            "conv_ln": _ln_to_tree(b.conv_ln),
+            "conv": {"pointwise1": _linear_to_tree(c.pointwise1), "depthwise": _conv_to_tree(c.depthwise),
+                     "bn": _ln_to_tree(c.bn), "pointwise2": _linear_to_tree(c.pointwise2)},
+            "ff2_ln": _ln_to_tree(b.ff2_ln),
+            "ff2": {"fc1": _linear_to_tree(b.ff2.fc1), "fc2": _linear_to_tree(b.ff2.fc2)},
+            "final_ln": _ln_to_tree(b.final_ln),
+        })
+    sub = model.subsampling
+    return {
+        "subsampling": {"conv1": _sub_conv_to_tree(sub.conv1), "conv2": _sub_conv_to_tree(sub.conv2),
+                        "proj": _linear_to_tree(sub.proj)},
+        "blocks": blocks,
+        "lm_head": _linear_to_tree(model.lm_head),
+    }
+
+
+# --- either CTC family ------------------------------------------------------------------
+
+
+def ctc_to_tree(model) -> dict:
+    """A Wav2Vec2Model or ConformerModel -> its ssak_tpu tree."""
+    return conformer_to_tree(model) if isinstance(model, C.ConformerModel) else wav2vec2_to_tree(model)
+
+
+def _copy_params_(model, src):
+    src, dst = dict(src.named_parameters()), dict(model.named_parameters())
     if src.keys() != dst.keys():
         raise ValueError(f"parameter tree does not match the model: {sorted(set(src) ^ set(dst))[:8]}")
     with torch.no_grad():
@@ -172,3 +257,20 @@ def load_wav2vec2_tree_(model, params):
                 raise ValueError(f"{name}: shape {tuple(src[name].shape)} in the tree, {tuple(p.shape)} in the model")
             p.copy_(src[name])
     return model
+
+
+def load_wav2vec2_tree_(model, params):
+    """Copy an ssak_tpu wav2vec2 tree into `model`'s parameters IN PLACE
+    (same structure required). Returns the model."""
+    return _copy_params_(model, wav2vec2_from_tree(params, "cpu"))
+
+
+def load_conformer_tree_(model, params):
+    """The same for a ConformerModel and an ssak_tpu Conformer tree."""
+    return _copy_params_(model, conformer_from_tree(params, "cpu"))
+
+
+def load_ctc_tree_(model, params):
+    """load_conformer_tree_ or load_wav2vec2_tree_, by the model's family."""
+    load = load_conformer_tree_ if isinstance(model, C.ConformerModel) else load_wav2vec2_tree_
+    return load(model, params)

@@ -17,7 +17,12 @@ checkpoint is not copied on the way in. The dtypes are those that
 `safetensors.numpy` reads; any other (BF16 included) is refused by name.
 *.bin files go through `torch.load(weights_only=True)`.
 
-NeMo archives (the Conformer half) come with ROADMAP.md slice 7.
+NeMo Conformer-CTC archives (`load_nemo_conformer`): a .nemo tar, or its
+extracted directory, holding model_config.yaml (read by the port's own
+`utils.yaml_reader`: the card host has no YAML package) and
+model_weights.ckpt (`torch.load(weights_only=True)`), mapped to ssak_tpu's
+Conformer tree with the same numpy arithmetic (BatchNorm folded to a
+per-channel affine, Conv2d kernels to HWIO).
 """
 
 import json
@@ -327,3 +332,142 @@ def load_wav2vec2(model_dir: str):
         params["lm_head"] = {"kernel": _t(sd["lm_head.weight"]), "bias": sd["lm_head.bias"]}
     logger.info(f"loaded wav2vec2 from {model_dir}: d={cfg.hidden_size}, layers={cfg.num_layers}, vocab={cfg.vocab_size}")
     return params, cfg
+
+
+# --- NeMo Conformer -------------------------------------------------------------------
+
+
+def _fold_bn(sd, pfx, eps=1e-5):
+    """Eval-mode BatchNorm1d -> per-channel affine {scale, bias}."""
+    w, b = sd[f"{pfx}.weight"], sd[f"{pfx}.bias"]
+    mean, var = sd[f"{pfx}.running_mean"], sd[f"{pfx}.running_var"]
+    scale = w / np.sqrt(var + eps)
+    return {"scale": scale.astype(np.float32), "bias": (b - mean * scale).astype(np.float32)}
+
+
+def _conv2d_t(x):  # torch Conv2d OIHW -> HWIO
+    return np.ascontiguousarray(np.transpose(x, (2, 3, 1, 0)))
+
+
+def nemo_conformer_config(model_cfg: dict):
+    """ConformerConfig of a NeMo EncDecCTCModel's model_config dict: rel-pos
+    attention, striding2d subsampling, folded BatchNorm, NeMo frontend,
+    and NeMo's blank as the LAST class (vocab_size = num_classes + 1)."""
+    from ssak_tpu_torch.models.conformer import ConformerConfig
+
+    enc = model_cfg["encoder"]
+    dec = model_cfg["decoder"]
+    num_classes = dec.get("num_classes", -1)
+    if num_classes in (None, -1):
+        num_classes = len(dec.get("vocabulary") or model_cfg.get("labels") or [])
+    return ConformerConfig(
+        n_mels=enc.get("feat_in", 80),
+        d_model=enc["d_model"],
+        num_layers=enc["n_layers"],
+        num_heads=enc.get("n_heads", 4),
+        ff_expansion=enc.get("ff_expansion_factor", 4),
+        conv_kernel=enc.get("conv_kernel_size", 31),
+        vocab_size=num_classes + 1,
+        blank_id=num_classes,
+        pos_type="relpos",
+        subsampling="striding2d",
+        conv_norm="affine",
+        xscale=bool(enc.get("xscaling", True)),
+        frontend="nemo",
+    )
+
+
+def _read_nemo_archive(path: str):
+    """(model_config dict, state dict of numpy arrays) of a .nemo tar or a
+    directory holding model_config.yaml and model_weights.ckpt."""
+    import io
+    import tarfile
+
+    import torch
+
+    from ssak_tpu_torch.utils.yaml_reader import safe_load
+
+    if os.path.isdir(path):
+        with open(os.path.join(path, "model_config.yaml"), "rb") as f:
+            cfg = safe_load(f.read())
+        sd = torch.load(os.path.join(path, "model_weights.ckpt"), map_location="cpu", weights_only=True)
+    else:
+        with tarfile.open(path) as tar:
+            names = tar.getnames()
+
+            def member(suffix):
+                for n in names:
+                    if n.endswith(suffix):
+                        return tar.extractfile(n).read()
+                raise FileNotFoundError(f"{suffix} not in {path}")
+
+            cfg = safe_load(member("model_config.yaml"))
+            sd = torch.load(io.BytesIO(member("model_weights.ckpt")), map_location="cpu", weights_only=True)
+    sd = {k: v.numpy() for k, v in sd.items() if hasattr(v, "numpy")}
+    return cfg, sd
+
+
+def load_nemo_conformer(path: str):
+    """(ssak_tpu Conformer tree with f32 numpy leaves, ConformerConfig,
+    vocabulary list) of a NeMo Conformer-CTC archive or extracted directory."""
+    model_cfg, sd = _read_nemo_archive(path)
+    cfg = nemo_conformer_config(model_cfg)
+
+    def lin(pfx, bias=True):
+        out = {"kernel": _t(sd[f"{pfx}.weight"])}
+        if bias:
+            out["bias"] = sd[f"{pfx}.bias"]
+        return out
+
+    def pointwise(pfx):  # Conv1d of kernel 1 -> dense
+        return {"kernel": _t(sd[f"{pfx}.weight"][:, :, 0]), "bias": sd[f"{pfx}.bias"]}
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"encoder.layers.{i}"
+        blocks.append({
+            "ff1_ln": _map_ln(sd, f"{p}.norm_feed_forward1"),
+            "ff1": {"fc1": lin(f"{p}.feed_forward1.linear1"), "fc2": lin(f"{p}.feed_forward1.linear2")},
+            "attn_ln": _map_ln(sd, f"{p}.norm_self_att"),
+            "attn": {
+                "query": lin(f"{p}.self_attn.linear_q"),
+                "key": lin(f"{p}.self_attn.linear_k"),
+                "value": lin(f"{p}.self_attn.linear_v"),
+                "out": lin(f"{p}.self_attn.linear_out"),
+                "linear_pos": lin(f"{p}.self_attn.linear_pos", bias=False),
+                "pos_bias_u": sd[f"{p}.self_attn.pos_bias_u"],
+                "pos_bias_v": sd[f"{p}.self_attn.pos_bias_v"],
+            },
+            "conv_ln": _map_ln(sd, f"{p}.norm_conv"),
+            "conv": {
+                "pointwise1": pointwise(f"{p}.conv.pointwise_conv1"),
+                "depthwise": {"kernel": _conv_t(sd[f"{p}.conv.depthwise_conv.weight"]),
+                              "bias": sd[f"{p}.conv.depthwise_conv.bias"]},
+                "bn": _fold_bn(sd, f"{p}.conv.batch_norm"),
+                "pointwise2": pointwise(f"{p}.conv.pointwise_conv2"),
+            },
+            "ff2_ln": _map_ln(sd, f"{p}.norm_feed_forward2"),
+            "ff2": {"fc1": lin(f"{p}.feed_forward2.linear1"), "fc2": lin(f"{p}.feed_forward2.linear2")},
+            "final_ln": _map_ln(sd, f"{p}.norm_out"),
+        })
+    params = {
+        "subsampling": {
+            "conv1": {"kernel": _conv2d_t(sd["encoder.pre_encode.conv.0.weight"]), "bias": sd["encoder.pre_encode.conv.0.bias"]},
+            "conv2": {"kernel": _conv2d_t(sd["encoder.pre_encode.conv.2.weight"]), "bias": sd["encoder.pre_encode.conv.2.bias"]},
+            "proj": lin("encoder.pre_encode.out"),
+        },
+        "blocks": blocks,
+        "lm_head": pointwise("decoder.decoder_layers.0"),
+    }
+    params = _tree_map(lambda x: np.asarray(x, np.float32), params)
+    vocab = model_cfg.get("decoder", {}).get("vocabulary") or model_cfg.get("labels") or []
+    logger.info(f"loaded NeMo conformer from {path}: d={cfg.d_model}, layers={cfg.num_layers}, vocab={cfg.vocab_size}")
+    return params, cfg, list(vocab)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)

@@ -1,5 +1,6 @@
 """Shared layers in PyTorch (counterpart of ssak_tpu.models.layers): the
-subset on the Whisper serving and wav2vec2-CTC training and serving paths.
+subset on the Whisper serving and the wav2vec2- and Conformer-CTC training
+and serving paths.
 
 Parameters live in small `nn.Module`s (Linear, QuantLinear, LayerNorm,
 Conv1d, MultiHeadAttention, MLP); the layer math is plain functions on
@@ -398,8 +399,8 @@ def fuse_qkv_params(attn):
     return attn
 
 
-def mlp(x, p, dtype=torch.bfloat16):
-    return dense(gelu(dense(x, p.fc1, dtype)), p.fc2, dtype)
+def mlp(x, p, dtype=torch.bfloat16, activation=gelu):
+    return dense(activation(dense(x, p.fc1, dtype)), p.fc2, dtype)
 
 
 def conv1d(x, p, stride: int = 1, padding=(0, 0), groups: int = 1, dtype=torch.bfloat16):

@@ -1,9 +1,13 @@
-"""Whisper log-mel spectrogram in PyTorch (counterpart of ssak_tpu.ops.logmel).
+"""Log-mel spectrograms in PyTorch (counterpart of ssak_tpu.ops.logmel).
 
-Same numerics as the JAX package: framing with reflect padding, the
-windowed DFT as one matmul against precomputed cos/sin matrices (hann
-pre-applied), magnitude², slaney mel filterbank, log10 with a 1e-10 floor,
-clamp to (max - 8), (x + 4) / 4, and the final frame dropped.
+Same numerics as the JAX package, the windowed DFT as one matmul against
+precomputed cos/sin matrices (hann pre-applied) in both frontends:
+- Whisper: reflect padding, magnitude², slaney mel filterbank, log10 with a
+  1e-10 floor, clamp to (max - 8), (x + 4) / 4, the final frame dropped;
+- NeMo (`nemo_log_mel_spectrogram`, the features of NeMo Conformer
+  checkpoints): pre-emphasis 0.97, a 400-sample window padded to n_fft 512,
+  natural log with a 2^-24 guard, per-feature normalisation over the valid
+  frames, the final frame kept.
 """
 
 import functools
@@ -25,12 +29,18 @@ def hann_window(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=4)
-def dft_matrices(n_fft: int = N_FFT):
-    """Real/imag DFT matrices (n_fft, n_fft//2+1) with hann pre-applied."""
+def dft_matrices(n_fft: int = N_FFT, win_length: int = None):
+    """Real/imag DFT matrices (n_fft, n_fft//2+1) with hann pre-applied.
+    win_length < n_fft pads the window symmetrically (torch.stft layout)."""
     k = np.arange(n_fft)[:, None]
     f = np.arange(n_fft // 2 + 1)[None, :]
     ang = -2.0 * np.pi * k * f / n_fft
-    w = hann_window(n_fft)[:, None]
+    win_length = win_length or n_fft
+    w = hann_window(win_length)
+    if win_length < n_fft:
+        lo = (n_fft - win_length) // 2
+        w = np.pad(w, (lo, n_fft - win_length - lo))
+    w = w[:, None]
     return (np.cos(ang) * w).astype(np.float32), (np.sin(ang) * w).astype(np.float32)
 
 
@@ -88,6 +98,46 @@ def log_mel_spectrogram(audio, n_mels: int = N_MELS):
     log_spec = torch.maximum(log_spec, maxval - 8.0)
     out = ((log_spec + 4.0) / 4.0).transpose(-2, -1)
     return out.reshape(*lead, n_mels, out.shape[-1])
+
+
+def nemo_log_mel_spectrogram(audio, n_mels: int = 80, sample_lengths=None):
+    """NeMo AudioToMelSpectrogramPreprocessor features: audio (B, T) f32 at
+    16 kHz -> ((B, n_mels, F) f32, frame_lengths (B,) int32) on the same
+    device, F = T // 160 + 1. Samples past each length are zeroed before
+    the pre-emphasis; mean and unbiased std per mel bin over the valid
+    frames, (x - mean) / (std + 1e-5), pad frames zeroed."""
+    import torch
+    import torch.nn.functional as F
+
+    n_fft, win, hop = 512, 400, 160
+    x = audio.to(torch.float32)
+    dev = x.device
+    if sample_lengths is None:
+        sample_lengths = torch.full((x.shape[0],), x.shape[-1], dtype=torch.int32, device=dev)
+    sample_lengths = torch.as_tensor(sample_lengths, device=dev)
+    valid = torch.arange(x.shape[-1], device=dev)[None, :] < sample_lengths[:, None]
+    x = torch.where(valid, x, 0.0)
+    x = torch.cat([x[..., :1], x[..., 1:] - 0.97 * x[..., :-1]], dim=-1)
+
+    cos_m, sin_m = dft_matrices(n_fft, win)
+    pad = n_fft // 2
+    xp = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]  # reflect needs the (B, C, T) view
+    frames = xp.unfold(-1, n_fft, hop)  # (B, F, n_fft), F = T // hop + 1
+    n_frames = frames.shape[1]
+    re = torch.matmul(frames, torch.from_numpy(cos_m).to(dev))
+    im = torch.matmul(frames, torch.from_numpy(sin_m).to(dev))
+    power = re**2 + im**2
+    mel = torch.matmul(power, torch.from_numpy(mel_filterbank(n_mels, n_fft)).to(dev).T)
+    log_mel = torch.log(mel + 2.0**-24)  # (B, F, n_mels)
+
+    frame_lengths = torch.clamp(sample_lengths // hop + 1, max=n_frames).to(torch.int32)
+    fmask = (torch.arange(n_frames, device=dev)[None, :] < frame_lengths[:, None])[..., None]
+    n = torch.clamp(frame_lengths, min=1).to(torch.float32)[:, None, None]
+    mean = torch.where(fmask, log_mel, 0.0).sum(dim=-2, keepdim=True) / n
+    var = torch.where(fmask, (log_mel - mean) ** 2, 0.0).sum(dim=-2, keepdim=True) / torch.clamp(n - 1, min=1.0)
+    out = (log_mel - mean) / (torch.sqrt(var) + 1e-5)
+    out = torch.where(fmask, out, 0.0)
+    return out.transpose(-2, -1), frame_lengths  # (B, n_mels, F)
 
 
 def pad_or_trim(audio, length: int = N_SAMPLES, axis: int = -1):

@@ -5,8 +5,8 @@ flattened to '/'-joined keys, with '__len__' / '__tuple__' / '__none__'
 markers for sequences and None) and metadata.json ({"step", ...}).
 Rotation keeps the newest `limit` checkpoints plus any kept one (the best).
 
-The port writes `params` as ssak_tpu's wav2vec2 tree (dense kernels
-(in, out), conv kernels (K, Cin, Cout)) and `step` under the same keys, so
+The port writes `params` as ssak_tpu's wav2vec2 or Conformer tree (dense
+kernels (in, out), conv kernels (K, Cin, Cout)) and `step` under the same keys, so
 either package reads the other's params and step. Its optimizer state goes
 under `opt_state` in the port's own layout (tensors keyed by parameter
 name), marked in the metadata; it round-trips through the port only.
@@ -86,9 +86,9 @@ def opt_state_from_numpy(tree, device):
 def state_to_tree(state) -> dict:
     """Port train state {"model", "opt_state", "step"} -> the numpy tree a
     checkpoint stores."""
-    from ssak_tpu_torch.models.convert import wav2vec2_to_tree
+    from ssak_tpu_torch.models.convert import ctc_to_tree
 
-    return {"params": wav2vec2_to_tree(state["model"]), "opt_state": _to_numpy(state["opt_state"]),
+    return {"params": ctc_to_tree(state["model"]), "opt_state": _to_numpy(state["opt_state"]),
             "step": np.asarray(int(state["step"]), np.int32)}
 
 

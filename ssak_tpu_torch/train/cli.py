@@ -1,5 +1,5 @@
-"""`sak-train` for the port: wav2vec2-CTC fine-tuning on Kaldi data
-(counterpart of ssak_tpu.train.cli).
+"""`sak-train` for the port: CTC fine-tuning on Kaldi data, wav2vec2 or
+Conformer (counterpart of ssak_tpu.train.cli).
 
     python -m ssak_tpu_torch.train.cli TRAIN_DIR VALID_DIR --output_dir runs [--device cpu]
 
@@ -7,14 +7,16 @@ Kaldi dirs (or list files of "<dir> [weight]") in; a run dir named from a
 hash of the arguments; README + source snapshot + vocab.json +
 ssak_config.json for provenance; resume from the last checkpoint. With
 --base_model DIR the model is an HF wav2vec2 checkpoint with its own
-vocab.json (a checkpoint without a CTC head gets a fresh seeded one);
+vocab.json (a checkpoint without a CTC head gets a fresh seeded one), or a
+NeMo Conformer-CTC archive (.nemo, or its extracted directory) with the
+archive's own vocabulary (family conformer, model_type conformer_ctc; the
+training text is encoded character by character, as ssak_tpu does);
 without it, the seeded tiny_test wav2vec2 with a character vocabulary
 built from the training text. Runs on cuda unless --device cpu. Export a
 run with `python -m ssak_tpu_torch.train.finalize RUN_DIR`.
 
 Not ported yet, refused at start: --config / --set (YAML configs, ROADMAP.md
-slice 8e), a NeMo --base_model (slice 7), --data_augment (slice 8f) and
---use_manifest_cache (8e).
+slice 8e), --data_augment (slice 8f) and --use_manifest_cache (8e).
 """
 
 import argparse
@@ -25,13 +27,14 @@ import sys
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description="Fine-tune a wav2vec2-CTC model on Kaldi data (PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(description="Fine-tune a CTC model (wav2vec2 or Conformer) on Kaldi data (PyTorch/CUDA port)")
     p.add_argument("train", help="Kaldi dir or weighted list file")
     p.add_argument("valid", help="Kaldi dir or list file")
     p.add_argument("--config", default=None, help="YAML config file (not ported yet)")
     p.add_argument("--set", dest="overrides", action="append", default=[], help="config override a.b=value (not ported yet)")
     p.add_argument("--mask_time_prob", type=float, default=0.05, help="on-device span-mask probability")
-    p.add_argument("--base_model", default=None, help="HF wav2vec2 checkpoint dir (omit for a seeded tiny model)")
+    p.add_argument("--base_model", default=None,
+                   help="HF wav2vec2 checkpoint dir or NeMo Conformer-CTC archive (omit for a seeded tiny model)")
     p.add_argument("--output_dir", default="runs")
     p.add_argument("--language", default="fr")
     p.add_argument("--batch_size", type=int, default=8)
@@ -76,9 +79,6 @@ def args_to_run_name(args) -> str:
 def _refuse_unported(args):
     if args.config or args.overrides:
         raise NotImplementedError("--config / --set (YAML configs) are not ported yet (ROADMAP.md slice 8e)")
-    if args.base_model and (args.base_model.endswith(".nemo")
-                            or os.path.exists(os.path.join(args.base_model, "model_config.yaml"))):
-        raise NotImplementedError("a NeMo --base_model (Conformer-CTC) is not ported yet (ROADMAP.md slice 7)")
     if args.data_augment:
         raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 8f)")
     if args.use_manifest_cache:
@@ -136,7 +136,16 @@ def main(argv=None):
     meta_va, valid_rows = kaldi_folder_to_manifest(args.valid, max_duration=args.max_duration, seed=args.seed)
     logger.info(f"train: {meta_tr} valid: {meta_va}")
 
-    if args.base_model:
+    family, model_type = "wav2vec2", "wav2vec2_ctc"
+    if args.base_model and (args.base_model.endswith(".nemo")
+                            or os.path.exists(os.path.join(args.base_model, "model_config.yaml"))):
+        # a pretrained NeMo Conformer, its own vocabulary kept (a same-language fine-tune)
+        from ssak_tpu_torch.infer.general import load_model
+
+        m = load_model(args.base_model, device=device)
+        model, cfg, tokenizer = m.module, m.cfg, m.tokenizer
+        family, model_type = "conformer", "conformer_ctc"
+    elif args.base_model:
         model, cfg, tokenizer = base_model(args.base_model, args.seed, device)
     else:
         tokenizer = CTCTokenizer.from_corpus([norm(r["text"] or "") for r in train_rows])
@@ -149,7 +158,7 @@ def main(argv=None):
     save_source_dir(run_dir)
     tokenizer.save(os.path.join(run_dir, "vocab.json"))
     with open(os.path.join(run_dir, "ssak_config.json"), "w") as f:
-        json.dump({"model_type": "wav2vec2_ctc", "config": dataclasses.asdict(cfg)}, f, indent=1)
+        json.dump({"model_type": model_type, "config": dataclasses.asdict(cfg)}, f, indent=1)
 
     trainer = CTCTrainer(
         cfg, model, tokenizer, run_dir,
@@ -159,7 +168,7 @@ def main(argv=None):
         save_total_limit=args.save_total_limit, early_stopping_patience=args.early_stopping,
         freeze_feature_encoder=args.freeze, mask_time_prob=args.mask_time_prob, seed=args.seed,
         normalize_text=norm, optimizer=args.optimizer, schedule=args.schedule, head_lr=args.head_lr,
-        grad_accum=args.grad_accum, device=device,
+        grad_accum=args.grad_accum, family=family, device=device,
     )
     if args.resume:
         trainer.resume()

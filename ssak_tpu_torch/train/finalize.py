@@ -9,10 +9,9 @@ The export is ssak_tpu's format, so either package reads the other's:
     weights.npz        the parameter tree, flattened (train.checkpoint._flatten)
     vocab.json         the CTC tokenizer's vocabulary (CTC models)
 A Whisper config written by ssak_tpu carries `remat`, a training switch
-that the port's WhisperConfig lacks: it is dropped on load. Conformer
-exports come with ROADMAP.md slice 7. The export runs on the host; like
-every entry point of the port, `main` asks for the card unless --device
-cpu is given, and raises without one.
+that the port's WhisperConfig lacks: it is dropped on load. The export
+runs on the host; like every entry point of the port, `main` asks for the
+card unless --device cpu is given, and raises without one.
 """
 
 import argparse
@@ -43,7 +42,9 @@ def _config_from_meta(mtype: str, conf: dict):
 
         return Wav2Vec2Config(**{k: tuple(v) if isinstance(v, list) else v for k, v in conf.items()})
     if mtype == "conformer_ctc":
-        raise NotImplementedError("Conformer-CTC exports are not ported yet (ROADMAP.md slice 7)")
+        from ssak_tpu_torch.models.conformer import ConformerConfig
+
+        return ConformerConfig(**conf)
     from ssak_tpu_torch.models.whisper import WhisperConfig
 
     return WhisperConfig(**{k: v for k, v in conf.items() if k != "remat"})

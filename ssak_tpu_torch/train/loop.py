@@ -10,8 +10,9 @@ lives on the host, and nothing is read back from the card between log
 points.
 
 Runs on `device` (default cuda, via resolve_device; raises without a card
-unless device="cpu"). Not ported here: waveform augmentation (`augmenter`,
-ROADMAP.md slice 8) and the conformer family (slice 7), which raise.
+unless device="cpu"). Families: wav2vec2 and conformer (`family`, as in
+ssak_tpu). Not ported here: waveform augmentation (`augmenter`, ROADMAP.md
+slice 8), which raises.
 """
 
 import json
@@ -78,7 +79,8 @@ class CTCTrainer:
         family: str = "wav2vec2",
         device=None,
     ):
-        """model: a Wav2Vec2Model (moved to `device`)."""
+        """model: a Wav2Vec2Model, or a ConformerModel with family="conformer"
+        (moved to `device`)."""
         if augmenter is not None:
             raise NotImplementedError("waveform augmentation is not ported yet (ROADMAP.md slice 8)")
         self.device = resolve_device(device)
@@ -191,13 +193,13 @@ class CTCTrainer:
     def resume(self):
         """Load the last checkpoint of output_dir: params and step always
         (an ssak_tpu checkpoint too), the optimizer state when the port wrote it."""
-        from ssak_tpu_torch.models.convert import load_wav2vec2_tree_
+        from ssak_tpu_torch.models.convert import load_ctc_tree_
 
         last = get_last_checkpoint(self.output_dir)
         if last is None:
             return False
         tree, meta = load_checkpoint(last)
-        load_wav2vec2_tree_(self.state["model"], tree["params"])
+        load_ctc_tree_(self.state["model"], tree["params"])
         self.state["step"] = int(np.asarray(tree["step"]))
         if meta.get("opt_state_format") == OPT_STATE_FORMAT:
             self.state["opt_state"] = opt_state_from_numpy(tree["opt_state"], self.device)

@@ -1,12 +1,17 @@
-"""Where the time goes in the port's wav2vec2-CTC train step, on one CUDA card.
+"""Where the time goes in the port's CTC train step, on one CUDA card.
 
     python3 -m ssak_tpu_torch.train.profile [--preset base] [--batch 32] [--seconds 15] [--labels 256] [--tf32]
 
-A seeded model (bf16 compute over f32 master weights, frozen feature
-encoder, mask_time_prob 0.05) and one random batch of int16 audio and
-labels, as CTCTrainer feeds it; two warm-up steps, then
-  - phase times with CUDA events (mean of 3): the frozen conv stack alone,
-    the whole forward to log-probs, the CTC loss (kernel K1), the backward,
+--preset names a wav2vec2 preset (base, large, xlsr) or `conformer_large`:
+NeMo Conformer-CTC Large at the widths of an stt_en_conformer_ctc_large
+archive (models.hf_loader.nemo_conformer_config: 18 layers of d_model 512,
+8 heads, rel-pos attention, striding2d subsampling, 128 pieces + the blank
+last). A seeded model (bf16 compute over f32 master weights, mask_time_prob
+0.05; wav2vec2's feature encoder frozen) and one random batch of int16
+audio and labels, as CTCTrainer feeds it; two warm-up steps, then
+  - phase times with CUDA events (mean of 3): the frozen conv stack alone
+    (wav2vec2) or the log-mel frontend and the Conv2d subsampling
+    (Conformer), the whole forward to log-probs, the CTC loss (kernel K1), the backward,
     the optimizer (global norm, clip, AdamW, in-place update), and the whole
     train step (steps.make_ctc_train_step) with its host enqueue time;
   - one train step under torch.profiler: device busy share, time the host
@@ -76,23 +81,46 @@ def _trace(torch, fn):
             "top_kernels": [{"name": k[:90], "ms": ms, "count": c} for ms, c, k in rows[:15]]}
 
 
-def profile(torch, preset, batch, seconds, n_labels):
+# stt_en_conformer_ctc_large's model_config.yaml, the part nemo_conformer_config reads
+CONFORMER_LARGE = {"encoder": {"feat_in": 80, "n_layers": 18, "d_model": 512, "n_heads": 8, "ff_expansion_factor": 4,
+                               "conv_kernel_size": 31, "xscaling": True},
+                   "decoder": {"num_classes": 128}}
+
+
+def _model(preset, dev):
+    """(family, config, seeded model on `dev`) of a --preset."""
+    if preset == "conformer_large":
+        from ssak_tpu_torch.models import conformer
+        from ssak_tpu_torch.models.hf_loader import nemo_conformer_config
+
+        cfg = nemo_conformer_config(CONFORMER_LARGE)
+        return "conformer", cfg, conformer.init_params(cfg, seed=0, device=dev)
     from ssak_tpu_torch.models import wav2vec2
+
+    cfg = wav2vec2.make_config(preset)
+    return "wav2vec2", cfg, wav2vec2.init_params(cfg, seed=0, device=dev)
+
+
+def profile(torch, preset, batch, seconds, n_labels):
+    from ssak_tpu_torch.models import conformer, wav2vec2
     from ssak_tpu_torch.ops.ctc_fused import ctc_loss_fast
+    from ssak_tpu_torch.ops.logmel import nemo_log_mel_spectrogram
     from ssak_tpu_torch.train import optim
     from ssak_tpu_torch.train import steps as TS
 
     dev = torch.device("cuda", 0)
-    cfg = wav2vec2.make_config(preset)
-    model = wav2vec2.init_params(cfg, seed=0, device=dev)
+    family, cfg, model = _model(preset, dev)
+    is_conformer = family == "conformer"
     opt = TS.make_optimizer(learning_rate=1e-4, warmup_steps=2, total_steps=100)
     state = TS.init_train_state(model, opt)
-    step = TS.make_ctc_train_step(cfg, opt, mask_time_prob=0.05)
+    step = TS.make_ctc_train_step(cfg, opt, mask_time_prob=0.05, family=family)
     g = torch.Generator(device=dev).manual_seed(0)
     n = int(seconds * 16000)
+    # labels avoid the blank: 0 for wav2vec2, the last class for the Conformer
+    lo, hi = (0, cfg.blank_id) if is_conformer else (1, cfg.vocab_size)
     b = {"audio": (torch.randn(batch, n, generator=g, device=dev) * 3000).to(torch.int16),
          "audio_lengths": torch.randint(int(0.7 * n), n + 1, (batch,), generator=g, device=dev, dtype=torch.int32),
-         "labels": torch.randint(1, cfg.vocab_size, (batch, n_labels), generator=g, device=dev, dtype=torch.int32),
+         "labels": torch.randint(lo, hi, (batch, n_labels), generator=g, device=dev, dtype=torch.int32),
          "label_lengths": torch.randint(int(0.55 * n_labels), int(0.82 * n_labels) + 1, (batch,), generator=g, device=dev,
                                         dtype=torch.int32)}
     for _ in range(2):
@@ -100,15 +128,15 @@ def profile(torch, preset, batch, seconds, n_labels):
     torch.cuda.synchronize()
     audio = TS.audio_to_f32(b["audio"])
     params = dict(model.named_parameters())
-    res = {"preset": preset, "batch": batch, "seconds": seconds, "frames": wav2vec2.feature_extract_output_length(cfg, n),
+    frames = (conformer.subsampled_length(cfg, conformer.mel_frame_count(cfg, n)) if is_conformer
+              else wav2vec2.feature_extract_output_length(cfg, n))
+    res = {"preset": preset, "family": family, "batch": batch, "seconds": seconds, "frames": frames,
            "labels": n_labels, "card": torch.cuda.get_device_name(0),
            "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}
 
-    def conv_stack():
-        with torch.no_grad():
-            wav2vec2.feature_extractor(model, audio, cfg)
-
     def forward():
+        if is_conformer:
+            return conformer.ctc_log_probs(model, audio, cfg, b["audio_lengths"])
         return wav2vec2.ctc_log_probs(model, audio, cfg, b["audio_lengths"], freeze_feature_encoder=True)
 
     with torch.no_grad():  # no autograd graph kept alive beside the timed steps
@@ -116,13 +144,13 @@ def profile(torch, preset, batch, seconds, n_labels):
     lp_leaf = lp.requires_grad_(True)
 
     def loss():
-        return ctc_loss_fast(lp_leaf, fl, b["labels"], b["label_lengths"])
+        return ctc_loss_fast(lp_leaf, fl, b["labels"], b["label_lengths"], blank_id=cfg.blank_id)
 
     def backward():
         for p in params.values():
             p.grad = None
         lp2, fl2 = forward()
-        ctc_loss_fast(lp2, fl2, b["labels"], b["label_lengths"]).backward()
+        ctc_loss_fast(lp2, fl2, b["labels"], b["label_lengths"], blank_id=cfg.blank_id).backward()
 
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)) for k, p in params.items()}
     opt_state = state["opt_state"]
@@ -134,16 +162,33 @@ def profile(torch, preset, batch, seconds, n_labels):
 
     from ssak_tpu_torch.models import layers as L
 
-    k = cfg.num_conv_pos_embeddings
-    x_pos = torch.randn(batch, res["frames"], cfg.hidden_size, generator=g, device=dev).to(cfg.compute_dtype).requires_grad_(True)
+    if is_conformer:
+        mel = nemo_log_mel_spectrogram(audio, n_mels=cfg.n_mels, sample_lengths=b["audio_lengths"])[0]
 
-    def pos_conv():
-        y = L.conv1d(x_pos, model.encoder.pos_conv, padding=(k // 2, k // 2), groups=cfg.num_conv_pos_embedding_groups,
-                     dtype=cfg.compute_dtype)
-        y.float().sum().backward()
+        def frontend():
+            nemo_log_mel_spectrogram(audio, n_mels=cfg.n_mels, sample_lengths=b["audio_lengths"])
 
-    res["conv_stack_ms"], _ = _mean_events(torch, conv_stack)
-    res["pos_conv_fwd_bwd_ms"], _ = _mean_events(torch, pos_conv)
+        def subsampling():
+            with torch.no_grad():
+                conformer.subsample(model, mel, cfg)
+
+        res["frontend_ms"], _ = _mean_events(torch, frontend)
+        res["subsampling_ms"], _ = _mean_events(torch, subsampling)
+    else:
+        k = cfg.num_conv_pos_embeddings
+        x_pos = torch.randn(batch, frames, cfg.hidden_size, generator=g, device=dev).to(cfg.compute_dtype).requires_grad_(True)
+
+        def conv_stack():
+            with torch.no_grad():
+                wav2vec2.feature_extractor(model, audio, cfg)
+
+        def pos_conv():
+            y = L.conv1d(x_pos, model.encoder.pos_conv, padding=(k // 2, k // 2), groups=cfg.num_conv_pos_embedding_groups,
+                         dtype=cfg.compute_dtype)
+            y.float().sum().backward()
+
+        res["conv_stack_ms"], _ = _mean_events(torch, conv_stack)
+        res["pos_conv_fwd_bwd_ms"], _ = _mean_events(torch, pos_conv)
     res["forward_ms"], res["forward_enqueue_ms"] = _mean_events(torch, forward)
     res["ctc_loss_ms"], _ = _mean_events(torch, loss)
     fwd_bwd_ms, _ = _mean_events(torch, backward)
@@ -175,7 +220,7 @@ def _synchronizing_calls(torch, fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="base")
+    ap.add_argument("--preset", default="base", help="wav2vec2 preset (base, large, xlsr) or conformer_large")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seconds", type=float, default=15.0)
     ap.add_argument("--labels", type=int, default=256)

@@ -1,7 +1,8 @@
 """CTC train and eval steps (counterpart of the CTC half of ssak_tpu.train.steps).
 
-A step runs eagerly: wav2vec2 forward in the config's compute dtype (bf16
-products over f32 master weights), log_softmax in f32, the CTC loss through
+A step runs eagerly: the wav2vec2 or Conformer forward (`family`) in the
+config's compute dtype (bf16 products over f32 master weights), log_softmax
+in f32, the CTC loss through
 the fused forward-backward (ops.ctc_fused: kernel K1 on CUDA, its plain
 version on the CPU), autograd for the rest, then the optimizer update IN
 PLACE on the model's parameters. It returns device tensors and never reads
@@ -13,10 +14,10 @@ warmup; NewBob's optimizers keep their lr in the state (`set_learning_rate`);
 `with_grad_accumulation` averages k micro-step gradients. With a frozen
 feature encoder the conv stack runs without autograd and its weights get
 zero gradients, but they stay in the optimizer, so AdamW's decoupled decay
-still shrinks them, exactly as in ssak_tpu.
+still shrinks them, exactly as in ssak_tpu. The Conformer has no feature
+encoder to freeze: the flag is ignored for it, as in ssak_tpu.
 
-The Whisper step comes with LoRA (ROADMAP.md slice 8); the conformer family
-with its model (slice 7).
+The Whisper step comes with LoRA (ROADMAP.md slice 8).
 """
 
 import torch
@@ -152,9 +153,17 @@ def init_train_state(model, optimizer):
     return {"model": model, "opt_state": optimizer.init(dict(model.named_parameters())), "step": 0}
 
 
-def _check_family(family):
+def _family(family):
+    """The model module of a CTC family, 'wav2vec2' or 'conformer'."""
+    if family == "conformer":
+        from ssak_tpu_torch.models import conformer
+
+        return conformer
     if family != "wav2vec2":
-        raise NotImplementedError(f"CTC family {family!r} is not ported yet (the conformer comes with ROADMAP.md slice 7)")
+        raise ValueError(f"unknown CTC family {family!r} (wav2vec2 or conformer)")
+    from ssak_tpu_torch.models import wav2vec2
+
+    return wav2vec2
 
 
 def _cudnn_benchmark():
@@ -173,10 +182,18 @@ def make_ctc_train_step(cfg, optimizer, frozen_feature_encoder: bool = True, mas
     labels (B, U), label_lengths (B,)} on the model's device. The state is
     updated IN PLACE and returned. grad_norm is the pre-clip global norm of
     the gradients (zeros for a frozen feature encoder). mask_time_prob > 0
-    draws a span mask over frames from a generator seeded with the step."""
-    _check_family(family)
+    draws a span mask over frames from a generator seeded with the step
+    (for the Conformer, over its subsampled frames)."""
     from ssak_tpu_torch.augment.specaugment import mask_time_indices
-    from ssak_tpu_torch.models import wav2vec2
+
+    model_fn = _family(family)
+    conformer = family == "conformer"
+    frozen_feature_encoder = frozen_feature_encoder and not conformer
+
+    def n_frames(n_samples):
+        if conformer:
+            return model_fn.subsampled_length(cfg, model_fn.mel_frame_count(cfg, n_samples))
+        return model_fn.feature_extract_output_length(cfg, n_samples)
 
     def step(state, batch):
         with _cudnn_benchmark():
@@ -192,10 +209,12 @@ def make_ctc_train_step(cfg, optimizer, frozen_feature_encoder: bool = True, mas
         if mask_time_prob > 0:
             B, T = audio.shape
             gen = torch.Generator(device=audio.device).manual_seed(state["step"])
-            time_mask = mask_time_indices(gen, (B, wav2vec2.feature_extract_output_length(cfg, T)),
-                                          mask_prob=mask_time_prob, mask_length=mask_time_length)
-        log_probs, frame_lengths = wav2vec2.ctc_log_probs(
-            model, audio, cfg, batch["audio_lengths"], time_mask=time_mask, freeze_feature_encoder=frozen_feature_encoder)
+            time_mask = mask_time_indices(gen, (B, n_frames(T)), mask_prob=mask_time_prob, mask_length=mask_time_length)
+        if conformer:
+            log_probs, frame_lengths = model_fn.ctc_log_probs(model, audio, cfg, batch["audio_lengths"], time_mask=time_mask)
+        else:
+            log_probs, frame_lengths = model_fn.ctc_log_probs(model, audio, cfg, batch["audio_lengths"], time_mask=time_mask,
+                                                              freeze_feature_encoder=frozen_feature_encoder)
         loss = ctc_loss(log_probs, frame_lengths, batch["labels"], batch["label_lengths"], blank_id=cfg.blank_id)
         loss.backward()
         grads = {}
@@ -215,12 +234,11 @@ def make_ctc_train_step(cfg, optimizer, frozen_feature_encoder: bool = True, mas
 
 def make_ctc_eval_step(cfg, family: str = "wav2vec2"):
     """step(model, batch) -> {loss, tokens (B, F) padded with -1, token_lengths (B,)}."""
-    _check_family(family)
-    from ssak_tpu_torch.models import wav2vec2
+    model_fn = _family(family)
 
     def step(model, batch):
         with torch.no_grad(), _cudnn_benchmark():
-            log_probs, frame_lengths = wav2vec2.ctc_log_probs(model, audio_to_f32(batch["audio"]), cfg, batch["audio_lengths"])
+            log_probs, frame_lengths = model_fn.ctc_log_probs(model, audio_to_f32(batch["audio"]), cfg, batch["audio_lengths"])
             loss = ctc_loss(log_probs, frame_lengths, batch["labels"], batch["label_lengths"], blank_id=cfg.blank_id)
             tokens, lengths = ctc_greedy_decode(log_probs, frame_lengths, blank_id=cfg.blank_id)
         return {"loss": loss, "tokens": tokens, "token_lengths": lengths}

@@ -21,6 +21,18 @@ from ssak_tpu_torch.ops import ctc_fused as K1
 from ssak_tpu_torch.ops.ctc import ctc_greedy_decode, ctc_loss
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the plain version's recursion is
+    thousands of tiny ops a row, on which torch's pool spins beside the
+    other test workers (test_long_rows_gradient_matches_an_f64_witness took
+    610 s with 8 threads and 8 s with one on an 8-core host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed, V, B=6, T=24, U=6):
     """Ragged frame lengths, a batch-pad dummy (label length 0, frame length
     -1), an infeasible row (more labels than frames), repeated labels (no

@@ -149,11 +149,25 @@ def test_jax_exports_load_in_the_port(tmp_path):
 
 
 def test_conformer_exports_are_refused(tmp_path):
-    d = tmp_path / "conf"
-    d.mkdir()
-    (d / "ssak_config.json").write_text(json.dumps({"model_type": "conformer_ctc", "config": {}}))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        G.load_model(str(d), device="cpu")
+    """A Conformer export is read since slice 7 (both ways in
+    tests/test_torch_nemo.py); what is refused is an export whose config
+    names a field that ConformerConfig lacks, or that has no weights."""
+    from ssak_tpu.models import conformer as JC
+    from ssak_tpu.models.tokenizer import CTCTokenizer as JTok
+
+    cfg = JC.make_config("tiny_test", dtype="float32")
+    tree = jax.tree_util.tree_map(np.asarray, JC.init_params(jax.random.PRNGKey(3), cfg))
+    d = JF.export_model(tree, cfg, str(tmp_path / "conf"), model_type="conformer_ctc", tokenizer=JTok.from_corpus(TEXTS))
+    assert G.load_model(d, device="cpu").type == G.ModelType.CONFORMER_CTC
+    meta = json.loads((tmp_path / "conf" / "ssak_config.json").read_text())
+    (tmp_path / "conf" / "ssak_config.json").write_text(json.dumps({**meta, "config": {**meta["config"], "depth": 3}}))
+    with pytest.raises(TypeError, match="depth"):
+        G.load_model(d, device="cpu")
+    bad = tmp_path / "no_weights"
+    bad.mkdir()
+    (bad / "ssak_config.json").write_text(json.dumps(meta))
+    with pytest.raises(FileNotFoundError):
+        G.load_model(str(bad), device="cpu")
 
 
 @pytest.mark.parametrize("head", [True, False], ids=["ctc_head", "no_head"])

@@ -1,6 +1,6 @@
 """Guards of the port's rules: ssak_tpu_torch (and chip_smoke.py) import
-neither JAX nor ssak_tpu, nor the tokenizers, safetensors or transformers
-packages that the card host lacks; every module imports with all of them
+neither JAX nor ssak_tpu, nor the tokenizers, safetensors, transformers or
+yaml packages that the card host lacks; every module imports with all of them
 blocked; entry points default to the GPU and raise without one instead of
 running on the CPU; the CLI runs on the CPU only when asked to."""
 
@@ -15,7 +15,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ssak_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers")
+FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml")
 
 
 def _port_files():
@@ -45,7 +45,7 @@ def test_no_jax_or_ssak_tpu_imports_by_ast():
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers")
+BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCK:
@@ -83,10 +83,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     from ssak_tpu_torch.train import finalize
     from ssak_tpu_torch.utils.env import resolve_device
 
-    for family in ("whisper", "wav2vec2"):  # model directories, read only once a device is there
+    for family in ("whisper", "wav2vec2", "nemo"):  # model directories, read only once a device is there
         d = tmp_path / family
         d.mkdir()
-        (d / "config.json").write_text('{"model_type": "%s"}' % family)
+        if family == "nemo":
+            (d / "model_config.yaml").write_text("name: ConformerCTC\n")
+        else:
+            (d / "config.json").write_text('{"model_type": "%s"}' % family)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             load_model(str(d))
         with pytest.raises(RuntimeError, match="no CUDA device"):

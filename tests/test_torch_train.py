@@ -478,17 +478,13 @@ def test_train_cli_on_cpu(tmp_path):
     assert 1 <= len(list_checkpoints(run_dir)) <= 3
 
 
-@pytest.mark.parametrize("flags", [["--base_model", "x.nemo"], ["--config", "c.yaml"], ["--set", "a=1"], ["--data_augment"],
-                                   ["--use_manifest_cache"], ["--base_model", "NEMO_DIR"]])
+@pytest.mark.parametrize("flags", [["--config", "c.yaml"], ["--set", "a=1"], ["--data_augment"], ["--use_manifest_cache"]])
 def test_train_cli_refuses_unported_options_at_start(tmp_path, flags):
-    """What still needs a later slice: a NeMo base model (a .nemo archive or
-    a directory with model_config.yaml, slice 7), YAML configs, waveform
-    augmentation and the manifest cache (slice 8)."""
+    """What still needs a later slice: YAML configs, waveform augmentation and
+    the manifest cache (slice 8). A NeMo --base_model is ported
+    (tests/test_torch_nemo.py)."""
     from ssak_tpu_torch.train import cli
 
-    (tmp_path / "nemo").mkdir()
-    (tmp_path / "nemo" / "model_config.yaml").write_text("name: ConformerCTC\n")
-    flags = [str(tmp_path / "nemo") if f == "NEMO_DIR" else f for f in flags]
     with pytest.raises(NotImplementedError):
         cli.main([str(tmp_path / "none"), str(tmp_path / "none"), "--output_dir", str(tmp_path / "runs"), "--device", "cpu"] + flags)
     assert not (tmp_path / "runs").exists()

@@ -155,10 +155,12 @@ def test_transcribe_batch_from_wav_files(tiny, tmp_path):
 
 
 def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
-    """What still needs a later slice raises at the call: NeMo checkpoints
-    (slice 7), quantized CTC models (8b), tensor-parallel sharding (8g). A
-    model without a tokenizer ignores language= and task=, as ssak_tpu's
-    does. Long-form audio and the accurate chain run."""
+    """What still needs a later slice raises at the call: quantized CTC
+    models (8b), tensor-parallel sharding (8g). NeMo checkpoints are read
+    (slice 7): an archive that is not there, or a directory without its
+    weights, raises FileNotFoundError. A model without a tokenizer ignores
+    language= and task=, as ssak_tpu's does. Long-form audio and the
+    accurate chain run."""
     from ssak_tpu_torch.infer.general import load_model, shard_model
     from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch, whisper_infer
 
@@ -167,9 +169,9 @@ def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
     long_audio = np.zeros(cfg.n_audio_ctx * 320 + 1, np.float32)
     (tmp_path / "nemo").mkdir()
     (tmp_path / "nemo" / "model_config.yaml").write_text("name: ConformerCTC\n")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(FileNotFoundError):
         load_model("some/model.nemo", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(FileNotFoundError, match="model_weights.ckpt"):
         whisper_infer(str(tmp_path / "nemo"), [long_audio], device="cpu")
     with pytest.raises(NotImplementedError, match="8b"):
         load_model(None, seeded_test_config="wav2vec2", quantize_bits=8, device="cpu")
