@@ -42,6 +42,16 @@ and prints no result):
              best_of 5, temperature fallback) over a Kaldi dir of short
              files; the int4 long-form seek loop over 70 s files (full
              temperature chain, best_of 5, 32-token windows); then
+             Whisper large-v3 fine-tuning from that directory through
+             python -m ssak_tpu_torch.train.whisper_loop (--language en,
+             16 files of 20-29 s, batch 4 x 30 s, 6 steps, an evaluation
+             every 3 over 4 files, --remat): --lora 8 over the bf16 base,
+             and with --load_in_8bit and --load_in_4bit (the evaluation's
+             K4 bf16, K2 and K3 launches against its decode steps, the frozen base
+             bit for bit, adapters.npz reloaded into a fresh model: the
+             same loss), and the full fine-tune of the directory's tree in
+             f32 with remat (3 steps, a checkpoint, a resume for one more
+             step); then
              wav2vec2-base CTC training at full width (CTCTrainer, batch 32
              of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
              dir of 64 wavs, exported by train.finalize and reloaded with
@@ -78,6 +88,8 @@ and prints no result):
              card through L1 forward and backward, the CPU unfused; a NeMo
              archive at Conformer Large widths and 2 layers in f32: the
              log-probs of a 30 s and a 140 s row, and two train steps,
+             card against CPU; one Whisper LoRA train step over an f32 and
+             over an int8 base at large-v3 widths and 2+2 layers in f32,
              card against CPU
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -1335,15 +1347,18 @@ def kernel_launches():
     return {**k1, **im, **fd, **l1}
 
 
-def want_decode(bits, steps):
+def want_decode(bits, steps, kv_int8=None):
     """Launches of a Whisper decode run of `steps` cached steps: 8 dense per
     decoder layer x 32 layers through K2 (int8) or K3 (int4), 32 self + 32
-    cross attention sites through K4."""
+    cross attention sites through K4, int8 with the int8 K/V caches that
+    load_model's quantized models take (kv_int8 defaults to bool(bits)),
+    bf16 otherwise."""
+    kv_int8 = bool(bits) if kv_int8 is None else kv_int8
     return {
         "matmul_int8": 256 * steps if bits == 8 else 0,
         "matmul_int4": 256 * steps if bits == 4 else 0,
-        "flash_decode_int8": 64 * steps if bits else 0,
-        "flash_decode_bf16": 0 if bits else 64 * steps,
+        "flash_decode_int8": 64 * steps if kv_int8 else 0,
+        "flash_decode_bf16": 0 if kv_int8 else 64 * steps,
     }
 
 
@@ -1588,6 +1603,316 @@ def run_longform(torch, model_dir):
     log(f"slice {json.dumps(res)}")
     del m
     return res
+
+
+# --- phase 3: Whisper large-v3 fine-tuning from the HF directory -------------------
+
+# python -m ssak_tpu_torch.train.whisper_loop runs over the seeded large-v3 directory: a Kaldi dir of
+# WFT_FILES files of 20-29 s with text of lower-case words (all in the written byte-level vocabulary),
+# batch WFT_BATCH windows of 30 s (3,000 mel frames), U = 445 teacher-forced tokens (440 + the 4-token
+# English prompt + 1). Runs (a)-(c): --lora 8 over the bf16 base, --load_in_8bit and --load_in_4bit,
+# WFT_STEPS steps with an evaluation every WFT_EVAL_STEPS over the first WFT_EVAL_SAMPLES files; run (d):
+# the full fine-tune, WFT_FULL_STEPS steps, a checkpoint and a resume for one more step.
+WFT_FILES, WFT_SECONDS, WFT_BATCH = 16, (20.0, 29.0), 4
+# the evaluation decodes one window batch (227 host-bound decode steps, ~15 s): cut from 8 files to 4 for
+# the script's time limit (PERF.md)
+WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 6, 3, 4, 3
+WFT_PROMPT, WFT_MAX_TOKENS = 4, 224  # sot_sequence("en"); whisper_transcribe_batch's default budget
+WFT_LR = 1e-4
+WFT_LORA_REMAT = True  # from the reckoning in PERF.md: about 84 GB of activations at B = 4 without it
+
+
+class WhisperLoopSpy:
+    """While installed, wraps what train.whisper_loop calls through its
+    module: make_whisper_train_step (CUDA events around each step, its
+    metrics and state kept), init_train_state (a host copy of the frozen
+    partition, taken as the run starts), WhisperBatcher.batches (the audio
+    seconds of each batch, the first batch kept), evaluate_whisper (its
+    seconds, WER, decode steps and K2 / K3 / K4 launches, from counter
+    snapshots around the call) and _resume (the step, Adam's count and a
+    copy of the parameters it loaded)."""
+
+    def __init__(self, torch):
+        import ssak_tpu_torch.train.whisper_loop as WL
+
+        self.torch, self.WL = torch, WL
+        self.orig = dict(make_whisper_train_step=WL.make_whisper_train_step, init_train_state=WL.init_train_state,
+                         evaluate_whisper=WL.evaluate_whisper, _resume=WL._resume)
+        self.batches = WL.WhisperBatcher.batches
+        self.marks, self.metrics, self.audio_s, self.evals, self.first = [], [], [], [], None
+        self.state, self.frozen, self.resumed = None, None, None
+
+    def __enter__(self):
+        torch, WL, orig = self.torch, self.WL, self.orig
+
+        def make_step(*a, **kw):
+            step = orig["make_whisper_train_step"](*a, **kw)
+
+            def timed(state, batch):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(state, batch)
+                end.record()
+                self.marks.append((start, end))
+                self.metrics.append(out[1])
+                self.state = state
+                return out
+
+            return timed
+
+        def init_state(model, optimizer, quantized=False):
+            from ssak_tpu_torch.models.quant import partition_trainable
+
+            self.frozen = {k: v.detach().cpu() for k, v in partition_trainable(model)[1].items()} if quantized else {}
+            return orig["init_train_state"](model, optimizer, quantized=quantized)
+
+        def batches(batcher, rows, seed=None):
+            for batch, chunk in self.batches(batcher, rows, seed=seed):
+                self.audio_s.append(sum(float(r["duration"]) for r in chunk))
+                if self.first is None:
+                    self.first = batch
+                yield batch, chunk
+
+        def evaluate(*a, **kw):
+            before = snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev = orig["evaluate_whisper"](*a, **kw)
+            torch.cuda.synchronize()
+            after = snapshot()
+            self.evals.append(dict(s=time.perf_counter() - t0, wer=ev["eval_wer"], decode_steps=after[1] - before[1],
+                                   launches={k: after[0][k] - before[0][k] for k in after[0]}))
+            return ev
+
+        def resume(state, output_dir, device):
+            orig["_resume"](state, output_dir, device)
+            self.resumed = {"step": state["step"], "opt_count": state["opt_state"]["1"]["0"]["count"],
+                            "params": {k: p.detach().clone() for k, p in state["model"].named_parameters()}}
+
+        def snapshot():
+            launches, steps = decode_launches()
+            return dict(launches), steps
+
+        WL.make_whisper_train_step, WL.init_train_state, WL.evaluate_whisper, WL._resume = \
+            make_step, init_state, evaluate, resume
+        WL.WhisperBatcher.batches = batches
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.WL, name, fn)
+        self.WL.WhisperBatcher.batches = self.batches
+
+    def step_ms(self):
+        """Steps 2.. on the card's clock, each from its first enqueued
+        operation to its last (an evaluation between two steps is not in it)."""
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.marks[1:]]
+
+
+def teacher_forced_loss(torch, model, cfg, batch):
+    from ssak_tpu_torch.models import whisper as W
+
+    with torch.no_grad():
+        af = W.encode(model, batch["mel"], cfg)
+        logits = W.decode_train(model, batch["tokens_in"], af, cfg)
+        return float(W.cross_entropy_loss(logits, batch["tokens_out"], batch["token_mask"]))
+
+
+def run_whisper_lora(torch, dev, root, model_dir, train_dir, eval_dir, bits, base):
+    """python -m ssak_tpu_torch.train.whisper_loop TRAIN EVAL --base_model
+    MODEL_DIR --language en --lora 8 [--load_in_8bit | --load_in_4bit]:
+    WFT_STEPS steps of batch WFT_BATCH, an evaluation every WFT_EVAL_STEPS
+    steps over WFT_EVAL_SAMPLES files. Checked: every evaluation's K4 bf16
+    (and K2 or K3) launches against its decode steps (the training module
+    decodes unfused, with bf16 K/V caches at every precision: QLoRA
+    quantizes through quantize_params, not load_model), none of them in
+    the training steps, no K1, L1 or K4 int8; the frozen base bit for bit as it
+    started; adapters-<step>.npz at each evaluation and adapters.npz at the
+    end; adapters.npz reloaded with load_lora into a fresh model from the
+    directory's tree (`base`: load_whisper's tree and config, read once)
+    gives the trained module's teacher-forced loss."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ssak_tpu_torch.models.convert import whisper_from_tree
+    from ssak_tpu_torch.models.lora import load_lora
+    from ssak_tpu_torch.models.quant import partition_trainable, quantize_params
+    from ssak_tpu_torch.train import whisper_loop
+
+    tag = {0: "whisper large-v3 lora (bf16 base)", 8: "whisper large-v3 qlora int8", 4: "whisper large-v3 qlora int4"}[bits]
+    out_dir = os.path.join(root, f"lora{bits}")
+    argv = [train_dir, eval_dir, "--base_model", model_dir, "--output_dir", out_dir, "--language", "en", "--lora", "8",
+            "--batch_size", str(WFT_BATCH), "--max_steps", str(WFT_STEPS), "--eval_steps", str(WFT_EVAL_STEPS),
+            "--max_eval_samples", str(WFT_EVAL_SAMPLES), "--max_duration", "30", "--learning_rate", str(WFT_LR)]
+    argv += {0: [], 8: ["--load_in_8bit"], 4: ["--load_in_4bit"]}[bits] + (["--remat"] if WFT_LORA_REMAT else [])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stdout = io.StringIO()
+    with WhisperLoopSpy(torch) as spy:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            whisper_loop.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, decode_steps = decode_launches()
+        others = {k: v for k, v in kernel_launches().items() if k not in launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if json.loads(stdout.getvalue().strip().splitlines()[-1]) != {"output_dir": out_dir, "steps": WFT_STEPS}:
+        raise AssertionError(f"{tag}: the CLI printed {stdout.getvalue()[-300:]!r}")
+    steps = [(float(m["loss"]), float(m["grad_norm"])) for m in spy.metrics]
+    if len(steps) != WFT_STEPS or not all(math.isfinite(a) and math.isfinite(b) and a > 0 for a, b in steps):
+        raise AssertionError(f"{tag}: steps {steps}")
+    groups = -(-WFT_EVAL_SAMPLES // WFT_BATCH)
+    eval_steps = groups * (WFT_PROMPT + WFT_MAX_TOKENS - 1)
+    if len(spy.evals) != WFT_STEPS // WFT_EVAL_STEPS:
+        raise AssertionError(f"{tag}: {len(spy.evals)} evaluations")
+    want = want_decode(bits, eval_steps, kv_int8=False)
+    for ev in spy.evals:
+        if ev["decode_steps"] != eval_steps or ev["launches"] != want or not 0 <= ev["wer"]:
+            raise AssertionError(f"{tag}: evaluation {ev}, want {eval_steps} decode steps and {want}")
+    # the training steps launch none of the decode kernels, and nothing else runs K1 or L1
+    if launches != want_decode(bits, decode_steps, kv_int8=False) or decode_steps != eval_steps * len(spy.evals) \
+            or any(others.values()):
+        raise AssertionError(f"{tag}: run launches {launches} ({decode_steps} decode steps), other kernels {others}")
+    model = spy.state["model"]
+    trainable, frozen = partition_trainable(model)
+    same = frozen.keys() == spy.frozen.keys() and all(torch.equal(frozen[k].cpu(), spy.frozen[k]) for k in frozen)
+    if not same or not spy.frozen or not all(k.rsplit(".", 1)[-1] in ("lora_A", "lora_B") for k in trainable):
+        raise AssertionError(f"{tag}: the frozen base changed in training, or the trainable set is {sorted(trainable)[:4]}")
+    names = sorted(os.listdir(out_dir))
+    for want in ["adapters.npz", "trainer_state.json"] + [f"adapters-{s}.npz" for s in range(WFT_EVAL_STEPS, WFT_STEPS + 1,
+                                                                                                WFT_EVAL_STEPS)]:
+        if want not in names:
+            raise AssertionError(f"{tag}: {want} not written ({names})")
+    with np.load(os.path.join(out_dir, "adapters.npz")) as z:
+        adapters = {k: z[k] for k in z.files}
+    if len(adapters) != 3 * 2 * 96 or not all(adapters[k].any() for k in adapters if k.endswith("lora_B")):
+        raise AssertionError(f"{tag}: adapters.npz holds {len(adapters)} leaves, or an untrained lora_B")
+    # a fresh model from the directory's tree as the CLI sets it up, the adapters loaded from adapters.npz
+    params, cfg = base
+    fresh = whisper_from_tree(params, dev)
+    if bits:
+        quantize_params(fresh, bits=bits)
+    else:
+        fresh = fresh.to(torch.bfloat16)
+    load_lora(fresh, adapters)
+    want_loss = teacher_forced_loss(torch, model, cfg, spy.first)
+    got_loss = teacher_forced_loss(torch, fresh, cfg, spy.first)
+    if not (math.isfinite(want_loss) and abs(got_loss - want_loss) <= 1e-6 * abs(want_loss)):
+        raise AssertionError(f"{tag}: the reloaded adapters give loss {got_loss}, the trained module {want_loss}")
+    step_ms = spy.step_ms()
+    res = dict(config=tag, batch_size=WFT_BATCH, window_s=30.0, tokens=int(spy.first["tokens_in"].shape[1]),
+               steps=WFT_STEPS, step_ms=sum(step_ms) / len(step_ms), step_ms_each=step_ms,
+               train_audio_s_per_s=sum(spy.audio_s[1:WFT_STEPS]) / (sum(step_ms) / 1e3),
+               losses=[a for a, _ in steps], grad_norms=[b for _, b in steps], evals=spy.evals,
+               eval_decode_steps=eval_steps, run_s=run_s, peak_mem_gib=peak, launches=launches,
+               trainable=sum(p.numel() for p in trainable.values()), frozen_tensors=len(frozen),
+               reload_loss=got_loss, trained_loss=want_loss)
+    log(f"slice {json.dumps(res)}")
+    del model, fresh, spy, trainable, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_whisper_full(torch, dev, root, model_dir, train_dir, base):
+    """The full fine-tune (train_whisper, lora_rank 0) of the tree that
+    load_whisper reads from the directory (`base`), widened to f32 masters (a full
+    fine-tune of its F16 leaves turns most weights to inf or NaN at the
+    first update in both packages: optax's eps rounds to 0 in f16; ROADMAP.md
+    §3), bf16 compute, remat=True: WFT_FULL_STEPS steps, the checkpoint,
+    then resume=True into a fresh model for one more step. Checked: the
+    model that resume loads from the checkpoint equals the trained one bit
+    for bit, with the step and Adam's count carried; finite losses; no
+    kernel launched (no evaluation)."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer.general import _with_tokenizer_ids
+    from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
+    from ssak_tpu_torch.models.convert import whisper_from_tree
+    from ssak_tpu_torch.models.tokenizer import WhisperTokenizer
+    from ssak_tpu_torch.text import format_text
+    from ssak_tpu_torch.train import whisper_loop
+
+    tag = "whisper large-v3 full fine-tune (f32 masters, remat)"
+    out_dir = os.path.join(root, "full")
+    _, rows = kaldi_folder_to_manifest(train_dir, max_duration=30.0)
+    tok = WhisperTokenizer(model_dir)
+
+    def norm(t):
+        return format_text(t, "en", extract_parenthesized=False, safety_checks=False).replace("\n", " ")
+
+    tree32 = tree_map(lambda a: np.asarray(a, np.float32), base[0])
+    cfg = dataclasses.replace(_with_tokenizer_ids(base[1], tok), remat=True)
+
+    kw = dict(language="en", learning_rate=1e-5, warmup_steps=1, batch_size=WFT_BATCH, eval_steps=0, seed=69,
+              normalize_text=norm, log_interval=1, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = whisper_from_tree(tree32, dev)
+    with WhisperLoopSpy(torch) as spy:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _hist = whisper_loop.train_whisper(model, cfg, tok, rows, [], out_dir, max_steps=WFT_FULL_STEPS, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = spy.step_ms()
+    steps = [(float(m["loss"]), float(m["grad_norm"])) for m in spy.metrics]
+    trained = {k: p.detach().clone() for k, p in state["model"].named_parameters()}
+    if any(p.dtype != torch.float32 for p in trained.values()):
+        raise AssertionError(f"{tag}: the trained parameters are not f32")
+    del state, model, spy.state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = whisper_from_tree(tree32, dev)
+    with WhisperLoopSpy(torch) as rspy:
+        t0 = time.perf_counter()
+        rstate, _ = whisper_loop.train_whisper(model, cfg, tok, rows, [], out_dir, max_steps=WFT_FULL_STEPS + 1,
+                                               resume=True, **kw)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = kernel_launches()
+    if rspy.resumed is None or rspy.resumed["step"] != WFT_FULL_STEPS or rspy.resumed["opt_count"] != WFT_FULL_STEPS \
+            or rspy.resumed["params"].keys() != trained.keys() \
+            or not all(torch.equal(rspy.resumed["params"][k], trained[k]) for k in trained):
+        raise AssertionError(f"{tag}: resume did not load the trained state (step, Adam count, parameters)")
+    rsteps = [(float(m["loss"]), float(m["grad_norm"])) for m in rspy.metrics]
+    if rstate["step"] != WFT_FULL_STEPS + 1 or len(rsteps) != 1 or len(steps) != WFT_FULL_STEPS:
+        raise AssertionError(f"{tag}: steps {steps} then {rsteps} (step {rstate['step']})")
+    if not all(math.isfinite(a) and math.isfinite(b) and a > 0 for a, b in steps + rsteps) or any(launches.values()):
+        raise AssertionError(f"{tag}: losses {steps + rsteps}, launches {launches}")
+    res = dict(config=tag, batch_size=WFT_BATCH, window_s=30.0, remat=True, steps=WFT_FULL_STEPS,
+               step_ms=sum(step_ms) / len(step_ms), step_ms_each=step_ms,
+               train_audio_s_per_s=sum(spy.audio_s[1:WFT_FULL_STEPS]) / (sum(step_ms) / 1e3),
+               losses=[a for a, _ in steps], grad_norms=[b for _, b in steps], resumed_losses=[a for a, _ in rsteps],
+               run_s=run_s, resume_run_s=resume_s, peak_mem_gib=peak,
+               checkpoint_bytes=sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out_dir) for f in fs),
+               launches=launches)
+    log(f"slice {json.dumps(res)}")
+    del rstate, model, trained, tree32, rspy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_whisper_finetune(torch, dev, tmp, model_dir):
+    """Phase 3's Whisper fine-tuning runs (a)-(d) over the large-v3
+    directory; its tree is read once on the host for the checks."""
+    from ssak_tpu_torch.models.hf_loader import load_whisper
+
+    train_dir = write_ctc_corpus(os.path.join(tmp, "wft_train"), WFT_FILES, seed=21, seconds=WFT_SECONDS)
+    base = load_whisper(model_dir)
+    out = {f"whisper_ft_{name}": run_whisper_lora(torch, dev, tmp, model_dir, train_dir, train_dir, bits, base)
+           for name, bits in (("lora_bf16", 0), ("qlora_int8", 8), ("qlora_int4", 4))}
+    out["whisper_ft_full"] = run_whisper_full(torch, dev, tmp, model_dir, train_dir, base)
+    return out
 
 
 CHARS = "abcdefghijklmnopqrstuvwxyz"
@@ -2863,6 +3188,101 @@ def check_nemo_train_step_card_vs_cpu(torch, dev, root):
     return res
 
 
+def check_whisper_train_steps_card_vs_cpu(torch, dev):
+    """One partitioned Whisper train step on the card and on the CPU in f32
+    from the same weights (large-v3 widths, 2 + 2 layers, seeded_tree seed
+    5): rank-8 adapters on attention query / value (add_lora from a CPU
+    generator, B set to 0.01 N(0, 1) so that A has a gradient), over the
+    f32 base (--lora) and over its int8 quantization (--load_in_8bit
+    --lora), batch 2 x 30 s windows of tones, 64 teacher-forced tokens, lr
+    at its peak from the first step. As for the CTC steps: the loss to 1e-4
+    relative, the grad norm to 1e-3; the frozen base unchanged on both. The
+    adapters' gradients (one backward before the step) agree to 1e-3 of
+    their largest entry, as the grad norm does, and each updated adapter
+    lies within lr of the CPU's wherever the two gradients have the same
+    sign. Adam's first update is about lr times the gradient's sign: an
+    entry whose gradient lies within that gradient noise may take either
+    sign on the two devices (over the int8 base, whose dequantized (in,
+    out) weights take other cuBLAS products than the f32 base's transposed
+    ones, 5 of 245,760 entries did, with gradients of at most 1.7e-8
+    against a largest of 2.2e-2), so such entries are counted, at most 1
+    in 10,000, and held to 2 lr."""
+    import numpy as np
+
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.models.convert import whisper_from_tree
+    from ssak_tpu_torch.models.lora import add_lora, extract_lora, load_lora
+    from ssak_tpu_torch.models.quant import partition_trainable, quantize_params
+    from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
+    from ssak_tpu_torch.train import steps as TS
+
+    lr = 1e-4
+    cfg = W.make_config("large-v3", n_audio_layer=2, n_text_layer=2, dtype="float32")
+    tree = seeded_tree(cfg, seed=5)
+    rng = np.random.RandomState(6)
+    audio = np.stack([tones(rng, 30.0) for _ in range(2)])
+    mel = log_mel_spectrogram(torch.from_numpy(audio), n_mels=cfg.n_mels)
+    U = 64
+    tokens = rng.randint(0, 50257, (2, U + 1))
+    mask = np.ones((2, U), np.float32)
+    mask[0, :3], mask[1, 40:] = 0, 0
+    res = {}
+    for bits in (0, 8):
+        out = {}
+        for where in ("cpu", dev):
+            model = whisper_from_tree(tree, where)
+            add_lora(model, rank=8, generator=torch.Generator().manual_seed(0))
+            b_rng = np.random.RandomState(7)
+            load_lora(model, {k: (0.01 * b_rng.standard_normal(v.shape)).astype(np.float32)
+                              for k, v in sorted(extract_lora(model).items()) if k.endswith("lora_B")})
+            if bits:
+                quantize_params(model, bits=bits)
+            opt = TS.make_optimizer(learning_rate=lr, warmup_steps=0, total_steps=10)
+            state = TS.init_train_state(model, opt, quantized=True)
+            batch = {"mel": mel.to(where), "tokens_in": torch.from_numpy(tokens[:, :-1]).to(where),
+                     "tokens_out": torch.from_numpy(tokens[:, 1:]).to(where), "token_mask": torch.from_numpy(mask).to(where)}
+            start, frozen0 = partition_trainable(model)
+            af = W.encode(model, batch["mel"], cfg)
+            W.cross_entropy_loss(W.decode_train(model, batch["tokens_in"], af, cfg), batch["tokens_out"],
+                                 batch["token_mask"]).backward()
+            grads = {k: p.grad.detach().cpu() for k, p in start.items()}
+            start = {k: v.detach().cpu().clone() for k, v in start.items()}
+            frozen0 = {k: v.clone() for k, v in frozen0.items()}
+            del af
+            state, m = TS.make_whisper_train_step(cfg, opt, quantized=True)(state, batch)
+            trainable, frozen = partition_trainable(state["model"])
+            if not all(torch.equal(frozen[k], frozen0[k]) for k in frozen0) or frozen.keys() != frozen0.keys():
+                raise AssertionError(f"whisper train step card vs cpu: the frozen base moved on {where}")
+            out[str(where)] = ((m["loss"].item(), m["grad_norm"].item()), {k: v.detach().cpu() for k, v in trainable.items()},
+                               start, grads)
+            del state, model, frozen0, trainable, frozen
+            gc.collect()
+        (cpu_m, cpu_p, cpu_start, cpu_g), (card_m, card_p, _, card_g) = out["cpu"], out[str(dev)]
+        loss_rel = abs(card_m[0] - cpu_m[0]) / abs(cpu_m[0])
+        gn_rel = abs(card_m[1] - cpu_m[1]) / abs(cpu_m[1])
+        names = sorted(cpu_p)
+        g_cpu = torch.cat([cpu_g[k].flatten() for k in names])
+        g_card = torch.cat([card_g[k].flatten() for k in names])
+        diff = torch.cat([(card_p[k] - cpu_p[k]).abs().flatten() for k in names])
+        moved = float(torch.cat([(cpu_p[k] - cpu_start[k]).abs().flatten() for k in names]).max())
+        g_err = float((g_card - g_cpu).abs().max())
+        flipped = torch.sign(g_card) != torch.sign(g_cpu)
+        tag = "int8" if bits else "f32"
+        res[f"lora_{tag}"] = r = dict(
+            loss_rel=loss_rel, grad_norm_rel=gn_rel, grad_max_abs_err=g_err, grad_max_abs=float(g_cpu.abs().max()),
+            adapter_max_abs=float(diff.max()), adapter_max_abs_same_sign=float(diff[~flipped].max()),
+            sign_flips=int(flipped.sum()), flipped_grad_max_abs=float(g_cpu[flipped].abs().max()) if flipped.any() else 0.0,
+            adapter_entries=int(diff.numel()), adapter_max_move=moved, adapters=len(names), card=card_m, cpu=cpu_m)
+        log(f"whisper lora train step card vs cpu ({tag} base, large-v3 widths, 2+2 layers, f32): {json.dumps(r)}")
+        # A and B on query and value of 6 attention sites (2 encoder, 2 decoder self, 2 cross)
+        if not (loss_rel <= 1e-4 and gn_rel <= 1e-3 and g_err <= 1e-3 * r["grad_max_abs"] and len(names) == 24
+                and r["adapter_max_abs_same_sign"] <= lr and r["adapter_max_abs"] <= 2 * lr and moved > 0
+                and r["sign_flips"] <= 1e-4 * diff.numel()
+                and math.isfinite(card_m[0])):
+            raise AssertionError(f"whisper lora train step card vs cpu ({tag}) out of tolerance: {r}")
+    return res
+
+
 def main():
     try:
         import torch
@@ -2926,7 +3346,8 @@ def main():
     bwd_rows, bwd_err, bwd_pairs = check_flash_attention_bwd(torch, dev)
 
     log("phase 3: large-v3 transcription from an HF directory (greedy bf16, int8, int4; int4 accurate; int4 "
-        "long-form); wav2vec2-base CTC training, finalized and reloaded; wav2vec2-xlsr CTC serving from an HF directory "
+        "long-form); large-v3 fine-tuning from that directory (LoRA over bf16, int8 and int4 bases; the full fine-tune, "
+        "checkpoint and resume); wav2vec2-base CTC training, finalized and reloaded; wav2vec2-xlsr CTC serving from an HF directory "
         "(greedy; device beam with lexicon and word LM); NeMo Conformer-CTC Large from a .nemo archive (greedy and "
         "device beam serving; fine-tuning through the train CLI, finalized and reloaded); wav2vec2-xlsr CTC training "
         "at the 140 s bucket")
@@ -2941,6 +3362,7 @@ def main():
         slices["int4_accurate"] = run_accurate(torch, acc_dir, write_corpus(acc_dir, ACC_FILES, ACC_SECONDS, seed=3),
                                                model_dir)
         slices["int4_longform"] = run_longform(torch, model_dir)
+        slices.update(run_whisper_finetune(torch, dev, tmp, model_dir))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_ctc_")
@@ -2973,7 +3395,8 @@ def main():
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
         "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row; a bf16 train step at the 100 s "
-        "bucket); NeMo Conformer-CTC Large widths at 2 layers, f32 (log-probs of a 30 s and a 140 s row; train steps)")
+        "bucket); NeMo Conformer-CTC Large widths at 2 layers, f32 (log-probs of a 30 s and a 140 s row; train steps); "
+        "Whisper LoRA and int8 QLoRA train steps at large-v3 widths, 2+2 layers, f32")
     corr = check_card_vs_cpu(torch, dev)
     train_parity = check_train_step_card_vs_cpu(torch, dev)
     serving_parity = check_ctc_serving_card_vs_cpu(torch, dev)
@@ -2984,6 +3407,7 @@ def main():
         nemo_step_parity = check_nemo_train_step_card_vs_cpu(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    whisper_step_parity = check_whisper_train_steps_card_vs_cpu(torch, dev)
 
     def head(rows, **shape):
         return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
@@ -2991,12 +3415,16 @@ def main():
     kernels = []
     specs = [
         ("matmul_int8", "ssak_tpu_torch/csrc/int8_matmul.cu", "ssak_tpu/ops/int8_matmul.py:45",
-         k2_rows, k2_err, dict(M=24, K=1280, N=5120), slices["int8"]["launches"]["matmul_int8"]),
+         k2_rows, k2_err, dict(M=24, K=1280, N=5120),
+         slices["int8"]["launches"]["matmul_int8"] + slices["whisper_ft_qlora_int8"]["launches"]["matmul_int8"]),
         ("matmul_int4", "ssak_tpu_torch/csrc/int4_matmul.cu", "ssak_tpu/ops/int8_matmul.py:117",
          k3_rows, k3_err, dict(M=32, K=1280, N=5120),
-         slices["int4_accurate"]["launches"]["matmul_int4"] + slices["int4_longform"]["launches"]["matmul_int4"]),
+         slices["int4_accurate"]["launches"]["matmul_int4"] + slices["int4_longform"]["launches"]["matmul_int4"]
+         + slices["whisper_ft_qlora_int4"]["launches"]["matmul_int4"]),
         ("flash_decode_bf16", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:38",
-         *fd_rows["bf16"], dict(B=24, T=1500, range="0:1499"), slices["bf16"]["launches"]["flash_decode_bf16"]),
+         *fd_rows["bf16"], dict(B=24, T=1500, range="0:1499"),
+         slices["bf16"]["launches"]["flash_decode_bf16"] + sum(slices[f"whisper_ft_{r}"]["launches"]["flash_decode_bf16"]
+                                                               for r in ("lora_bf16", "qlora_int8", "qlora_int4"))),
         ("flash_decode_int8", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:58",
          *fd_rows["int8"], dict(B=24, T=1500, range="0:1499"), slices["int8"]["launches"]["flash_decode_int8"]),
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
@@ -3025,6 +3453,7 @@ def main():
     log("summary " + json.dumps({"slices": slices, "model_dirs": dirs, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
                                  "ctc_serving_card_vs_cpu": serving_parity, "long_train_step_card_vs_cpu": long_step_parity,
                                  "nemo_card_vs_cpu": nemo_parity, "nemo_train_step_card_vs_cpu": nemo_step_parity,
+                                 "whisper_train_step_card_vs_cpu": whisper_step_parity,
                                  "flash_attention_30s_bucket": l1_short, "flash_attention_training_launch": l1_training,
                                  "flash_attention_bwd_pairs": bwd_pairs}))
     print(json.dumps({"kernels": kernels}), flush=True)

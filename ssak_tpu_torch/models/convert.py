@@ -5,6 +5,7 @@ numpy (or array-like) leaves — as from `init_params`, `quantize_params`, a
 checkpoint or a NeMo archive — and builds a `WhisperModel`,
 `Wav2Vec2Model` or `ConformerModel`; a CTC model also goes back to such a
 tree (`wav2vec2_to_tree`, `conformer_to_tree`, or `ctc_to_tree` for either),
+and so does a Whisper model (`whisper_to_tree`, with its LoRA leaves),
 which is how training checkpoints keep ssak_tpu's layout. Dense kernels
 (in, out) become torch-layout (out, in) weights, conv kernels (K, Cin,
 Cout) become (Cout, Cin, K), 2-D conv kernels (KH, KW, Cin, Cout) become
@@ -27,13 +28,20 @@ def _t(a, device):
 
 
 def linear_from_tree(p, device) -> torch.nn.Module:
+    """A dense dict -> Linear, or QuantLinear for a quantized kernel; its
+    lora_A / lora_B / lora_scale leaves, when present, become the layer's
+    adapter (models.lora) in their own dtype."""
     k = p["kernel"]
     bias = p.get("bias")
     bias = None if bias is None else _t(bias, device)
     if isinstance(k, dict):
         q = k["q8"] if "q8" in k else k["q4"]
-        return L.QuantLinear(_t(q, device).contiguous(), _t(k["scale"], device).contiguous(), bias)
-    return L.Linear(_t(np.asarray(k).T, device), bias)
+        out = L.QuantLinear(_t(q, device).contiguous(), _t(k["scale"], device).contiguous(), bias)
+    else:
+        out = L.Linear(_t(np.asarray(k).T, device), bias)
+    if "lora_A" in p:
+        out.set_lora(_t(p["lora_A"], device), _t(p["lora_B"], device), _t(p.get("lora_scale", 1.0), device))
+    return out
 
 
 def ln_from_tree(p, device) -> L.LayerNorm:
@@ -110,6 +118,66 @@ def wav2vec2_from_tree(params, device="cpu") -> W2V.Wav2Vec2Model:
 
 def _np(t):
     return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _np_as_is(t):
+    """A tensor as numpy in its own dtype (bf16, which numpy lacks, as f32)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _dense_to_tree(p) -> dict:
+    """Linear or QuantLinear -> ssak_tpu's dense dict in the leaves' own
+    dtypes: kernel (in, out), or the quantized {q8 | q4, scale}; bias and
+    the LoRA leaves where present."""
+    if isinstance(p, L.QuantLinear):
+        out = {"kernel": {"q4" if p.bits == 4 else "q8": _np_as_is(p.payload), "scale": _np_as_is(p.scale)}}
+    else:
+        out = {"kernel": _np_as_is(p.weight).T.copy()}
+    if p.bias is not None:
+        out["bias"] = _np_as_is(p.bias)
+    for leaf in ("lora_A", "lora_B", "lora_scale"):
+        if getattr(p, leaf) is not None:
+            out[leaf] = _np_as_is(getattr(p, leaf))
+    return out
+
+
+def _whisper_block_to_tree(b) -> dict:
+    def attn(a):
+        return {n: _dense_to_tree(getattr(a, n)) for n in ("query", "key", "value", "out")}
+
+    def ln(p):
+        return {"scale": _np_as_is(p.scale), "bias": _np_as_is(p.bias)}
+
+    out = {"attn_ln": ln(b.attn_ln), "attn": attn(b.attn), "mlp_ln": ln(b.mlp_ln),
+           "mlp": {"fc1": _dense_to_tree(b.mlp.fc1), "fc2": _dense_to_tree(b.mlp.fc2)}}
+    if hasattr(b, "cross_attn"):
+        out["cross_attn_ln"], out["cross_attn"] = ln(b.cross_attn_ln), attn(b.cross_attn)
+    return out
+
+
+def whisper_to_tree(model) -> dict:
+    """WhisperModel -> ssak_tpu Whisper tree (list-of-blocks layout) with
+    numpy leaves in the model's dtypes (bf16 as f32): dense kernels (in,
+    out), quantized kernels as {q8 | q4, scale}, conv kernels (K, Cin,
+    Cout), LoRA leaves where present. The inverse of whisper_from_tree; a
+    model whose decoder q/k/v were fused for decoding has no such tree."""
+    enc, dec = model.encoder, model.decoder
+    if any(hasattr(b.attn, "qkv") for b in list(enc.blocks) + list(dec.blocks)):
+        raise ValueError("whisper_to_tree: fused q/k/v projections (fuse_decode_qkv) have no ssak_tpu tree")
+
+    def conv(p):
+        return {"kernel": _np_as_is(p.weight).transpose(2, 1, 0).copy(), "bias": _np_as_is(p.bias)}
+
+    return {
+        "encoder": {"conv1": conv(enc.conv1), "conv2": conv(enc.conv2),
+                    "blocks": [_whisper_block_to_tree(b) for b in enc.blocks],
+                    "ln_post": {"scale": _np_as_is(enc.ln_post.scale), "bias": _np_as_is(enc.ln_post.bias)}},
+        "decoder": {"token_embedding": _np_as_is(dec.token_embedding),
+                    "positional_embedding": _np_as_is(dec.positional_embedding),
+                    "blocks": [_whisper_block_to_tree(b) for b in dec.blocks],
+                    "ln": {"scale": _np_as_is(dec.ln.scale), "bias": _np_as_is(dec.ln.bias)}},
+    }
 
 
 def _linear_to_tree(p):
@@ -257,6 +325,13 @@ def _copy_params_(model, src):
                 raise ValueError(f"{name}: shape {tuple(src[name].shape)} in the tree, {tuple(p.shape)} in the model")
             p.copy_(src[name])
     return model
+
+
+def load_whisper_tree_(model, params):
+    """Copy an ssak_tpu Whisper tree into `model`'s parameters IN PLACE
+    (same structure required; each keeps the model's dtype). Returns the
+    model."""
+    return _copy_params_(model, whisper_from_tree(params, "cpu"))
 
 
 def load_wav2vec2_tree_(model, params):

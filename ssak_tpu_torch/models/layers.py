@@ -1,6 +1,6 @@
 """Shared layers in PyTorch (counterpart of ssak_tpu.models.layers): the
-subset on the Whisper serving and the wav2vec2- and Conformer-CTC training
-and serving paths.
+subset on the Whisper serving and fine-tuning and the wav2vec2- and
+Conformer-CTC training and serving paths.
 
 Parameters live in small `nn.Module`s (Linear, QuantLinear, LayerNorm,
 Conv1d, MultiHeadAttention, MLP); the layer math is plain functions on
@@ -45,7 +45,26 @@ def _param(t):
     return nn.Parameter(t, requires_grad=False)
 
 
-class Linear(nn.Module):
+class _Dense(nn.Module):
+    """A dense layer's optional LoRA adapter (models.lora): parameters
+    lora_A (in, r) and lora_B (r, out) in ssak_tpu's layout and names, and
+    the buffer lora_scale (alpha / r, f32), so that named_parameters() reads
+    like ssak_tpu's paths ('decoder.blocks.0.attn.query.lora_A' for
+    '/decoder/blocks/0/attn/query/lora_A')."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_parameter("lora_A", None)
+        self.register_parameter("lora_B", None)
+        self.register_buffer("lora_scale", None)
+
+    def set_lora(self, a, b, scale):
+        """Attach (or replace) the adapter, frozen like every parameter."""
+        self.lora_A, self.lora_B = _param(a), _param(b)
+        self.register_buffer("lora_scale", torch.as_tensor(scale, dtype=torch.float32, device=a.device))
+
+
+class Linear(_Dense):
     """Dense layer in torch layout: weight (out, in), optional bias (out,)."""
 
     def __init__(self, weight, bias=None):
@@ -54,7 +73,7 @@ class Linear(nn.Module):
         self.bias = None if bias is None else _param(bias)
 
 
-class QuantLinear(nn.Module):
+class QuantLinear(_Dense):
     """Weight-only quantized dense layer in ssak_tpu's layout (the kernels
     read the payload along out), optional float bias (out,). int8: buffers
     q8 int8 (in, out) and scale f32 (1, out); int4: q4 int8 (in/2, out) of
@@ -143,7 +162,10 @@ def dense(x, p, dtype=None):
     returns in that dtype; the bias is added to the f32 result. A
     QuantLinear on a decode-shaped CUDA activation goes through its fused
     kernel (K2 for int8, K3 for int4); elsewhere its weight is dequantized
-    first, as ssak_tpu does off the TPU."""
+    first, as ssak_tpu does off the TPU. A LoRA adapter adds
+    lora_scale * (x A) B to the f32 result before the bias, with A and B
+    rounded to x's dtype and both products in f32 (exact for bf16
+    operands, as JAX's preferred_element_type=f32)."""
     y = None
     if isinstance(p, QuantLinear):
         kernel = None
@@ -166,6 +188,9 @@ def dense(x, p, dtype=None):
         x = x.to(dt)
         y = torch.matmul(x, w.to(dt)).to(torch.float32)
     out_dtype = x.dtype
+    if p.lora_A is not None:
+        xa = torch.matmul(_f32(x, out_dtype), _f32(p.lora_A, out_dtype))
+        y = y + p.lora_scale * torch.matmul(xa, _f32(p.lora_B, out_dtype))
     if p.bias is not None:
         y = y + p.bias
     return y.to(out_dtype)
@@ -341,24 +366,27 @@ def _can_flash(q, dtype) -> bool:
     )
 
 
-def mha(x, p, n_heads: int, mask=None, cache=None, cache_index=None,
+def mha(x, p, n_heads: int, kv_x=None, mask=None, cache=None, cache_index=None,
         dtype=torch.bfloat16, lengths=None, attn_bounds=None):
-    """Multi-head self-attention. Without a cache: full attention over x,
-    with an optional mask or padding `lengths` (without a mask, through the
-    fused kernel L1 where _can_flash holds). With a decode cache ({k, v}
-    (B, H, Dh, L) or the int8 dict), cache_index and attn_bounds=(lo, hi):
-    the step's k/v are written into the cache IN PLACE at cache_index and
-    attention runs over [lo, hi] (decode_attention_bounded). Returns
-    (y, cache)."""
-    if hasattr(p, "qkv"):
+    """Multi-head attention: self-attention over x, or cross-attention from
+    x to `kv_x` (keys and values from kv_x, e.g. the audio features of a
+    teacher-forced decoder). Without a cache: full attention, with an
+    optional mask or padding `lengths` (self-attention without a mask goes
+    through the fused kernel L1 where _can_flash holds). With a decode cache
+    ({k, v} (B, H, Dh, L) or the int8 dict), cache_index and
+    attn_bounds=(lo, hi): the step's k/v are written into the cache IN
+    PLACE at cache_index and attention runs over [lo, hi]
+    (decode_attention_bounded). Returns (y, cache)."""
+    src = x if kv_x is None else kv_x
+    if kv_x is None and hasattr(p, "qkv"):
         qkv = dense(x, p.qkv, dtype)
         D = qkv.shape[-1] // 3
         q = split_heads(qkv[..., :D], n_heads)
         km, vm = qkv[..., D : 2 * D], qkv[..., 2 * D :]
     else:
         q = split_heads(dense(x, p.query, dtype), n_heads)
-        km = dense(x, p.key, dtype)
-        vm = dense(x, p.value, dtype)
+        km = dense(src, p.key, dtype)
+        vm = dense(src, p.value, dtype)
     if cache is not None:
         if cache_index is None or attn_bounds is None:
             raise ValueError("a decode cache needs cache_index and attn_bounds (decode-step use only)")
@@ -375,7 +403,7 @@ def mha(x, p, n_heads: int, mask=None, cache=None, cache_index=None,
     k = split_heads(km, n_heads)
     v = split_heads(vm, n_heads)
     # full-sequence self-attention with only a padding mask -> fused kernel
-    if mask is None and _can_flash(q, dtype):
+    if kv_x is None and mask is None and _can_flash(q, dtype):
         y = flash_self_attention(q, k, v, lengths=lengths)
     else:
         if mask is None and lengths is not None:
@@ -388,9 +416,9 @@ def fuse_qkv_params(attn):
     """Fuse one attention module's query/key/value projections into a
     single `qkv` Linear ((3D, D) weight, zeros where a projection had no
     bias), IN PLACE, dropping the three originals. Skipped when any
-    projection is quantized. Returns the module."""
+    projection is quantized or carries a LoRA adapter. Returns the module."""
     projs = [attn.query, attn.key, attn.value]
-    if not all(isinstance(pr, Linear) for pr in projs):
+    if not all(isinstance(pr, Linear) and pr.lora_A is None for pr in projs):
         return attn
     w0 = projs[0].weight
     biases = [pr.bias if pr.bias is not None else torch.zeros(w0.shape[0], dtype=w0.dtype, device=w0.device) for pr in projs]
@@ -401,6 +429,14 @@ def fuse_qkv_params(attn):
 
 def mlp(x, p, dtype=torch.bfloat16, activation=gelu):
     return dense(activation(dense(x, p.fc1, dtype)), p.fc2, dtype)
+
+
+def causal_mask(Tq: int, Tk: int, offset: int = 0, device=None):
+    """(1, 1, Tq, Tk) boolean lower-triangular mask, True = attend; offset
+    shifts the query positions (cached decode)."""
+    q = torch.arange(Tq, device=device)[:, None] + offset
+    k = torch.arange(Tk, device=device)[None, :]
+    return (k <= q)[None, None]
 
 
 def conv1d(x, p, stride: int = 1, padding=(0, 0), groups: int = 1, dtype=torch.bfloat16):

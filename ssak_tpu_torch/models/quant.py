@@ -1,6 +1,6 @@
 """Weight-only int8 / int4 quantization (counterpart of
 ssak_tpu.models.quant: quantize_kernel, dequantize_kernel,
-quantize_params, quantized_bytes).
+quantize_params, quantized_bytes, partition_trainable, merge_partition).
 
 A quantized dense layer is a `layers.QuantLinear` holding ssak_tpu's
 payload, bit for bit the numpy original's (f32 division,
@@ -86,7 +86,9 @@ def quantize_params(module, bits: int = 8, targets: str = DEFAULT_TARGETS, min_s
     """Replace, IN PLACE, every `layers.Linear` whose ssak_tpu parameter
     path ('/decoder/blocks/0/attn/query/kernel' for the module
     'decoder.blocks.0.attn.query') matches `targets` and whose weight has at
-    least `min_size` values by a QuantLinear. Returns the module."""
+    least `min_size` values by a QuantLinear. A layer's LoRA adapter stays
+    on it, float, as ssak_tpu leaves the lora leaves untouched. Returns the
+    module."""
     from ssak_tpu_torch.models.layers import Linear, QuantLinear
 
     rx = re.compile(targets)
@@ -100,7 +102,10 @@ def quantize_params(module, bits: int = 8, targets: str = DEFAULT_TARGETS, min_s
         parent = module.get_submodule(parent_name) if parent_name else module
         lin = getattr(parent, attr)
         q, scale = quantize_kernel(lin.weight.t(), bits=bits)
-        setattr(parent, attr, QuantLinear(q, scale, lin.bias))
+        ql = QuantLinear(q, scale, lin.bias)
+        if lin.lora_A is not None:
+            ql.set_lora(lin.lora_A, lin.lora_B, lin.lora_scale)
+        setattr(parent, attr, ql)
     return module
 
 
@@ -117,3 +122,27 @@ def quantized_bytes(module) -> tuple:
             qb += n
             db += n * (2 if sub.bits == 8 else 4)
     return qb, db
+
+
+def partition_trainable(module):
+    """(trainable, frozen): the module's parameters and buffers split by
+    name into two dicts name -> tensor. Trainable are the float parameters
+    named lora_A or lora_B when any LoRA leaf exists (adapter-only
+    training), otherwise every float parameter; integer payloads, scales
+    and lora_scale never train. Gradients and optimizer state cover the
+    trainable half only (train.steps)."""
+    tensors = {**dict(module.named_buffers()), **dict(module.named_parameters())}
+    has_lora = any(k.rsplit(".", 1)[-1].startswith("lora_") for k in tensors)
+    params = dict(module.named_parameters())
+    trainable, frozen = {}, {}
+    for name, t in tensors.items():
+        leaf = name.rsplit(".", 1)[-1]
+        ok = name in params and t.is_floating_point() and (
+            not has_lora or (leaf.startswith("lora_") and leaf != "lora_scale"))
+        (trainable if ok else frozen)[name] = t
+    return trainable, frozen
+
+
+def merge_partition(trainable: dict, frozen: dict) -> dict:
+    """Inverse of partition_trainable: one dict name -> tensor."""
+    return {**frozen, **trainable}

@@ -1,8 +1,10 @@
 """Whisper encoder-decoder in PyTorch (counterpart of ssak_tpu.models.whisper):
-the serving path.
+the serving and fine-tuning paths.
 
-`WhisperModel` holds the weights as `nn.Module`s; `encode`,
-`precompute_cross_kv`, `init_cache`, `_decode_step`, `greedy_decode` and
+`WhisperModel` holds the weights as `nn.Module`s; `encode` (with
+`cfg.remat`, each block under torch.utils.checkpoint while autograd
+records), the teacher-forced `decode_train` and `cross_entropy_loss` of
+training, `precompute_cross_kv`, `init_cache`, `_decode_step`, `greedy_decode` and
 the decode family of the accurate and long-form paths (`_tile_rows`,
 `_best_of_select`, `sample_decode`, `beam_decode`, `_decode_step_padded`,
 `_apply_decode_rules`, `decode_window`) are plain functions that follow the
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ssak_tpu_torch.models import layers as L
 
@@ -48,6 +51,9 @@ class WhisperConfig:
     no_speech: int = 50362
     timestamp_begin: int = 50364
     dtype: str = "bfloat16"
+    # recompute each transformer block in the backward pass (training):
+    # activation memory O(layers) smaller for about a third more operations
+    remat: bool = False
     # int8 K/V caches (set by load_model with quantize_bits=8)
     kv_int8: bool = False
 
@@ -162,11 +168,54 @@ def encode(model: WhisperModel, mel, cfg: WhisperConfig):
     T = x.shape[1]
     pos = torch.from_numpy(L.sinusoid_position_embedding(cfg.n_audio_ctx, cfg.n_audio_state)[:T]).to(x.device)
     x = x + pos
-    for blk in enc.blocks:
+
+    def block(blk, x):
         h, _ = L.mha(L.layer_norm(x, blk.attn_ln), blk.attn, cfg.n_audio_head, dtype=dt)
         x = x + h
-        x = x + L.mlp(L.layer_norm(x, blk.mlp_ln), blk.mlp, dtype=dt)
+        return x + L.mlp(L.layer_norm(x, blk.mlp_ln), blk.mlp, dtype=dt)
+
+    for blk in enc.blocks:
+        x = _remat(block, cfg)(blk, x)
     return L.layer_norm(x, enc.ln_post)
+
+
+def _remat(block, cfg: WhisperConfig):
+    """`block` itself, or, with cfg.remat while autograd records, the block
+    under torch.utils.checkpoint (its activations recomputed in the
+    backward pass, as jax.checkpoint does)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block
+    return lambda *args: torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+
+
+def decode_train(model: WhisperModel, tokens, audio_features, cfg: WhisperConfig):
+    """Teacher-forced decoder: tokens (B, U) -> logits (B, U, V) f32, under
+    a causal mask, cross-attending to audio_features (B, T, D)."""
+    dt = cfg.compute_dtype
+    dec = model.decoder
+    U = tokens.shape[1]
+    x = dec.token_embedding[tokens.long()] + dec.positional_embedding[:U]
+    mask = L.causal_mask(U, U, device=tokens.device)
+
+    def block(blk, x, audio_features):
+        h, _ = L.mha(L.layer_norm(x, blk.attn_ln), blk.attn, cfg.n_text_head, mask=mask, dtype=dt)
+        x = x + h
+        h, _ = L.mha(L.layer_norm(x, blk.cross_attn_ln), blk.cross_attn, cfg.n_text_head, kv_x=audio_features, dtype=dt)
+        x = x + h
+        return x + L.mlp(L.layer_norm(x, blk.mlp_ln), blk.mlp, dtype=dt)
+
+    for blk in dec.blocks:
+        x = _remat(block, cfg)(blk, x, audio_features)
+    x = L.layer_norm(x, dec.ln)
+    return torch.matmul(x.to(dt), dec.token_embedding.t().to(dt)).to(torch.float32)
+
+
+def cross_entropy_loss(logits, targets, mask):
+    """Mean token negative log-likelihood over mask (no label smoothing).
+    logits (B, U, V) f32, targets (B, U) ints, mask (B, U) f32."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def fuse_decode_qkv(model: WhisperModel) -> WhisperModel:

@@ -5,9 +5,11 @@ flattened to '/'-joined keys, with '__len__' / '__tuple__' / '__none__'
 markers for sequences and None) and metadata.json ({"step", ...}).
 Rotation keeps the newest `limit` checkpoints plus any kept one (the best).
 
-The port writes `params` as ssak_tpu's wav2vec2 or Conformer tree (dense
-kernels (in, out), conv kernels (K, Cin, Cout)) and `step` under the same keys, so
-either package reads the other's params and step. Its optimizer state goes
+The port writes `params` as ssak_tpu's wav2vec2, Conformer or Whisper tree
+(dense kernels (in, out), conv kernels (K, Cin, Cout); a Whisper tree in its
+parameters' own dtypes, f16 kept, with quantized kernels and LoRA leaves
+where present) and `step` under the same keys, so either package reads the
+other's params and step. Its optimizer state goes
 under `opt_state` in the port's own layout (tensors keyed by parameter
 name), marked in the metadata; it round-trips through the port only.
 """
@@ -86,9 +88,12 @@ def opt_state_from_numpy(tree, device):
 def state_to_tree(state) -> dict:
     """Port train state {"model", "opt_state", "step"} -> the numpy tree a
     checkpoint stores."""
-    from ssak_tpu_torch.models.convert import ctc_to_tree
+    from ssak_tpu_torch.models.convert import ctc_to_tree, whisper_to_tree
+    from ssak_tpu_torch.models.whisper import WhisperModel
 
-    return {"params": ctc_to_tree(state["model"]), "opt_state": _to_numpy(state["opt_state"]),
+    model = state["model"]
+    params = whisper_to_tree(model) if isinstance(model, WhisperModel) else ctc_to_tree(model)
+    return {"params": params, "opt_state": _to_numpy(state["opt_state"]),
             "step": np.asarray(int(state["step"]), np.int32)}
 
 

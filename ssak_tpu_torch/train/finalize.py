@@ -8,9 +8,8 @@ The export is ssak_tpu's format, so either package reads the other's:
     ssak_config.json   {"model_type", "config": {...}}
     weights.npz        the parameter tree, flattened (train.checkpoint._flatten)
     vocab.json         the CTC tokenizer's vocabulary (CTC models)
-A Whisper config written by ssak_tpu carries `remat`, a training switch
-that the port's WhisperConfig lacks: it is dropped on load. The export
-runs on the host; like every entry point of the port, `main` asks for the
+A Whisper config carries `remat`, the training switch, in both
+packages. The export runs on the host; like every entry point of the port, `main` asks for the
 card unless --device cpu is given, and raises without one.
 """
 
@@ -47,7 +46,7 @@ def _config_from_meta(mtype: str, conf: dict):
         return ConformerConfig(**conf)
     from ssak_tpu_torch.models.whisper import WhisperConfig
 
-    return WhisperConfig(**{k: v for k, v in conf.items() if k != "remat"})
+    return WhisperConfig(**conf)
 
 
 def load_exported(model_dir: str):

@@ -1,6 +1,7 @@
-"""Where the time goes in the port's CTC train step, on one CUDA card.
+"""Where the time goes in the port's CTC and Whisper train steps, on one CUDA card.
 
     python3 -m ssak_tpu_torch.train.profile [--preset base] [--batch 32] [--seconds 15] [--labels 256] [--tf32]
+    python3 -m ssak_tpu_torch.train.profile --preset whisper_large3_lora[_int8|_int4] [--batch 4] [--remat]
 
 --preset names a wav2vec2 preset (base, large, xlsr) or `conformer_large`:
 NeMo Conformer-CTC Large at the widths of an stt_en_conformer_ctc_large
@@ -18,6 +19,17 @@ audio and labels, as CTCTrainer feeds it; two warm-up steps, then
     was blocked on a full command queue, device time by kernel name;
   - one train step under torch.cuda.set_sync_debug_mode: the lines where
     the host waited for the card.
+The whisper_large3_lora presets time the step of train_whisper's LoRA
+runs: a seeded Whisper large-v3 (random weights at the published widths),
+rank-8 adapters on the attention query / value projections, the base in
+bf16 (`whisper_large3_lora`) or quantized to int8 / int4 after the
+adapters were added (`_int8`, `_int4`), bf16 compute; one batch of
+--batch 30 s windows (3,000 mel frames) and U = 445 teacher-forced tokens
+(large-v3's 448-slot context less 8, plus a 4-token prompt and eot); phase
+times of the encoder forward, the decoder forward with the loss, the
+backward and the optimizer over the adapters, then the same trace, peak
+memory and synchronizing calls; --remat recomputes each block in the
+backward pass.
 TF32 is off (matmul and cuDNN) unless --tf32, as in chip_smoke.py.
 Prints one JSON object. Numbers are only meaningful on the card; the
 script refuses to run without one.
@@ -202,6 +214,92 @@ def profile(torch, preset, batch, seconds, n_labels):
     return res
 
 
+WHISPER_PRESETS = {"whisper_large3_lora": 0, "whisper_large3_lora_int8": 8, "whisper_large3_lora_int4": 4}
+
+
+def profile_whisper(torch, preset, batch, remat=False, rank=8, n_tokens=445):
+    """Phase times, trace and peak memory of make_whisper_train_step's
+    partitioned step on a seeded large-v3, as train_whisper sets it up for
+    --lora (and --load_in_8bit / --load_in_4bit, by `preset`)."""
+    import dataclasses
+
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.models.lora import add_lora
+    from ssak_tpu_torch.models.quant import partition_trainable, quantize_params
+    from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
+    from ssak_tpu_torch.train import optim
+    from ssak_tpu_torch.train import steps as TS
+
+    dev = torch.device("cuda", 0)
+    bits = WHISPER_PRESETS[preset]
+    cfg = dataclasses.replace(W.make_config("large-v3"), remat=remat)
+    with torch.no_grad():
+        model = W.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    if not bits:
+        model = model.to(torch.bfloat16)
+    add_lora(model, rank=rank, generator=torch.Generator().manual_seed(0))
+    if bits:
+        quantize_params(model, bits=bits)
+    opt = TS.make_optimizer(learning_rate=1e-5, warmup_steps=2, total_steps=100)
+    state = TS.init_train_state(model, opt, quantized=True)
+    step = TS.make_whisper_train_step(cfg, opt, quantized=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    audio = torch.randn(batch, 480000, generator=g, device=dev) * 0.1
+    tokens = torch.randint(10, 50000, (batch, n_tokens + 1), generator=g, device=dev)
+    mask = torch.ones(batch, n_tokens, device=dev)
+    mask[:, :3] = 0
+    b = {"mel": log_mel_spectrogram(audio, n_mels=cfg.n_mels), "tokens_in": tokens[:, :-1], "tokens_out": tokens[:, 1:],
+         "token_mask": mask}
+    for _ in range(2):
+        step(state, b)
+    torch.cuda.synchronize()
+    trainable, _ = partition_trainable(model)
+    res = {"preset": preset, "family": "whisper", "batch": batch, "seconds": 30.0, "frames": 1500, "tokens": n_tokens,
+           "lora_rank": rank, "bits": bits, "remat": remat, "trainable_params": sum(p.numel() for p in trainable.values()),
+           "card": torch.cuda.get_device_name(0),
+           "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}
+    with torch.no_grad():
+        af = W.encode(model, b["mel"], cfg)
+
+    def encoder():
+        with torch.no_grad():
+            W.encode(model, b["mel"], cfg)
+
+    def decoder_loss():
+        with torch.no_grad():
+            W.cross_entropy_loss(W.decode_train(model, b["tokens_in"], af, cfg), b["tokens_out"], b["token_mask"])
+
+    def forward_backward():
+        for p in trainable.values():
+            p.grad = None
+        enc = W.encode(model, b["mel"], cfg)
+        W.cross_entropy_loss(W.decode_train(model, b["tokens_in"], enc, cfg), b["tokens_out"], b["token_mask"]).backward()
+
+    forward_backward()
+    grads = {k: p.grad.clone() for k, p in trainable.items()}
+    for p in trainable.values():
+        p.grad = None
+
+    def optimizer():
+        optim.global_norm(grads.values())
+        return opt.update(grads, state["opt_state"], {k: p.detach() for k, p in trainable.items()})[0]
+
+    res["encoder_ms"], _ = _mean_events(torch, encoder)
+    res["decoder_loss_ms"], _ = _mean_events(torch, decoder_loss)
+    fwd_bwd_ms, _ = _mean_events(torch, forward_backward)
+    res["backward_ms"] = fwd_bwd_ms - res["encoder_ms"] - res["decoder_loss_ms"]
+    res["optimizer_ms"], res["optimizer_enqueue_ms"] = _mean_events(torch, optimizer)
+    del af, grads
+    for p in trainable.values():
+        p.grad = None
+    res["train_step_ms"], res["train_step_enqueue_ms"] = _mean_events(torch, lambda: step(state, b))
+    torch.cuda.reset_peak_memory_stats()
+    res["train_step_trace"] = _trace(torch, lambda: step(state, b))
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["synchronizing_calls"] = _synchronizing_calls(torch, lambda: step(state, b))
+    return res
+
+
 def _synchronizing_calls(torch, fn):
     """Where fn makes the host wait for the card: the warnings of
     torch.cuda.set_sync_debug_mode, with the Python line that raised each."""
@@ -220,8 +318,10 @@ def _synchronizing_calls(torch, fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="base", help="wav2vec2 preset (base, large, xlsr) or conformer_large")
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--preset", default="base", help="wav2vec2 preset (base, large, xlsr), conformer_large, or "
+                    "whisper_large3_lora[_int8|_int4]")
+    ap.add_argument("--batch", type=int, default=None, help="rows per batch (default 32; 4 for the Whisper presets)")
+    ap.add_argument("--remat", action="store_true", help="Whisper presets: recompute each block in the backward pass")
     ap.add_argument("--seconds", type=float, default=15.0)
     ap.add_argument("--labels", type=int, default=256)
     ap.add_argument("--tf32", action="store_true", help="leave TF32 on for matmul and cuDNN")
@@ -233,7 +333,11 @@ def main():
         return 3
     torch.backends.cuda.matmul.allow_tf32 = args.tf32
     torch.backends.cudnn.allow_tf32 = args.tf32
-    print(json.dumps(profile(torch, args.preset, args.batch, args.seconds, args.labels)), flush=True)
+    if args.preset in WHISPER_PRESETS:
+        res = profile_whisper(torch, args.preset, args.batch or 4, remat=args.remat)
+    else:
+        res = profile(torch, args.preset, args.batch or 32, args.seconds, args.labels)
+    print(json.dumps(res), flush=True)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""CTC train and eval steps (counterpart of the CTC half of ssak_tpu.train.steps).
+"""CTC and Whisper train steps, CTC eval step (counterpart of ssak_tpu.train.steps).
 
 A step runs eagerly: the wav2vec2 or Conformer forward (`family`) in the
 config's compute dtype (bf16 products over f32 master weights), log_softmax
@@ -17,7 +17,13 @@ zero gradients, but they stay in the optimizer, so AdamW's decoupled decay
 still shrinks them, exactly as in ssak_tpu. The Conformer has no feature
 encoder to freeze: the flag is ignored for it, as in ssak_tpu.
 
-The Whisper step comes with LoRA (ROADMAP.md slice 8).
+The Whisper step (`make_whisper_train_step`) is teacher-forced
+cross-entropy over the encoder and `decode_train`. Its partitioned form
+(`quantized=True`, built by `init_train_state(..., quantized=True)`) takes
+gradients, their norm and the optimizer update over the trainable
+parameters of models.quant.partition_trainable only (the LoRA adapters
+when any exist), so a frozen base, float or int8 / int4, stays bit for bit
+as it was.
 """
 
 import torch
@@ -145,12 +151,22 @@ class NewBob:
         return self.lr
 
 
-def init_train_state(model, optimizer):
+def init_train_state(model, optimizer, quantized: bool = False):
     """{"model", "opt_state", "step"}: the model's parameters become
     trainable leaves (requires_grad) and the optimizer state is built over
-    all of them; the step counter is a host integer."""
-    model.requires_grad_(True)
-    return {"model": model, "opt_state": optimizer.init(dict(model.named_parameters())), "step": 0}
+    all of them; the step counter is a host integer. quantized=True: only
+    the trainable partition (models.quant.partition_trainable) requires
+    grad and has optimizer state; the rest stays frozen."""
+    if not quantized:
+        model.requires_grad_(True)
+        return {"model": model, "opt_state": optimizer.init(dict(model.named_parameters())), "step": 0}
+    from ssak_tpu_torch.models.quant import partition_trainable
+
+    model.requires_grad_(False)
+    trainable, _ = partition_trainable(model)
+    for p in trainable.values():
+        p.requires_grad_(True)
+    return {"model": model, "opt_state": optimizer.init(trainable), "step": 0}
 
 
 def _family(family):
@@ -242,5 +258,46 @@ def make_ctc_eval_step(cfg, family: str = "wav2vec2"):
             loss = ctc_loss(log_probs, frame_lengths, batch["labels"], batch["label_lengths"], blank_id=cfg.blank_id)
             tokens, lengths = ctc_greedy_decode(log_probs, frame_lengths, blank_id=cfg.blank_id)
         return {"loss": loss, "tokens": tokens, "token_lengths": lengths}
+
+    return step
+
+
+def make_whisper_train_step(cfg, optimizer, grad_mask=None, quantized: bool = False):
+    """step(state, batch) -> (state, {"loss", "grad_norm"} device scalars).
+    batch: {mel (B, n_mels, T) f32, tokens_in (B, U), tokens_out (B, U),
+    token_mask (B, U) f32} on the model's device (teacher forcing). The
+    state is updated IN PLACE and returned. grad_mask: optional
+    fn(grads) -> grads over name -> tensor dicts (models.lora.lora_grad_mask
+    for adapter-only training over a full optimizer state).
+    quantized=True: the partitioned step (the state from
+    init_train_state(..., quantized=True)); grad_norm is the pre-clip norm
+    of the trainable gradients."""
+    from ssak_tpu_torch.models import whisper
+    from ssak_tpu_torch.models.quant import partition_trainable
+
+    def step(state, batch):
+        with _cudnn_benchmark():
+            return _step(state, batch)
+
+    def _step(state, batch):
+        model = state["model"]
+        params = partition_trainable(model)[0] if quantized else dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        enc = whisper.encode(model, batch["mel"], cfg)
+        logits = whisper.decode_train(model, batch["tokens_in"], enc, cfg)
+        loss = whisper.cross_entropy_loss(logits, batch["tokens_out"], batch["token_mask"])
+        del enc, logits
+        loss.backward()
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in params.items()}
+        if grad_mask is not None and not quantized:
+            grads = grad_mask(grads)
+        gnorm = optim.global_norm(grads.values())
+        updates, state["opt_state"] = optimizer.update(grads, state["opt_state"], {k: p.detach() for k, p in params.items()})
+        optim.apply_updates(params, updates)
+        for p in params.values():
+            p.grad = None
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step

@@ -124,6 +124,7 @@ def test_jax_exports_load_in_the_port(tmp_path):
         assert json.load(f)["config"]["remat"] is True
     m = G.load_model(wdir, device="cpu")
     assert m.type == "whisper" and m.tokenizer is None and m.cfg.n_vocab == wcfg.n_vocab
+    assert m.cfg.remat is True  # the training switch is carried over
     rng = np.random.RandomState(0)
     mel = (rng.randn(2, wcfg.n_mels, 2 * wcfg.n_audio_ctx) * 0.5).astype(np.float32)
     jp = jax.tree_util.tree_map(jnp.asarray, wtree)

@@ -193,3 +193,26 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
     assert not (tmp_path / "runs").exists()
+
+
+def test_whisper_fine_tuning_modules_are_guarded_and_need_a_card(tmp_path):
+    """models/lora.py and train/whisper_loop.py are among the files the
+    import guards read; train_whisper and python -m
+    ssak_tpu_torch.train.whisper_loop run on cuda unless asked for the CPU,
+    and raise without a card before writing anything."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"ssak_tpu_torch/models/lora.py", "ssak_tpu_torch/train/whisper_loop.py"} <= files
+    _need_gpu_less_host()
+    from ssak_tpu_torch.models import whisper
+    from ssak_tpu_torch.train.whisper_loop import train_whisper
+
+    cfg = whisper.make_config("tiny_test")
+    model = whisper.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_whisper(model, cfg, None, [], [], str(tmp_path / "a"), max_steps=1)
+    assert not (tmp_path / "a").exists()
+    cmd = [sys.executable, "-m", "ssak_tpu_torch.train.whisper_loop", str(tmp_path), str(tmp_path), "--output_dir",
+           str(tmp_path / "runs")]
+    refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
+    assert not (tmp_path / "runs").exists()

@@ -180,7 +180,7 @@ def test_whisper_tree_is_bit_identical_and_logits_match(tmp_path, dtype, fmt):
     d = hf_whisper_dir(str(tmp_path / "w"), dtype=dtype, fmt=fmt)
     mine, cfg = H.load_whisper(d)
     ref, jcfg = JH.load_whisper(d)
-    assert {k: v for k, v in dataclasses.asdict(jcfg).items() if k != "remat"} == dataclasses.asdict(cfg)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)  # remat included, in both packages since slice 8a
     assert assert_same_tree(mine, ref) > 40
     from ssak_tpu_torch.models.convert import whisper_from_tree
 
