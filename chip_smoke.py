@@ -58,16 +58,27 @@ and prints no result):
              load_model (the trainer's log-probs on an eval batch); then
              wav2vec2-xlsr CTC serving at full width from an HF directory
              (pytorch_model.bin) through ctc_infer over a Kaldi dir of 16
-             files (30 s, 140 s and chunked 200 s audio), greedy, and with
-             the device beam
-             (width 16, lexicon, word 3-gram) over the 14 files of one
-             chunk; then a seeded NeMo Conformer-CTC Large written as a
+             files (30 s, 140 s and chunked 200 s audio), greedy in bf16
+             and quantized on load (--load_in_8bit, --load_in_4bit: the
+             same encoder frames, L1 on every 140 s call, K2 and K3 at 0,
+             the CER against the bf16 transcripts), and with the device
+             beam (width 16, lexicon, word 3-gram) over the 14 files of one
+             chunk; the host prefix beam (width 16, lexicon, a word 4-gram
+             scored by the port's C++ library) over 4 files in process and
+             over 4 spawned workers (the same transcripts; each worker, read
+             once after the decode, with its CUDA untouched); streaming: the port's WebSocket server over
+             the same directory, two 20-30 s files in 8 kB chunks through
+             the port's remote_streaming and a lockstep client (one partial
+             per chunk, the text, the close; the texts of an in-process
+             StreamingCTCDecoder; ms per block and chunk-to-reply
+             latency); then a seeded NeMo Conformer-CTC Large written as a
              .nemo archive (model_config.yaml by hand, model_weights.ckpt
              by torch.save; 18 layers of d 512, rel-pos attention, 128
              pieces + the blank last), loaded back against what was
              written, served through ctc_infer over the same 16 files
-             (greedy; the device beam of width 16 over the 14 of one
-             chunk) and fine-tuned through the train CLI's --base_model
+             (greedy in bf16, int8 and int4; the device beam of width 16
+             over the 14 of one chunk) and fine-tuned through the train
+             CLI's --base_model
              (batch 16 x 15 s, 6 steps, eval, checkpoint, resume, then
              sak-finalize and load_model of the export: the trainer's
              log-probs); then wav2vec2-xlsr CTC training at full width and depth
@@ -83,7 +94,13 @@ and prints no result):
              first-step logits card against CPU, and two wav2vec2 train
              steps card against CPU in f32 (large widths, 2 layers, remat),
              and CTC log-probs of a 140 s row card (through L1) against CPU
-             in bf16 (xlsr widths, 2 layers), same weights; one bf16 train
+             in bf16 (xlsr widths, 2 layers), same weights, and of the same
+             model quantized to int8 (correlation >= 0.99; int8 and int4
+             against bf16 on the card, reported); a
+             bf16 dense with a bias at x 4 x 6,999 x 1,024 -> 4,096, card
+             against CPU and against an f64 product rounded once (>= 99.9%
+             equal, the rest one bf16 step), timed beside the parent's
+             double rounding and an f32 sum cast afterwards; one bf16 train
              step at the 100 s bucket (xlsr widths, 2 layers, remat), the
              card through L1 forward and backward, the CPU unfused; a NeMo
              archive at Conformer Large widths and 2 layers in f32: the
@@ -2228,9 +2245,10 @@ class BeamCalls:
         return [dict(shape=s, card_ms=a.elapsed_time(b), enqueue_ms=h) for s, a, b, h in self.calls]
 
 
-def write_lexicon_lm(root, seed=11, n_words=500, n_sentences=2000):
-    """A seeded lexicon of a-z words and a word 3-gram ARPA trained on
-    seeded sentences of them with the port's train_ngram_lm."""
+def write_lexicon_lm(root, seed=11, n_words=500, n_sentences=2000, order=LM_ORDER):
+    """A seeded lexicon of a-z words and a word n-gram ARPA (a 3-gram by
+    default) trained on seeded sentences of them with the port's
+    train_ngram_lm."""
     import numpy as np
 
     from ssak_tpu_torch.decode.lm import train_ngram_lm
@@ -2238,20 +2256,24 @@ def write_lexicon_lm(root, seed=11, n_words=500, n_sentences=2000):
     rng = np.random.RandomState(seed)
     words = sorted({"".join(rng.choice(list(CHARS), size=rng.randint(2, 9))) for _ in range(n_words)})
     sentences = [" ".join(rng.choice(words, size=rng.randint(3, 12))) for _ in range(n_sentences)]
-    lexicon, arpa = os.path.join(root, "lexicon.txt"), os.path.join(root, "lm3.arpa")
+    lexicon, arpa = os.path.join(root, "lexicon.txt"), os.path.join(root, f"lm{order}.arpa")
     with open(lexicon, "w", encoding="utf-8") as f:
         f.write("\n".join(words) + "\n")
-    train_ngram_lm(sentences, order=LM_ORDER, output_arpa=arpa)
+    train_ngram_lm(sentences, order=order, output_arpa=arpa)
     return lexicon, arpa
 
 
-def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, arpa=None):
+def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, arpa=None, quantize_bits=0,
+                    texts=None):
     """python -m ssak_tpu_torch.infer.ctc_infer DIR MODEL_DIR on the xlsr
     directory of prepare_serving_dir (xlsr widths, 24 layers, bf16, auto
     packing), greedy or with the device beam (width 16, lexicon, word
-    3-gram fused on the card), through ctc_infer; L1's launches checked
-    against 24 x the encoder calls at >= FLASH_MIN_SEQ frames, every other
-    kernel at 0."""
+    3-gram fused on the card), through ctc_infer; with quantize_bits (8 or
+    4, --load_in_8bit / --load_in_4bit) the model is quantized on load and
+    its encoder rows (more than 64) dequantize every weight, so K2 and K3
+    stay at 0 launches; L1's launches checked against 24 x the encoder
+    calls at >= FLASH_MIN_SEQ frames, every other kernel at 0. The
+    transcripts go into `texts` when it is given."""
     from ssak_tpu_torch.infer.ctc_infer import ctc_infer
     from ssak_tpu_torch.infer.general import seeded_ctc_tokenizer
     from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
@@ -2265,7 +2287,7 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, 
     torch.cuda.reset_peak_memory_stats()
     with EncoderCalls() as enc, BeamCalls(torch) as beams:
         t0 = time.perf_counter()
-        it = ctc_infer(model_dir, kaldi_dir, output_ids=True, **kw)
+        it = ctc_infer(model_dir, kaldi_dir, output_ids=True, quantize_bits=quantize_bits, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         reset_counts()
@@ -2274,7 +2296,9 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, 
         t2 = time.perf_counter()
         launches = kernel_launches()
     del it
-    tag = f"ctc serving {mode}"
+    tag = f"ctc serving {mode}" + (f" int{quantize_bits}" if quantize_bits else "")
+    if texts is not None:
+        texts.extend(t for _, t in out)
     if [i for i, _ in out] != ids:
         raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
     alphabet = set("".join(seeded_ctc_tokenizer(cfg.vocab_size).vocab)) | {" "}
@@ -2292,7 +2316,8 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, 
     if mode == "beam" and len(beam) != len(want_frames):
         raise AssertionError(f"{tag}: {len(beam)} device-beam calls for {len(want_frames)} batches")
     audio_s = sum(lens) / 16000.0
-    res = dict(config=f"{SERVE_MODEL} {mode}" + (f" (width {BEAM_WIDTH}, lexicon, word {LM_ORDER}-gram)" if kw else ""),
+    res = dict(config=f"{SERVE_MODEL} {mode}" + (f" (width {BEAM_WIDTH}, lexicon, word {LM_ORDER}-gram)" if kw else "")
+               + (f" --load_in_{quantize_bits}bit" if quantize_bits else ""),
                files=len(ids), audio_s=audio_s, encoder_calls=len(enc.frames), encoder_frames=enc.frames,
                flash_encoder_calls=flash_calls, load_s=t1 - t0, run_s=t2 - t1, audio_s_per_s=audio_s / (t2 - t1),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
@@ -2301,6 +2326,202 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, 
         res["device_beam"] = beam
         res["device_beam_ms_140s_batch"] = [b["card_ms"] for b in beam if b["shape"][1] >= FLASH_MIN_SEQ]
     log(f"slice {json.dumps(res)}")
+    return res
+
+
+def edit_distance(a, b):
+    """Levenshtein distance between two strings, one numpy row per
+    character of `a` (insertions by a running minimum)."""
+    import numpy as np
+
+    if not a or not b:
+        return len(a) + len(b)
+    bb = np.array([ord(c) for c in b])
+    cols = np.arange(len(b) + 1)
+    prev = cols.copy()
+    for i, ch in enumerate(a, 1):
+        cur = np.empty_like(prev)
+        cur[0] = i
+        cur[1:] = np.minimum(prev[1:] + 1, prev[:-1] + (bb != ord(ch)))
+        prev = np.minimum.accumulate(cur - cols) + cols
+    return int(prev[-1])
+
+
+def cer(refs, hyps):
+    """Character error rate of `hyps` against `refs`: edits over reference
+    characters, summed over the pairs."""
+    chars = sum(len(r) for r in refs)
+    return sum(edit_distance(r, h) for r, h in zip(refs, hyps)) / max(1, chars)
+
+
+HOST_BEAM_FILES, HOST_BEAM_WORKERS, HOST_LM_ORDER = 4, 4, 4
+
+
+def run_host_beam(torch, root, corpus, ids, lens, model_dir):
+    """ctc_infer over the first 4 files of the serving corpus (12-28 s) with
+    the lexicon and a word 4-gram (write_lexicon_lm's generator at order 4;
+    an order above 3 sends every file to the host prefix beam, width 16),
+    in process (num_workers=0) and over 4 spawned workers (num_workers=4):
+    the same transcripts; the scorer in use the port's C++ NativeNgramLM,
+    in this process and in each of the 4 workers, read once each after the
+    pooled decode: its CUDA hidden and uninitialised; no kernel launches
+    beyond the encoder's (1,499 frames: no L1)."""
+    from ssak_tpu_torch.decode import pool as P
+    from ssak_tpu_torch.decode.native_lm import NativeNgramLM, load_lm
+    from ssak_tpu_torch.infer.ctc_infer import ctc_infer
+
+    os.makedirs(os.path.join(root, "lm4"), exist_ok=True)
+    lexicon, arpa = write_lexicon_lm(os.path.join(root, "lm4"), order=HOST_LM_ORDER)
+    if not isinstance(load_lm(arpa), NativeNgramLM):
+        raise AssertionError("host beam: load_lm did not give the native scorer")
+    sub = kaldi_subset(os.path.join(root, "host_beam"), corpus, HOST_BEAM_FILES)
+    states, base = [], P.HostBeamPool
+
+    class RecordingPool(base):  # reads every worker once, after the decode, before the pool closes
+        def close(self):
+            states.extend(self.worker_states())
+            super().close()
+
+    runs = {}
+    P.HostBeamPool = RecordingPool
+    try:
+        for workers in (0, HOST_BEAM_WORKERS):
+            gc.collect()
+            t0 = time.perf_counter()
+            it = ctc_infer(model_dir, sub, output_ids=True, beam_width=BEAM_WIDTH, lexicon_path=lexicon, lm_path=arpa,
+                           num_workers=workers)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reset_counts()
+            out = list(it)
+            torch.cuda.synchronize()
+            runs[workers] = dict(texts=out, load_s=t1 - t0, run_s=time.perf_counter() - t1, launches=kernel_launches(),
+                                 pool_workers=len({s["pid"] for s in states}))
+            del it
+    finally:
+        P.HostBeamPool = base
+    serial, pooled = runs[0], runs[HOST_BEAM_WORKERS]
+    tag = "host beam"
+    if [i for i, _ in serial["texts"]] != ids[:HOST_BEAM_FILES] or pooled["texts"] != serial["texts"]:
+        raise AssertionError(f"{tag}: pooled transcripts {pooled['texts']} != in-process {serial['texts']}")
+    if serial["pool_workers"] or pooled["pool_workers"] != HOST_BEAM_WORKERS or len(states) != HOST_BEAM_WORKERS:
+        raise AssertionError(f"{tag}: pool workers in process {serial['pool_workers']}, pooled {pooled['pool_workers']}")
+    if not all(s["lm"] == "NativeNgramLM" and not s["cuda_initialized"] and s["cuda_visible_devices"] == ""
+               for s in states):
+        raise AssertionError(f"{tag}: worker states {states}")
+    if any(v for r in runs.values() for v in r["launches"].values()):
+        raise AssertionError(f"{tag}: kernel launches {[r['launches'] for r in runs.values()]}, expected none")
+    audio_s = sum(lens[:HOST_BEAM_FILES]) / 16000.0
+    res = dict(config=f"{SERVE_MODEL} host beam (width {BEAM_WIDTH}, lexicon, word {HOST_LM_ORDER}-gram, "
+                      f"NativeNgramLM), in process and over {HOST_BEAM_WORKERS} workers",
+               files=HOST_BEAM_FILES, audio_s=audio_s, load_s=serial["load_s"], run_s=serial["run_s"],
+               pooled_load_s=pooled["load_s"], pooled_run_s=pooled["run_s"], pool_workers_seen=pooled["pool_workers"],
+               worker_states=states, audio_s_per_s=audio_s / serial["run_s"],
+               pooled_audio_s_per_s=audio_s / pooled["run_s"], nonempty=sum(bool(t) for _, t in serial["texts"]),
+               launches=serial["launches"], sample=serial["texts"][-1][1][:80])
+    log(f"slice {json.dumps(res)}")
+    return res
+
+
+STREAM_FILES, STREAM_SECONDS, STREAM_CHUNK = 2, (20.0, 30.0), 4096  # 4,096 int16 samples: 8 kB chunks
+
+
+def run_streaming(torch, dev, model_dir):
+    """python -m ssak_tpu_torch.infer.streaming --model MODEL_DIR on the xlsr
+    directory (bf16, 2 s blocks with 0.64 s of left context): the port's
+    server on 127.0.0.1:0 in this process, two seeded files of 20-30 s
+    streamed in 8 kB int16 chunks through the port's remote_streaming (one
+    partial per chunk, then one text; the connection then closes), then
+    again by a client that waits for each reply (the LinTO reference
+    client's way), which times chunk-to-reply latency; every final text is
+    an in-process StreamingCTCDecoder's over the same samples, which also
+    gives the ms per 2 s block. No kernel launches (231 frames a block)."""
+    import asyncio
+
+    import numpy as np
+
+    from ssak_tpu_torch.infer import websocket as WS
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.infer.streaming import StreamingCTCDecoder, serve_streaming
+    from ssak_tpu_torch.remote.client import array_to_bytes, remote_streaming
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = load_model(model_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(13)
+    audios = [tones(rng, float(s)) for s in rng.uniform(*STREAM_SECONDS, STREAM_FILES)]
+    chunks = [[array_to_bytes(a[i : i + STREAM_CHUNK]) for i in range(0, len(a), STREAM_CHUNK)] for a in audios]
+    reset_counts()
+    want, block_ms = [], []
+    for cs in chunks:
+        dec = StreamingCTCDecoder(model)
+        for c in cs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if dec.accept_waveform(c):
+                torch.cuda.synchronize()
+                block_ms.append((time.perf_counter() - t) * 1e3)
+        want.append(dec.finalize())
+
+    async def serve_and_stream():
+        server = await serve_streaming(model, "127.0.0.1", 0)
+        url = f"ws://127.0.0.1:{server.sockets[0].getsockname()[1]}"
+        streamed, lockstep, latency = [], [], []
+        try:
+            for a in audios:
+                events = []
+                text = await remote_streaming(url, a, chunk_samples=STREAM_CHUNK,
+                                              on_partial=lambda p: events.append("partial"),
+                                              on_final=lambda t: events.append("text"))
+                streamed.append((text, events))
+            for cs in chunks:
+                replies, closed = [], False
+                async with WS.connect(url) as ws:
+                    await ws.send(json.dumps({"config": {"sample_rate": 16000}}))
+                    for c in cs:
+                        t = time.perf_counter()
+                        await ws.send(c)
+                        replies.append(json.loads(await asyncio.wait_for(ws.recv(), 60)))
+                        latency.append((time.perf_counter() - t) * 1e3)
+                    await ws.send(json.dumps({"eof": 1}))
+                    replies.append(json.loads(await asyncio.wait_for(ws.recv(), 60)))
+                    try:
+                        await asyncio.wait_for(ws.recv(), 30)
+                    except WS.ConnectionClosedOK:
+                        closed = True
+                lockstep.append((replies, closed))
+        finally:
+            server.close()
+            await server.wait_closed()
+        return streamed, lockstep, latency
+
+    t1 = time.perf_counter()
+    streamed, lockstep, latency = asyncio.run(serve_and_stream())
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t1
+    launches = kernel_launches()
+    tag = "streaming"
+    for cs, final, (text, events), (replies, closed) in zip(chunks, want, streamed, lockstep):
+        if events != ["partial"] * len(cs) + ["text"] or text != final.strip():
+            raise AssertionError(f"{tag}: remote_streaming gave {events.count('partial')} partials of {len(cs)} chunks, "
+                                 f"events {events[-3:]}, text {text[:60]!r}, in process {final[:60]!r}")
+        if (not closed or any(set(r) != {"partial"} for r in replies[:-1]) or len(replies) != len(cs) + 1
+                or replies[-1] != {"text": final}):
+            raise AssertionError(f"{tag}: lockstep replies {replies[-2:]}, closed {closed}, in process {final[:60]!r}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected none")
+    lat = sorted(latency)
+    res = dict(config=f"{SERVE_MODEL} streaming (2 s blocks, 0.64 s context, 8 kB chunks)", files=STREAM_FILES,
+               audio_s=sum(a.size for a in audios) / 16000.0, chunks=sum(len(cs) for cs in chunks), load_s=load_s,
+               served_s=served_s, blocks=len(block_ms), block_ms_mean=sum(block_ms) / len(block_ms),
+               block_ms_max=max(block_ms), latency_ms_p50=lat[len(lat) // 2], latency_ms_max=lat[-1],
+               nonempty=sum(bool(t) for t in want), launches=launches, sample=want[-1][:80])
+    log(f"slice {json.dumps(res)}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2554,15 +2775,20 @@ def nemo_frames(cfg, n_samples):
     return subsampled_length(cfg, mel_frame_count(cfg, n_samples))
 
 
-def run_nemo_serving(torch, dev, kaldi_dir, ids, lens, mode, archive, cfg):
+def run_nemo_serving(torch, dev, kaldi_dir, ids, lens, mode, archive, cfg, quantize_bits=0, texts=None):
     """python -m ssak_tpu_torch.infer.ctc_infer DIR ARCHIVE on the NeMo
     Conformer-CTC Large archive: greedy, or the device beam (width 16, no
-    lexicon or LM: those read character vocabularies), through ctc_infer;
-    the encoder's frames per call against the port's packing, every kernel
-    counter at 0 (the Conformer's attention stays unfused, as in ssak_tpu)."""
+    lexicon or LM: those read character vocabularies), through ctc_infer,
+    with quantize_bits quantized on load; the encoder's frames per call
+    against the port's packing, every kernel counter at 0 (the Conformer's
+    attention stays unfused, as in ssak_tpu, and its quantized dense layers
+    dequantize: encoder rows are more than K2 and K3 take). The transcripts
+    go into `texts` when it is given."""
     from ssak_tpu_torch.infer.ctc_infer import ctc_infer
 
     kw = dict(beam_width=NEMO_SERVE_BEAM) if mode == "beam" else {}
+    if quantize_bits:
+        kw["quantize_bits"] = quantize_bits
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2577,7 +2803,9 @@ def run_nemo_serving(torch, dev, kaldi_dir, ids, lens, mode, archive, cfg):
         t2 = time.perf_counter()
         launches = kernel_launches()
     del it
-    tag = f"nemo serving {mode}"
+    tag = f"nemo serving {mode}" + (f" int{quantize_bits}" if quantize_bits else "")
+    if texts is not None:
+        texts.extend(t for _, t in out)
     if [i for i, _ in out] != ids:
         raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
     alphabet = set("".join(nemo_vocabulary())) - {"▁"} | {" "}
@@ -2592,7 +2820,8 @@ def run_nemo_serving(torch, dev, kaldi_dir, ids, lens, mode, archive, cfg):
     if mode == "beam" and len(beam) != len(want_frames):
         raise AssertionError(f"{tag}: {len(beam)} device-beam calls for {len(want_frames)} batches")
     audio_s = sum(lens) / 16000.0
-    res = dict(config="nemo conformer-ctc large " + mode + (f" (width {NEMO_SERVE_BEAM})" if kw else ""),
+    res = dict(config="nemo conformer-ctc large " + mode + (f" (width {NEMO_SERVE_BEAM})" if mode == "beam" else "")
+               + (f" --load_in_{quantize_bits}bit" if quantize_bits else ""),
                files=len(ids), audio_s=audio_s, encoder_calls=len(enc.frames), encoder_frames=enc.frames,
                load_s=t1 - t0, run_s=t2 - t1, audio_s_per_s=audio_s / (t2 - t1),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
@@ -2757,8 +2986,16 @@ def run_nemo(torch, dev, tmp, serving_corpus):
     gc.collect()
     torch.cuda.empty_cache()
     corpus, ids, lens = serving_corpus
+    bf16_texts = []
     out = {"nemo_archive": archive_res,
-           "nemo_serving_greedy": run_nemo_serving(torch, dev, corpus, ids, lens, "greedy", archive, cfg)}
+           "nemo_serving_greedy": run_nemo_serving(torch, dev, corpus, ids, lens, "greedy", archive, cfg,
+                                                   texts=bf16_texts)}
+    for bits in (8, 4):
+        texts = []
+        res = run_nemo_serving(torch, dev, corpus, ids, lens, "greedy", archive, cfg, quantize_bits=bits, texts=texts)
+        res["cer_vs_bf16"] = cer(bf16_texts, texts)
+        log(f"nemo serving greedy int{bits}: CER against the bf16 transcripts {res['cer_vs_bf16']}")
+        out[f"nemo_serving_int{bits}"] = res
     n_beam = sum(n for n, _lo, hi in SERVE_GROUPS if hi <= 140.0)
     out["nemo_serving_beam"] = run_nemo_serving(torch, dev, kaldi_subset(os.path.join(tmp, "nemo_beam"), corpus, n_beam),
                                                 ids[:n_beam], lens[:n_beam], "beam", archive, cfg)
@@ -2967,6 +3204,142 @@ def check_ctc_serving_card_vs_cpu(torch, dev):
     if not corr >= 0.999:
         raise AssertionError(f"ctc serving card vs cpu: correlation {corr} < 0.999")
     return res
+
+
+DENSE_SHAPE = (4, 6999, 1024, 4096)  # (B, T, d_in, d_out): xlsr's FFN up-projection at the 140 s bucket
+
+
+def bf16_steps(torch, got, ref):
+    """|got - ref| in bf16 steps at |ref|, at no less than 2^-12 of the
+    largest |ref| (an output near zero is a cancelled sum whose last f32
+    bits span several of its own steps; tests/test_torch_dense_rounding.py)."""
+    ref, got = ref.float(), got.float()
+    exp = torch.floor(torch.log2(torch.maximum(ref.abs(), 2.0**-12 * ref.abs().max())))
+    return (got - ref).abs() / torch.exp2(exp - 7)
+
+
+def check_dense_card_vs_cpu(torch, dev):
+    """layers.dense in bf16 with an f32 bias at xlsr widths (x 4 x 6,999 x
+    1,024 -> 4,096, weights N(0, 1/1,024), bias N(0, 0.25)): the card's
+    (one GEMM with an f32 result, then one pass that adds the bias and
+    rounds on the store) against the port on the CPU (the bf16 operands
+    widened to f32) and against the f64 product of the bf16 operands plus
+    the bias, rounded once; each equal in >= 99.9% of the outputs and the
+    rest one bf16 step apart; bit for bit the same product with the f32
+    sum cast afterwards (the form dense keeps for autograd), and timed
+    beside it, the parent's form (a bf16 product
+    rounded to bf16, the bias added, rounded again) and the bf16 product
+    alone, in this call."""
+    from ssak_tpu_torch.models import layers as L
+
+    B, T, D, N = DENSE_SHAPE
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(B, T, D, generator=g)
+    w = torch.randn(N, D, generator=g) / math.sqrt(D)
+    b = torch.randn(N, generator=g) * 0.5
+    bf = torch.bfloat16
+    lin = L.Linear(w.to(dev, bf), b.to(dev))
+    xb = x.to(dev, bf)
+    y_card = L.dense(xb, lin, bf)
+    y_cpu = L.dense(x, L.Linear(w, b), bf).to(dev)
+    wb = lin.weight.t()
+    y_f64 = (torch.matmul(xb.double(), wb.double()) + lin.bias.double()).to(bf)
+    res = dict(shape=list(DENSE_SHAPE))
+    for name, ref in (("cpu", y_cpu), ("f64", y_f64)):
+        steps = bf16_steps(torch, y_card, ref)
+        res[f"equal_share_vs_{name}"] = float((steps == 0).float().mean())
+        res[f"max_steps_vs_{name}"] = float(steps.max())
+    del y_cpu, y_f64
+
+    def twice(xx, ww, bb):  # the parent's dense: the bf16 product rounded, the bias added, rounded again
+        return (torch.matmul(xx, ww).to(torch.float32) + bb).to(bf)
+
+    def add_then_cast(xx, ww, bb):  # one rounding too, but the f32 sum written and read back before the cast
+        return (L.matmul_f32(xx, ww) + bb).to(bf)
+
+    res["equal_to_add_then_cast"] = bool(torch.equal(y_card, add_then_cast(xb, wb, lin.bias)))
+    args = [(xb, wb, lin.bias)]
+    res["ms"] = time_ms(torch, lambda xx, ww, bb: L.dense(xx, lin, bf), args)
+    res["add_then_cast_ms"] = time_ms(torch, add_then_cast, args)
+    res["parent_twice_ms"] = time_ms(torch, twice, args)
+    res["bf16_product_ms"] = time_ms(torch, torch.matmul, [(xb, wb)])
+    x2 = xb.reshape(-1, D)
+    res["mm_f32_out_ms"] = time_ms(torch, lambda a, ww: torch.mm(a, ww, out_dtype=torch.float32), [(x2, wb)])
+    res["addmm_f32_out_ms"] = time_ms(torch, lambda a, ww, bb: torch.addmm(bb, a, ww, out_dtype=torch.float32),
+                                      [(x2, wb, lin.bias)])
+    res["bound_ms"], res["bound_by"] = bound(2 * (B * T * D + D * N + B * T * N) + 4 * N, 2 * B * T * D * N)
+    log(f"dense bf16 card vs cpu and f64 (xlsr widths, B=4 x 6,999): {json.dumps(res)}")
+    for name in ("cpu", "f64"):
+        if not (res[f"equal_share_vs_{name}"] >= 0.999 and res[f"max_steps_vs_{name}"] <= 1.0):
+            raise AssertionError(f"dense card vs {name}: {res}")
+    if not torch.isfinite(y_card.float()).all() or not res["equal_to_add_then_cast"]:
+        raise AssertionError(f"dense: non-finite outputs on the card, or not the f32 sum cast once: {res}")
+    return res
+
+
+def check_quantized_ctc_card_vs_cpu(torch, dev):
+    """CTC log-probs of one 140 s row (7,001 frames) of a quantized model
+    (--load_in_8bit and --load_in_4bit: models.quant.quantize_params on the
+    CPU, the same payloads moved to the card) at xlsr widths and 2 layers
+    in bf16, L1 on both layers and K2 and K3 at 0 (the encoder rows
+    dequantize): int8 on the card against the port on the CPU, correlation
+    >= 0.99 (PERF.md §2's int8 / int4 limit); int8 and int4 on the card
+    against the unquantized bf16 model there, reported. The int4
+    dequantize is held card against CPU by the Whisper int4 logits above;
+    a second CPU pass at 140 s would cost ~18 s of the script's limit."""
+    import copy
+
+    import numpy as np
+
+    from ssak_tpu_torch.infer.ctc_infer import MAX_CHUNK_SAMPLES
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.quant import quantize_params
+
+    cfg = wav2vec2.make_config("xlsr", num_layers=2, vocab_size=48)
+    audio = tones(np.random.RandomState(9), 135.0)
+    x = np.zeros((1, MAX_CHUNK_SAMPLES), np.float32)
+    x[0, : audio.size] = audio
+    n = torch.tensor([audio.size])
+
+    def run(model, where):
+        with torch.no_grad():
+            lp, fl = wav2vec2.ctc_log_probs(model, torch.from_numpy(x).to(where), cfg, n.to(where))
+        return lp[0, : int(fl[0])].float().cpu()
+
+    def corr(a, b):
+        return float(np.corrcoef(a.flatten().numpy(), b.flatten().numpy())[0, 1])
+
+    bf16_card = run(wav2vec2.init_params(cfg, seed=0, device=dev), dev)
+    out = {}
+    for bits in (8, 4):
+        cpu_model = quantize_params(wav2vec2.init_params(cfg, seed=0, device="cpu"), bits=bits)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        reset_counts()
+        card = run(card_model, dev)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        res = dict(frames=card.shape[0], correlation_vs_bf16_card=corr(card, bf16_card),
+                   argmax_agreement_vs_bf16_card=float((card.argmax(-1) == bf16_card.argmax(-1)).float().mean()),
+                   launches=launches)
+        cpu = card
+        if bits == 8:
+            cpu = run(cpu_model, "cpu")
+            res.update(correlation=corr(card, cpu), max_abs_diff=float((card - cpu).abs().max()),
+                       argmax_agreement=float((card.argmax(-1) == cpu.argmax(-1)).float().mean()))
+        del cpu_model, card_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"quantized ctc {'card vs cpu' if bits == 8 else 'on the card'} (int{bits}, xlsr widths, 2 layers, bf16, "
+            f"140 s row): {json.dumps(res)}")
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = cfg.num_layers
+        frames = wav2vec2.feature_extract_output_length(cfg, audio.size)
+        if launches != want or card.shape != (frames, 48) or cpu.shape != card.shape or not torch.isfinite(card).all():
+            raise AssertionError(f"quantized ctc int{bits}: launches {launches} != {want}, shape {tuple(card.shape)}")
+        if bits == 8 and not res["correlation"] >= 0.99:
+            raise AssertionError(f"quantized ctc int{bits} card vs cpu: correlation {res['correlation']} < 0.99")
+        out[f"int{bits}"] = res
+    return out
 
 
 def check_train_step_card_vs_cpu(torch, dev):
@@ -3348,9 +3721,10 @@ def main():
     log("phase 3: large-v3 transcription from an HF directory (greedy bf16, int8, int4; int4 accurate; int4 "
         "long-form); large-v3 fine-tuning from that directory (LoRA over bf16, int8 and int4 bases; the full fine-tune, "
         "checkpoint and resume); wav2vec2-base CTC training, finalized and reloaded; wav2vec2-xlsr CTC serving from an HF directory "
-        "(greedy; device beam with lexicon and word LM); NeMo Conformer-CTC Large from a .nemo archive (greedy and "
-        "device beam serving; fine-tuning through the train CLI, finalized and reloaded); wav2vec2-xlsr CTC training "
-        "at the 140 s bucket")
+        "(greedy in bf16, int8 and int4; device beam with lexicon and word LM; host beam with a word 4-gram in process "
+        "and over 4 workers; streaming over WebSocket); NeMo Conformer-CTC Large from a .nemo archive (greedy in bf16, "
+        "int8 and int4, and device beam serving; fine-tuning through the train CLI, finalized and reloaded); "
+        "wav2vec2-xlsr CTC training at the 140 s bucket")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
@@ -3376,11 +3750,20 @@ def main():
         dirs["wav2vec2_xlsr"] = prepare_serving_dir(torch, dev, model_dir)
         corpus = os.path.join(tmp, "corpus")
         ids, lens = write_serving_corpus(corpus)
-        slices["ctc_serving_greedy"] = run_ctc_serving(torch, corpus, ids, lens, "greedy", model_dir)
+        bf16_texts = []
+        slices["ctc_serving_greedy"] = run_ctc_serving(torch, corpus, ids, lens, "greedy", model_dir, texts=bf16_texts)
+        for bits in (8, 4):
+            texts = []
+            res = run_ctc_serving(torch, corpus, ids, lens, "greedy", model_dir, quantize_bits=bits, texts=texts)
+            res["cer_vs_bf16"] = cer(bf16_texts, texts)
+            log(f"ctc serving greedy int{bits}: CER against the bf16 transcripts {res['cer_vs_bf16']}")
+            slices[f"ctc_serving_int{bits}"] = res
         n_beam = sum(n for n, _lo, hi in SERVE_GROUPS if hi <= 140.0)  # the files of one chunk at most
         lexicon, arpa = write_lexicon_lm(tmp)
         slices["ctc_serving_beam"] = run_ctc_serving(torch, kaldi_subset(os.path.join(tmp, "beam"), corpus, n_beam),
                                                      ids[:n_beam], lens[:n_beam], "beam", model_dir, lexicon, arpa)
+        slices["ctc_host_beam"] = run_host_beam(torch, tmp, corpus, ids, lens, model_dir)
+        slices["ctc_streaming"] = run_streaming(torch, dev, model_dir)
         shutil.rmtree(model_dir)
         nemo = run_nemo(torch, dev, tmp, (corpus, ids, lens))
         dirs["nemo_conformer_ctc_large"] = nemo.pop("nemo_archive")
@@ -3394,12 +3777,15 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
-        "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row; a bf16 train step at the 100 s "
-        "bucket); NeMo Conformer-CTC Large widths at 2 layers, f32 (log-probs of a 30 s and a 140 s row; train steps); "
+        "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row in bf16, int8 and int4; a bf16 "
+        "dense at B=4 x 6,999; a bf16 train step at the 100 s bucket); NeMo Conformer-CTC Large widths at 2 layers, "
+        "f32 (log-probs of a 30 s and a 140 s row; train steps); "
         "Whisper LoRA and int8 QLoRA train steps at large-v3 widths, 2+2 layers, f32")
     corr = check_card_vs_cpu(torch, dev)
     train_parity = check_train_step_card_vs_cpu(torch, dev)
     serving_parity = check_ctc_serving_card_vs_cpu(torch, dev)
+    quantized_parity = check_quantized_ctc_card_vs_cpu(torch, dev)
+    dense_parity = check_dense_card_vs_cpu(torch, dev)
     long_step_parity = check_long_train_step_card_vs_cpu(torch, dev)
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_nemo_")
     try:
@@ -3433,8 +3819,8 @@ def main():
          + slices["nemo_training"]["launches"]["ctc_fused"]),
         ("flash_attention", "ssak_tpu_torch/csrc/flash_attention.cu", "ssak_tpu/models/layers.py:290",
          l1_rows, l1_err, dict(B=1, T=7001),
-         slices["ctc_serving_greedy"]["launches"]["flash_attention"]
-         + slices["ctc_serving_beam"]["launches"]["flash_attention"] + slices["ctc_long"]["launches"]["flash_attention"]),
+         sum(slices[k]["launches"]["flash_attention"] for k in ("ctc_serving_greedy", "ctc_serving_int8",
+                                                                  "ctc_serving_int4", "ctc_serving_beam", "ctc_long"))),
         ("flash_attention_bwd_dkv", "ssak_tpu_torch/csrc/flash_attention_bwd.cu",
          "ssak_tpu/models/layers.py:290 -> jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
          bwd_rows["dkv"], max(bwd_err["dk"], bwd_err["dv"]), dict(B=1, T=6999),
@@ -3452,6 +3838,7 @@ def main():
         ))
     log("summary " + json.dumps({"slices": slices, "model_dirs": dirs, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
                                  "ctc_serving_card_vs_cpu": serving_parity, "long_train_step_card_vs_cpu": long_step_parity,
+                                 "quantized_ctc_card_vs_cpu": quantized_parity, "dense_card_vs_cpu": dense_parity,
                                  "nemo_card_vs_cpu": nemo_parity, "nemo_train_step_card_vs_cpu": nemo_step_parity,
                                  "whisper_train_step_card_vs_cpu": whisper_step_parity,
                                  "flash_attention_30s_bucket": l1_short, "flash_attention_training_launch": l1_training,

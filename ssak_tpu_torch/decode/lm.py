@@ -4,9 +4,9 @@ ssak_tpu.decode.lm; the port keeps its own copy of this host module).
 An ARPA reader with a backoff scorer (KenLM state semantics: <s> context,
 backoff on miss), a dense char-level LM table for the device beam, hashed
 word n-gram tables for word-LM fusion inside the device beam, and a small
-n-gram trainer with an ARPA writer. The C++ scorer of ssak_tpu
-(`native_lm`) is not ported yet: the port loads LMs as `ArpaLM`, which is
-what ssak_tpu falls back to where the native scorer is not built.
+n-gram trainer with an ARPA writer. The host beam scores with the C++
+scorer of `native_lm` where its caller loads the LM through
+`native_lm.load_lm`, as ssak_tpu's does.
 """
 
 import gzip

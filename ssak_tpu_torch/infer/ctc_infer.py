@@ -8,16 +8,19 @@ longer files are cut into 140 s chunks, each padded to its bucket, and
 their log-probs concatenated. Decoding is greedy on the device, the device
 beam (optionally with a lexicon, and a word n-gram LM of order <= 3 fused
 on the device), or the host prefix beam (char/word LM without lexicon
-tables, and chunked files under an LM, a lexicon or a beam).
+tables, and chunked files under an LM, a lexicon or a beam), in process or
+over a pool of worker processes (`num_workers` > 1, decode.pool). LMs load
+through decode.native_lm.load_lm (the C++ scorer; ArpaLM for `.gz`).
+Models may be quantized on load (`quantize_bits`, `--load_in_8bit` /
+`--load_in_4bit`): an encoder pass has more rows than K2 and K3 take, so
+each quantized dense dequantizes its weight, as in ssak_tpu.
 
 At the 140 s bucket a wav2vec2 encoder runs 7,001 frames, and its
 self-attention goes through the fused kernel L1 (models.layers._can_flash);
 a Conformer's 3,501 frames stay on its unfused rel-pos attention, as in
 ssak_tpu.
 
-Not ported yet (ROADMAP.md): the host-beam process pool (`num_workers` > 1,
-decode/pool), tensor parallelism, quantized CTC models, the native C++ LM
-scorer (ARPA files load as decode.lm.ArpaLM).
+Not ported yet (ROADMAP.md): tensor parallelism.
 """
 
 import os
@@ -195,25 +198,26 @@ def ctc_infer(
     here, at the call, when there is none). lm_path: ARPA n-gram for shallow fusion;
     lexicon_path: word list constraining the beam; beam_width > 1 uses the
     device beam (which also takes a lexicon, and an LM of order <= 3 with a
-    lexicon); other LM / lexicon decodes take the host prefix beam.
+    lexicon); other LM / lexicon decodes take the host prefix beam, which
+    num_workers > 1 fans over a process pool (decode.pool, one beam width
+    for pooled and in-process runs). quantize_bits: 8 or 4 quantizes the
+    model on load.
 
     batch_size=0 auto-packs batches under the samples budget. Ingest runs in
     a prefetch thread, and each batch's device work (encoder, greedy or
     beam) is enqueued before the previous batch's host tail (fetch,
-    backtrace, text) runs."""
+    backtrace, text, or the pool's decode of it) runs."""
     from ssak_tpu_torch.data.dataset import to_audio_batches
     from ssak_tpu_torch.infer.general import compute_log_probas, load_model
 
     if tensor_parallel:
         raise NotImplementedError("tensor-parallel CTC serving is not ported yet (comes with parallel/, ROADMAP.md)")
-    if num_workers and num_workers > 1:
-        raise NotImplementedError("the host-beam process pool (num_workers > 1, decode/pool) is not ported yet (ROADMAP.md)")
     model = load_model(model_dir, seeded_test_config=seeded_test_config, quantize_bits=quantize_bits, device=device)
     lm = None
     if lm_path:
-        from ssak_tpu_torch.decode.lm import ArpaLM
+        from ssak_tpu_torch.decode.native_lm import load_lm
 
-        lm = ArpaLM(lm_path)
+        lm = load_lm(lm_path)
     lexicon = None
     if lexicon_path:
         from ssak_tpu_torch.decode.lexicon import Lexicon
@@ -230,11 +234,24 @@ def ctc_infer(
         trans, accept, node_word_ids = lexicon_tables_cached(
             lexicon, lexicon_path, model.vocab(), word_delimiter=model.tokenizer.word_delimiter)
         lex_tables = (trans, accept)
-        if lm is not None and lm.order <= 3:  # the device context carries order-1 word ids
-            word_lm_tables = word_lm_tables_cached(lm, lm_path, lexicon.word_list())
-            lex_tables = (trans, accept, node_word_ids)
-    # one width for every host-beam route
+        if lm is not None:
+            from ssak_tpu_torch.decode.lm import ArpaLM, arpa_order
+
+            order = lm.order if isinstance(lm, ArpaLM) else arpa_order(lm_path)
+            if order <= 3:  # the device context carries order-1 word ids
+                # the tables come from an ArpaLM, parsed only on a cache miss
+                word_lm_tables = word_lm_tables_cached(lambda: lm if isinstance(lm, ArpaLM) else ArpaLM(lm_path),
+                                                       lm_path, lexicon.word_list())
+                lex_tables = (trans, accept, node_word_ids)
+    # one width for every host-beam route, pooled or in process
     host_beam = beam_width if beam_width > 1 else 25
+    pool = None
+    host_beam_route = word_lm_tables is None and (lm is not None or (lexicon is not None and lex_tables is None))
+    if num_workers and num_workers > 1 and host_beam_route:
+        from ssak_tpu_torch.decode.pool import HostBeamPool
+
+        pool = HostBeamPool(num_workers, lm_path=lm_path, lexicon_path=lexicon_path, vocab=model.vocab(),
+                            blank_id=model.cfg.blank_id, beam_width=host_beam, alpha=lm_alpha, beta=lm_beta)
     from ssak_tpu_torch.ops.ctc import ctc_greedy_decode
 
     def _encode_padded(batch):
@@ -321,6 +338,8 @@ def ctc_infer(
             lp, fl = _encode_padded(batch)
             lp_h, fl_h = lp.cpu().numpy(), fl.cpu().numpy()
             rows = [lp_h[b, : fl_h[b]] for b in range(n)]
+            if pool is not None:
+                return pool.decode_async(rows).get
             return lambda: host_beam_texts(rows)
         # greedy: argmax and collapse on the device; resolve only fetches
         lp, fl = _encode_padded(batch)
@@ -341,29 +360,34 @@ def ctc_infer(
                                 sort_by_len=sort_by_len, io_threads=io_threads)
         batches = auto_pack_batches(((a, i) for b, ids in rows for a, i in zip(b, ids)),
                                     max_samples=int(AUTO_BATCH_SECONDS * model.sample_rate))
-    return _pipelined(batches, submit, model.sample_rate, output_ids, log_memtime)
+    return _pipelined(batches, submit, model.sample_rate, output_ids, log_memtime, pool)
 
 
-def _pipelined(batches, submit, sample_rate, output_ids, log_memtime):
-    """Submit batch n+1's device work before resolving batch n."""
+def _pipelined(batches, submit, sample_rate, output_ids, log_memtime, pool=None):
+    """Submit batch n+1's device work before resolving batch n; close the
+    pool, if any, at the end."""
     from ssak_tpu_torch.data.prefetch import prefetch_iterator
     from ssak_tpu_torch.utils.monitoring import ThroughputMeter, logger
 
     meter = ThroughputMeter()
     pending = None  # (resolve, ids, audio seconds)
-    for batch, ids in prefetch_iterator(batches, depth=2):
-        resolve = submit(batch)
+    try:
+        for batch, ids in prefetch_iterator(batches, depth=2):
+            resolve = submit(batch)
+            if pending is not None:
+                texts = pending[0]()
+                meter.update(pending[2])
+                for i, t in zip(pending[1], texts):
+                    yield (i, t) if output_ids else t
+            pending = (resolve, ids, sum(len(a) for a in batch) / sample_rate)
         if pending is not None:
             texts = pending[0]()
             meter.update(pending[2])
             for i, t in zip(pending[1], texts):
                 yield (i, t) if output_ids else t
-        pending = (resolve, ids, sum(len(a) for a in batch) / sample_rate)
-    if pending is not None:
-        texts = pending[0]()
-        meter.update(pending[2])
-        for i, t in zip(pending[1], texts):
-            yield (i, t) if output_ids else t
+    finally:
+        if pool is not None:
+            pool.close()
     if log_memtime:
         logger.info(f"ctc_infer throughput: {meter.summary()}")
 
@@ -389,11 +413,11 @@ def cli(argv=None):
     parser.add_argument("--lm_alpha", type=float, default=0.5)
     parser.add_argument("--lm_beta", type=float, default=1.5)
     parser.add_argument("--beam_width", type=int, default=0, help=">1 enables the device beam search")
-    parser.add_argument("--num_workers", type=int, default=0, help=">1: host-beam process pool (not ported yet)")
+    parser.add_argument("--num_workers", type=int, default=0, help=">1 fans host-beam word-LM decoding over a process pool")
     parser.add_argument("--tensor_parallel", "--tp", type=int, default=0, dest="tensor_parallel",
                         help="shard model weights over N cards (not ported yet)")
-    parser.add_argument("--load_in_8bit", action="store_true", help="int8 weight-only quantized decode (not ported yet)")
-    parser.add_argument("--load_in_4bit", action="store_true", help="int4 weight-only quantized decode (not ported yet)")
+    parser.add_argument("--load_in_8bit", action="store_true", help="int8 weight-only quantized decode")
+    parser.add_argument("--load_in_4bit", action="store_true", help="int4 weight-only quantized decode")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--seeded_test_config", default=None, help=argparse.SUPPRESS)  # test hook: random model
     args = parser.parse_args(argv)

@@ -8,9 +8,9 @@ with the archive's vocabulary), else an HF checkpoint (config.json: Whisper
 with its tokenizer, wav2vec2 with its vocab.json); MMS per-language
 adapters (`load_adapter`); seeded weights (`seeded_test_config`, Whisper
 and wav2vec2, the families ssak_tpu seeds) or an ssak_tpu parameter tree
-(`from_tree`, used by the tests). Quantized CTC models (8b) and
-tensor-parallel sharding (8g) are later slices of ROADMAP.md and raise
-NotImplementedError.
+(`from_tree`, used by the tests). Any of them may be quantized on load
+(`quantize_bits` 8 or 4). Tensor-parallel sharding (8g) is a later slice of
+ROADMAP.md and raises NotImplementedError.
 """
 
 import dataclasses
@@ -83,22 +83,23 @@ def load_model(model_dir, seeded_test_config: str = None, quantize_bits: int = 0
     Conformer-CTC archive or its extracted directory, or an export of
     train.finalize), or a seeded model (`seeded_test_config`:
     'whisper[:preset]' or 'wav2vec2[:preset]'), on `device` (default cuda;
-    raises when there is none). quantize_bits=8 or 4 replaces a Whisper
-    model's dense kernels by int8 / int4 QuantLinears on the device and
-    turns on the int8 K/V caches, as ssak_tpu's load_model does."""
+    raises when there is none). quantize_bits=8 or 4 replaces the model's
+    dense kernels of at least 64 x 64 values by int8 / int4 QuantLinears
+    on the device (models.quant.quantize_params: every dense layer of a
+    CTC model, lm_head and projections included, and no conv kernel), as
+    ssak_tpu's load_model does; a Whisper model also turns on the int8
+    K/V caches."""
     dev = resolve_device(device)
     model = _seeded_model(seeded_test_config, dev) if seeded_test_config else _load_dir(model_dir, dev)
     if quantize_bits:
         if quantize_bits not in (4, 8):
             raise ValueError(f"quantize_bits must be 4 or 8, got {quantize_bits}")
-        if model.type != ModelType.WHISPER:
-            raise NotImplementedError("quantized CTC models (--load_in_8bit / --load_in_4bit) are not ported yet "
-                                      "(ROADMAP.md slice 8b)")
         from ssak_tpu_torch.models.quant import quantize_params
 
         quantize_params(model.module, bits=quantize_bits)
-        # int8 K/V caches ride along with int8 and int4 weights (ssak_tpu infer/general.py)
-        model.cfg = dataclasses.replace(model.cfg, kv_int8=True)
+        if model.type == ModelType.WHISPER:
+            # int8 K/V caches ride along with int8 and int4 weights (ssak_tpu infer/general.py)
+            model.cfg = dataclasses.replace(model.cfg, kv_int8=True)
     return model
 
 

@@ -13,9 +13,12 @@ How that product is formed here: attention products cast the
 `dtype`-rounded operands to f32 and multiply in f32 — bf16 values and
 their products are exact in f32, so this is JAX's
 `preferred_element_type=f32` exactly, up to the order of the sums. Dense
-layers multiply in `dtype` (a bf16 GEMM accumulates in f32 and rounds its
-result to bf16 once, before the bias; JAX rounds once, after it) because
-they carry most of the encoder's operations.
+layers (and Whisper's logits) go through `matmul_f32`: on a CUDA tensor
+one bf16 GEMM with an f32 result (`torch.mm(..., out_dtype=float32)`, the
+tensor cores' own f32 accumulator), on the CPU the same widening as
+attention. Either way the product is never rounded to `dtype`; the LoRA
+term and the bias are added to the f32 result, which is rounded once, as
+JAX rounds it.
 
 Parameters are created frozen (`requires_grad=False`), so serving builds no
 autograd graph; training turns them on for its model alone
@@ -157,15 +160,69 @@ def group_norm(x, p, num_groups: int, eps: float = 1e-5):
     return (g.reshape(x.shape) * p.scale + p.bias).to(x.dtype)
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _mm_f32(x, w):
+    """(M, K) @ (K, N) of two bf16 or f16 matrices -> f32 (M, N): one GEMM
+    with an f32 result on the card, the operands widened to f32 on the
+    CPU."""
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return torch.mm(x.to(torch.float32), w.to(torch.float32))
+
+
+class _HalfMatmul(torch.autograd.Function):
+    """`_mm_f32` with a backward (torch has no derivative for mm's out_dtype
+    overload). The gradients are the products torch.matmul's backward
+    forms in the operands' dtype: the f32 cotangent rounded to that dtype,
+    then gx = g wᵀ and gw = xᵀ g."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.t() if ctx.needs_input_grad[0] else None
+        gw = x.t() @ g if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def matmul_f32(x, w):
+    """x (..., K) @ w (K, N) -> f32 (..., N), JAX's
+    `jnp.matmul(x, w, preferred_element_type=float32)`: for bf16 or f16
+    operands (both of one dtype) the exact products summed in f32 and
+    never rounded to that dtype; f32 operands multiply as they are."""
+    if x.dtype not in _HALF:
+        return torch.matmul(x, w)
+    return _HalfMatmul.apply(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _add_rounded(y, bias, dtype):
+    """(y + bias) rounded once to `dtype`, both f32: one pass that writes
+    `dtype` when nothing needs a gradient (torch.add computes in f32 and
+    rounds on the store), else the sum and then the cast."""
+    if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
+        return (y + bias).to(dtype)
+    out = torch.empty(y.shape, dtype=dtype, device=y.device)
+    return torch.add(y, bias, out=out)
+
+
 def dense(x, p, dtype=None):
-    """Linear or QuantLinear layer. With `dtype` the product runs and
-    returns in that dtype; the bias is added to the f32 result. A
-    QuantLinear on a decode-shaped CUDA activation goes through its fused
-    kernel (K2 for int8, K3 for int4); elsewhere its weight is dequantized
-    first, as ssak_tpu does off the TPU. A LoRA adapter adds
-    lora_scale * (x A) B to the f32 result before the bias, with A and B
-    rounded to x's dtype and both products in f32 (exact for bf16
-    operands, as JAX's preferred_element_type=f32)."""
+    """Linear or QuantLinear layer. With `dtype` the operands are rounded
+    to that dtype and the result returned in it; the product is f32
+    (`matmul_f32`), the LoRA term and then the bias are added to it, and
+    the sum is rounded once, as ssak_tpu's dense does. A QuantLinear on a
+    decode-shaped CUDA activation goes through its fused kernel (K2 for
+    int8, K3 for int4, f32 out); elsewhere its weight is dequantized to
+    `dtype` first, as ssak_tpu does off the TPU. A LoRA adapter adds
+    lora_scale * (x A) B with A and B rounded to x's dtype and both
+    products in f32 (exact for bf16 operands, as JAX's
+    preferred_element_type=f32)."""
     y = None
     if isinstance(p, QuantLinear):
         kernel = None
@@ -186,13 +243,13 @@ def dense(x, p, dtype=None):
     if y is None:
         dt = dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
         x = x.to(dt)
-        y = torch.matmul(x, w.to(dt)).to(torch.float32)
+        y = matmul_f32(x, w.to(dt))
     out_dtype = x.dtype
     if p.lora_A is not None:
         xa = torch.matmul(_f32(x, out_dtype), _f32(p.lora_A, out_dtype))
         y = y + p.lora_scale * torch.matmul(xa, _f32(p.lora_B, out_dtype))
     if p.bias is not None:
-        y = y + p.bias
+        return _add_rounded(y, p.bias, out_dtype)
     return y.to(out_dtype)
 
 

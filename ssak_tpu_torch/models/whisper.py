@@ -207,7 +207,7 @@ def decode_train(model: WhisperModel, tokens, audio_features, cfg: WhisperConfig
     for blk in dec.blocks:
         x = _remat(block, cfg)(blk, x, audio_features)
     x = L.layer_norm(x, dec.ln)
-    return torch.matmul(x.to(dt), dec.token_embedding.t().to(dt)).to(torch.float32)
+    return L.matmul_f32(x.to(dt), dec.token_embedding.t().to(dt))
 
 
 def cross_entropy_loss(logits, targets, mask):
@@ -289,7 +289,7 @@ def _step(model: WhisperModel, token, pos_emb, attn_bounds, cache_index: int, ca
     for blk, cache, cross_kv in zip(dec.blocks, caches, cross_kvs):
         x = _decode_layer(blk, cache, cross_kv, x, attn_bounds, cross_bounds, cache_index, cfg)
     x = L.layer_norm(x, dec.ln)
-    logits = torch.matmul(x.to(dt), dec.token_embedding.t().to(dt)).to(torch.float32)
+    logits = L.matmul_f32(x.to(dt), dec.token_embedding.t().to(dt))
     DECODE_STEPS["n"] += 1
     return logits[:, 0], caches
 

@@ -7,8 +7,12 @@ covers the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. The sources expose plain C functions (no PyTorch
 headers), so a build takes seconds.
 
-Nothing here runs at import: the CPU tests import every module, and this
-host has no nvcc.
+Host C++ sources (the n-gram scorer, decode/native/ngram.cpp) are built
+the same way by `g++` (`host_library`): into `build/ssak_tpu_torch/`, keyed
+on the source and the flags. A failed build raises.
+
+Nothing here runs at import: the CPU tests import every module, and a host
+without the CUDA toolkit has no nvcc.
 """
 
 import ctypes
@@ -23,6 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "ssak_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs = {}
@@ -88,6 +94,32 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(build_all()[name])
         return _libs[name]
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """The loaded library of the host C++ file `source`, compiled by
+    `g++ -O3 -shared -fPIC -std=c++17` into BUILD_DIR on first use (under a
+    name keyed on the source's and the flags' digest, so an edited source
+    rebuilds). Raises RuntimeError when g++ is missing or fails."""
+    with _lock:
+        if source in _libs:
+            return _libs[source]
+        with open(source, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+        stem = os.path.splitext(os.path.basename(source))[0]
+        path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+        if not os.path.exists(path):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {source} is built with g++ at first use")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            res = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"g++ failed on {source}:\n{res.stderr}")
+            os.replace(tmp, path)
+        _libs[source] = ctypes.CDLL(path)
+        return _libs[source]
 
 
 def check(rc: int, what: str):

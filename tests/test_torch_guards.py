@@ -1,6 +1,6 @@
 """Guards of the port's rules: ssak_tpu_torch (and chip_smoke.py) import
-neither JAX nor ssak_tpu, nor the tokenizers, safetensors, transformers or
-yaml packages that the card host lacks; every module imports with all of them
+neither JAX nor ssak_tpu, nor the tokenizers, safetensors, transformers,
+yaml or websockets packages that the port does without; every module imports with all of them
 blocked; entry points default to the GPU and raise without one instead of
 running on the CPU; the CLI runs on the CPU only when asked to."""
 
@@ -15,7 +15,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ssak_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml", "websockets")
 
 
 def _port_files():
@@ -45,7 +45,7 @@ def test_no_jax_or_ssak_tpu_imports_by_ast():
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml")
+BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml", "websockets")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCK:
@@ -216,3 +216,29 @@ def test_whisper_fine_tuning_modules_are_guarded_and_need_a_card(tmp_path):
     refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not refused.stdout.strip()
     assert not (tmp_path / "runs").exists()
+
+
+def test_ctc_serving_modules_are_guarded_and_need_a_card(tmp_path):
+    """The quantized-CTC, native-LM, pool, streaming and WebSocket modules
+    are among the files the import guards read (the port's copy of the
+    scorer's C++ source among its own files); the streaming server and
+    ctc_infer's quantized and pooled routes run on cuda unless asked for the
+    CPU, and raise without a card."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"ssak_tpu_torch/decode/native_lm.py", "ssak_tpu_torch/decode/pool.py", "ssak_tpu_torch/infer/streaming.py",
+            "ssak_tpu_torch/infer/websocket.py", "ssak_tpu_torch/remote/client.py"} <= files
+    assert os.path.exists(os.path.join(PORT, "decode", "native", "ngram.cpp"))
+    for path in files:
+        with open(os.path.join(REPO, path), encoding="utf-8") as f:
+            assert "ssak_tpu/decode/native" not in f.read(), path  # no path into the JAX package's C++ source
+    _need_gpu_less_host()
+    from ssak_tpu_torch.infer.ctc_infer import ctc_infer
+    from ssak_tpu_torch.infer.streaming import main as stream_main
+
+    for kw in (dict(quantize_bits=8), dict(quantize_bits=4), dict(num_workers=2, lm_path=str(tmp_path / "lm.arpa"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ctc_infer(None, str(tmp_path), seeded_test_config="wav2vec2", **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_main(["--seeded_test_config", "wav2vec2", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_main(["--seeded_test_config", "wav2vec2", "--port", "0", "--load_in_8bit"])

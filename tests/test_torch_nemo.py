@@ -629,8 +629,11 @@ def test_from_tree_builds_a_conformer(archives):
     m = TG.from_tree(tree, cfg, device="cpu")
     assert m.type == TG.ModelType.CONFORMER_CTC and m.type in TG.CTC_TYPES
     assert_same_tree(conformer_to_tree(m.module), tree)
-    with pytest.raises(NotImplementedError, match="8b"):
-        TG.load_model(archives["char"], quantize_bits=8, device="cpu")
+    quantized = TG.load_model(archives["char"], quantize_bits=8, device="cpu")  # quantized CTC models are ported
+    assert quantized.type == TG.ModelType.CONFORMER_CTC and quantized.cfg == m.cfg
+    from ssak_tpu_torch.models.layers import QuantLinear
+
+    assert any(isinstance(s, QuantLinear) for s in quantized.module.modules())
     with pytest.raises(NotImplementedError, match="seeds Whisper and wav2vec2"):
         TG.load_model(None, seeded_test_config="conformer", device="cpu")
 

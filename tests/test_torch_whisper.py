@@ -155,8 +155,8 @@ def test_transcribe_batch_from_wav_files(tiny, tmp_path):
 
 
 def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
-    """What still needs a later slice raises at the call: quantized CTC
-    models (8b), tensor-parallel sharding (8g). NeMo checkpoints are read
+    """What still needs a later slice raises at the call: tensor-parallel
+    sharding (8g); a quantized CTC model (slice 8b) loads. NeMo checkpoints are read
     (slice 7): an archive that is not there, or a directory without its
     weights, raises FileNotFoundError. A model without a tokenizer ignores
     language= and task=, as ssak_tpu's does. Long-form audio and the
@@ -173,8 +173,8 @@ def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
         load_model("some/model.nemo", device="cpu")
     with pytest.raises(FileNotFoundError, match="model_weights.ckpt"):
         whisper_infer(str(tmp_path / "nemo"), [long_audio], device="cpu")
-    with pytest.raises(NotImplementedError, match="8b"):
-        load_model(None, seeded_test_config="wav2vec2", quantize_bits=8, device="cpu")
+    q = load_model(None, seeded_test_config="wav2vec2", quantize_bits=8, device="cpu")
+    assert q.module.encoder.blocks[0].mlp.fc1.bits == 8 and not hasattr(q.cfg, "kv_int8")
     with pytest.raises(NotImplementedError, match="8g"):
         shard_model(m)
     short = long_audio[:3000]
