@@ -45,13 +45,13 @@ and prints no result):
              Whisper large-v3 fine-tuning from that directory through
              python -m ssak_tpu_torch.train.whisper_loop (--language en,
              16 files of 20-29 s, batch 4 x 30 s, 6 steps, an evaluation
-             every 3 over 4 files, --remat): --lora 8 over the bf16 base,
+             at the last over 4 files, --remat): --lora 8 over the bf16 base,
              and with --load_in_8bit and --load_in_4bit (the evaluation's
              K4 bf16, K2 and K3 launches against its decode steps, the frozen base
              bit for bit, adapters.npz reloaded into a fresh model: the
-             same loss), and the full fine-tune of the directory's tree in
-             f32 with remat (3 steps, a checkpoint, a resume for one more
-             step); then
+             same loss), and the full fine-tune of the directory's tree,
+             cut to 8 + 8 blocks, in f32 with remat (3 steps, a checkpoint,
+             a resume for one more step); then
              wav2vec2-base CTC training at full width (CTCTrainer, batch 32
              of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
              dir of 64 wavs, exported by train.finalize and reloaded with
@@ -63,7 +63,8 @@ and prints no result):
              same encoder frames, L1 on every 140 s call, K2 and K3 at 0,
              the CER against the bf16 transcripts), and with the device
              beam (width 16, lexicon, word 3-gram) over the 14 files of one
-             chunk; the host prefix beam (width 16, lexicon, a word 4-gram
+             chunk (its step a CUDA graph, bit for bit the eager loop on a
+             cut of the first batch); the host prefix beam (width 16, lexicon, a word 4-gram
              scored by the port's C++ library) over 4 files in process and
              over 4 spawned workers (the same transcripts; each worker, read
              once after the decode, with its CUDA untouched); streaming: the port's WebSocket server over
@@ -94,14 +95,14 @@ and prints no result):
              first-step logits card against CPU, and two wav2vec2 train
              steps card against CPU in f32 (large widths, 2 layers, remat),
              and CTC log-probs of a 140 s row card (through L1) against CPU
-             in bf16 (xlsr widths, 2 layers), same weights, and of the same
-             model quantized to int8 (correlation >= 0.99; int8 and int4
-             against bf16 on the card, reported); a
+             in bf16 (xlsr widths, 2 layers), same weights, and of a
+             1-layer model quantized to int8 (correlation >= 0.99; int8 and
+             int4 against bf16 on the card, reported); a
              bf16 dense with a bias at x 4 x 6,999 x 1,024 -> 4,096, card
              against CPU and against an f64 product rounded once (>= 99.9%
              equal, the rest one bf16 step), timed beside the parent's
              double rounding and an f32 sum cast afterwards; one bf16 train
-             step at the 100 s bucket (xlsr widths, 2 layers, remat), the
+             step at the 100 s bucket (xlsr widths, 1 layer, remat), the
              card through L1 forward and backward, the CPU unfused; a NeMo
              archive at Conformer Large widths and 2 layers in f32: the
              log-probs of a 30 s and a 140 s row, and two train steps,
@@ -1629,11 +1630,15 @@ def run_longform(torch, model_dir):
 # batch WFT_BATCH windows of 30 s (3,000 mel frames), U = 445 teacher-forced tokens (440 + the 4-token
 # English prompt + 1). Runs (a)-(c): --lora 8 over the bf16 base, --load_in_8bit and --load_in_4bit,
 # WFT_STEPS steps with an evaluation every WFT_EVAL_STEPS over the first WFT_EVAL_SAMPLES files; run (d):
-# the full fine-tune, WFT_FULL_STEPS steps, a checkpoint and a resume for one more step.
+# the full fine-tune of the first WFT_FULL_LAYERS encoder and decoder blocks at large-v3 widths,
+# WFT_FULL_STEPS steps, a checkpoint and a resume for one more step.
 WFT_FILES, WFT_SECONDS, WFT_BATCH = 16, (20.0, 29.0), 4
-# the evaluation decodes one window batch (227 host-bound decode steps, ~15 s): cut from 8 files to 4 for
-# the script's time limit (PERF.md)
-WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 6, 3, 4, 3
+# the evaluation decodes one window batch (227 host-bound decode steps, ~15 s): cut from 8 files to 4, and
+# from two evaluations a run to one, for the script's time limit (PERF.md)
+WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 6, 6, 4, 3
+# the full fine-tune's depth: at 32 + 32 blocks its two f32 checkpoints (parameters and Adam's moments,
+# 18.5 GB each) took ~140 s of the script's time limit (PERF.md); 8 + 8 keep every width
+WFT_FULL_LAYERS = 8
 WFT_PROMPT, WFT_MAX_TOKENS = 4, 224  # sot_sequence("en"); whisper_transcribe_batch's default budget
 WFT_LR = 1e-4
 WFT_LORA_REMAT = True  # from the reckoning in PERF.md: about 84 GB of activations at B = 4 without it
@@ -1839,7 +1844,8 @@ def run_whisper_lora(torch, dev, root, model_dir, train_dir, eval_dir, bits, bas
 
 def run_whisper_full(torch, dev, root, model_dir, train_dir, base):
     """The full fine-tune (train_whisper, lora_rank 0) of the tree that
-    load_whisper reads from the directory (`base`), widened to f32 masters (a full
+    load_whisper reads from the directory (`base`), cut to its first
+    WFT_FULL_LAYERS encoder and decoder blocks, widened to f32 masters (a full
     fine-tune of its F16 leaves turns most weights to inf or NaN at the
     first update in both packages: optax's eps rounds to 0 in f16; ROADMAP.md
     §3), bf16 compute, remat=True: WFT_FULL_STEPS steps, the checkpoint,
@@ -1856,7 +1862,7 @@ def run_whisper_full(torch, dev, root, model_dir, train_dir, base):
     from ssak_tpu_torch.text import format_text
     from ssak_tpu_torch.train import whisper_loop
 
-    tag = "whisper large-v3 full fine-tune (f32 masters, remat)"
+    tag = f"whisper large-v3 full fine-tune (f32 masters, remat, {WFT_FULL_LAYERS}+{WFT_FULL_LAYERS} blocks)"
     out_dir = os.path.join(root, "full")
     _, rows = kaldi_folder_to_manifest(train_dir, max_duration=30.0)
     tok = WhisperTokenizer(model_dir)
@@ -1864,8 +1870,10 @@ def run_whisper_full(torch, dev, root, model_dir, train_dir, base):
     def norm(t):
         return format_text(t, "en", extract_parenthesized=False, safety_checks=False).replace("\n", " ")
 
-    tree32 = tree_map(lambda a: np.asarray(a, np.float32), base[0])
-    cfg = dataclasses.replace(_with_tokenizer_ids(base[1], tok), remat=True)
+    cut = {part: dict(base[0][part], blocks=base[0][part]["blocks"][:WFT_FULL_LAYERS]) for part in ("encoder", "decoder")}
+    tree32 = tree_map(lambda a: np.asarray(a, np.float32), dict(base[0], **cut))
+    cfg = dataclasses.replace(_with_tokenizer_ids(base[1], tok), remat=True, n_audio_layer=WFT_FULL_LAYERS,
+                              n_text_layer=WFT_FULL_LAYERS)
 
     kw = dict(language="en", learning_rate=1e-5, warmup_steps=1, batch_size=WFT_BATCH, eval_steps=0, seed=69,
               normalize_text=norm, log_interval=1, device=dev)
@@ -1905,7 +1913,7 @@ def run_whisper_full(torch, dev, root, model_dir, train_dir, base):
         raise AssertionError(f"{tag}: steps {steps} then {rsteps} (step {rstate['step']})")
     if not all(math.isfinite(a) and math.isfinite(b) and a > 0 for a, b in steps + rsteps) or any(launches.values()):
         raise AssertionError(f"{tag}: losses {steps + rsteps}, launches {launches}")
-    res = dict(config=tag, batch_size=WFT_BATCH, window_s=30.0, remat=True, steps=WFT_FULL_STEPS,
+    res = dict(config=tag, batch_size=WFT_BATCH, window_s=30.0, remat=True, layers=WFT_FULL_LAYERS, steps=WFT_FULL_STEPS,
                step_ms=sum(step_ms) / len(step_ms), step_ms_each=step_ms,
                train_audio_s_per_s=sum(spy.audio_s[1:WFT_FULL_STEPS]) / (sum(step_ms) / 1e3),
                losses=[a for a, _ in steps], grad_norms=[b for _, b in steps], resumed_losses=[a for a, _ in rsteps],
@@ -2215,17 +2223,25 @@ class EncoderCalls:
         self.G.compute_log_probas = self.orig
 
 
+# the graph-vs-eager check of the device beam: the first call's first rows, cut to this many frames
+BEAM_CHECK_ROWS, BEAM_CHECK_FRAMES = 2, 256
+
+
 class BeamCalls:
     """CUDA events around each ctc_beam_search_device call, with the host
-    time of its enqueue and the frames it decodes, while installed."""
+    time of its enqueue and the frames it decodes, while installed; the
+    first call's inputs are kept for graph_check."""
 
     def __init__(self, torch):
         from ssak_tpu_torch.decode import ctc_beam as CB
 
         self.torch, self.CB, self.calls, self.orig = torch, CB, [], CB.ctc_beam_search_device
+        self.first = None
 
     def __enter__(self):
         def call(log_probs, *a, **kw):
+            if self.first is None:
+                self.first = (log_probs, a, kw)
             ev0, ev1 = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0 = time.perf_counter()
             ev0.record()
@@ -2243,6 +2259,32 @@ class BeamCalls:
     def summary(self):
         self.torch.cuda.synchronize()
         return [dict(shape=s, card_ms=a.elapsed_time(b), enqueue_ms=h) for s, a, b, h in self.calls]
+
+    def graph_check(self, tag):
+        """The first call's first BEAM_CHECK_ROWS rows, cut to
+        BEAM_CHECK_FRAMES frames, through the beam as the main path ran it
+        (its step captured as a CUDA graph) and with every step launched
+        eagerly: the same tokens and lengths, bit for bit."""
+        import numpy as np
+
+        CB, torch = self.CB, self.torch
+        log_probs, a, kw = self.first
+        lp = log_probs[:BEAM_CHECK_ROWS, :BEAM_CHECK_FRAMES]
+        fl = torch.as_tensor(a[0])[:BEAM_CHECK_ROWS].clamp(max=BEAM_CHECK_FRAMES)
+        kw = dict(kw, return_async=False)
+        graphed = CB.ctc_beam_search_device(lp, fl, *a[1:], **kw)
+        loop = CB._beam_loop
+        CB._beam_loop = lambda *la, **lk: loop(*la, **lk, graph=False)
+        try:
+            eager = CB.ctc_beam_search_device(lp, fl, *a[1:], **kw)
+        finally:
+            CB._beam_loop = loop
+        same = all(np.array_equal(x, y) for x, y in zip(graphed, eager))
+        res = dict(rows=int(lp.shape[0]), frames=int(lp.shape[1]), identical=same,
+                   emitted=[int(n) for n in graphed[1]])
+        if not same:
+            raise AssertionError(f"{tag}: the graphed device beam differs from the eager one: {graphed} vs {eager}")
+        return res
 
 
 def write_lexicon_lm(root, seed=11, n_words=500, n_sentences=2000, order=LM_ORDER):
@@ -2325,6 +2367,7 @@ def run_ctc_serving(torch, kaldi_dir, ids, lens, mode, model_dir, lexicon=None, 
     if beam:
         res["device_beam"] = beam
         res["device_beam_ms_140s_batch"] = [b["card_ms"] for b in beam if b["shape"][1] >= FLASH_MIN_SEQ]
+        res["device_beam_graph_vs_eager"] = beams.graph_check(tag)
     log(f"slice {json.dumps(res)}")
     return res
 
@@ -2828,6 +2871,7 @@ def run_nemo_serving(torch, dev, kaldi_dir, ids, lens, mode, archive, cfg, quant
                nonempty=sum(bool(t) for _, t in out), sample=out[-1][1][:80])
     if beam:
         res["device_beam"] = beam
+        res["device_beam_graph_vs_eager"] = beams.graph_check(tag)
     log(f"slice {json.dumps(res)}")
     return res
 
@@ -3277,11 +3321,16 @@ def check_dense_card_vs_cpu(torch, dev):
     return res
 
 
+# the depth of the quantized and the long-bucket train-step parity checks: their CPU passes at 6,749 and
+# 4,999 frames are cut from 2 layers to 1 for the script's time limit (PERF.md)
+QUANT_PARITY_LAYERS, LONG_STEP_LAYERS = 1, 1
+
+
 def check_quantized_ctc_card_vs_cpu(torch, dev):
     """CTC log-probs of one 140 s row (7,001 frames) of a quantized model
     (--load_in_8bit and --load_in_4bit: models.quant.quantize_params on the
-    CPU, the same payloads moved to the card) at xlsr widths and 2 layers
-    in bf16, L1 on both layers and K2 and K3 at 0 (the encoder rows
+    CPU, the same payloads moved to the card) at xlsr widths and
+    QUANT_PARITY_LAYERS layers in bf16, L1 on each and K2 and K3 at 0 (the encoder rows
     dequantize): int8 on the card against the port on the CPU, correlation
     >= 0.99 (PERF.md §2's int8 / int4 limit); int8 and int4 on the card
     against the unquantized bf16 model there, reported. The int4
@@ -3295,7 +3344,7 @@ def check_quantized_ctc_card_vs_cpu(torch, dev):
     from ssak_tpu_torch.models import wav2vec2
     from ssak_tpu_torch.models.quant import quantize_params
 
-    cfg = wav2vec2.make_config("xlsr", num_layers=2, vocab_size=48)
+    cfg = wav2vec2.make_config("xlsr", num_layers=QUANT_PARITY_LAYERS, vocab_size=48)
     audio = tones(np.random.RandomState(9), 135.0)
     x = np.zeros((1, MAX_CHUNK_SAMPLES), np.float32)
     x[0, : audio.size] = audio
@@ -3329,7 +3378,8 @@ def check_quantized_ctc_card_vs_cpu(torch, dev):
         del cpu_model, card_model
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"quantized ctc {'card vs cpu' if bits == 8 else 'on the card'} (int{bits}, xlsr widths, 2 layers, bf16, "
+        log(f"quantized ctc {'card vs cpu' if bits == 8 else 'on the card'} (int{bits}, xlsr widths, "
+            f"{QUANT_PARITY_LAYERS} layer{'s' * (QUANT_PARITY_LAYERS > 1)}, bf16, "
             f"140 s row): {json.dumps(res)}")
         want = {k: 0 for k in launches}
         want["flash_attention"] = cfg.num_layers
@@ -3401,7 +3451,7 @@ def check_train_step_card_vs_cpu(torch, dev):
 
 
 def check_long_train_step_card_vs_cpu(torch, dev):
-    """One bf16 train step at xlsr widths, 2 layers, remat, B = 2 at the
+    """One bf16 train step at xlsr widths, LONG_STEP_LAYERS layers, remat, B = 2 at the
     100 s bucket (1,600,000 samples, 4,999 frames) with rows of 100 s and
     70 s, from the same seeded weights: on the card the encoder attention
     goes through L1's forward (twice a layer: remat recomputes it) and both
@@ -3416,7 +3466,7 @@ def check_long_train_step_card_vs_cpu(torch, dev):
     from ssak_tpu_torch.ops import flash_attention as L1
     from ssak_tpu_torch.train import steps as TS
 
-    cfg = wav2vec2.make_config("xlsr", num_layers=2, remat=True)
+    cfg = wav2vec2.make_config("xlsr", num_layers=LONG_STEP_LAYERS, remat=True)
     n = 100 * 16000
     rng = np.random.RandomState(12)
     lens = np.array([n, 70 * 16000], np.int32)
@@ -3459,7 +3509,8 @@ def check_long_train_step_card_vs_cpu(torch, dev):
     res = dict(frames=wav2vec2.feature_extract_output_length(cfg, n), loss_card=card_loss, loss_cpu=cpu_loss,
                loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss), grad_norm_card=card_gn, grad_norm_cpu=cpu_gn,
                grad_norm_rel=abs(card_gn - cpu_gn) / abs(cpu_gn), grad_cosine=cos, l1_launches=card_l1)
-    log(f"long train step card vs cpu (xlsr widths, 2 layers, remat, bf16, B=2 at the 100 s bucket): {json.dumps(res)}")
+    log(f"long train step card vs cpu (xlsr widths, {LONG_STEP_LAYERS} layer{'s' * (LONG_STEP_LAYERS > 1)}, remat, bf16, "
+        f"B=2 at the 100 s bucket): {json.dumps(res)}")
     if not (res["loss_rel"] <= 1e-2 and res["grad_norm_rel"] <= 2e-2 and cos >= 0.99 and math.isfinite(card_loss)):
         raise AssertionError(f"long train step card vs cpu out of tolerance: {res}")
     return res
@@ -3777,8 +3828,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
-        "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row in bf16, int8 and int4; a bf16 "
-        "dense at B=4 x 6,999; a bf16 train step at the 100 s bucket); NeMo Conformer-CTC Large widths at 2 layers, "
+        "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row in bf16), at 1 (in int8 and int4; "
+        "a bf16 train step at the 100 s bucket); a bf16 dense at B=4 x 6,999; NeMo Conformer-CTC Large widths at 2 layers, "
         "f32 (log-probs of a 30 s and a 140 s row; train steps); "
         "Whisper LoRA and int8 QLoRA train steps at large-v3 widths, 2+2 layers, f32")
     corr = check_card_vs_cpu(torch, dev)

@@ -7,7 +7,8 @@ Two engines with one semantics:
   scored at word boundaries with alpha/beta weights, optional lexicon).
 
 * `ctc_beam_search_device` — the batched beam on the device, a loop over
-  frames in PyTorch with no host sync inside it. Beams carry (prefix
+  frames in PyTorch with no host sync inside it (on a card, one captured
+  CUDA graph of the step, replayed per frame). Beams carry (prefix
   rolling hash, last token, log p_blank, log p_nonblank, char-LM context,
   lexicon trie node, word-LM context); stay-vs-extend duplicates merge by
   exact hash equality + logsumexp; one top-K over the K + K*V candidates
@@ -223,11 +224,21 @@ def _gather_beams(x, src):
     return torch.gather(x, 1, idx)
 
 
-def _beam_loop(log_probs, frame_lengths, K: int, blank_id: int, aux, word_cfg):
-    """ssak_tpu's `_device_beam_program` scan body, frame by frame.
-    Returns (best (B,), srcs (T, B, K), toks (T, B, K)) on the device."""
+def _beam_loop(log_probs, frame_lengths, K: int, blank_id: int, aux, word_cfg, n_frames: int = None,
+               graph: bool = None):
+    """ssak_tpu's `_device_beam_program` scan body, frame by frame, over the
+    first n_frames frames (default T): past every row's length a frame
+    changes no state, so the caller bounds the loop by the longest row.
+    On a CUDA tensor (graph=None) the first frame runs eagerly and the
+    step is captured once as a CUDA graph that is replayed for the rest:
+    the step is a few hundred small kernels, launched from the host one
+    by one otherwise. Returns (best (B,), srcs (n, B, K), toks (n, B, K))
+    on the device, and the graph (None without one), which must outlive
+    its replays."""
     B, T, V = log_probs.shape
+    n = T if n_frames is None else max(0, min(T, int(n_frames)))
     dev = log_probs.device
+    graph = dev.type == "cuda" if graph is None else graph
     lm_tab = aux.get("char_lm")
     order = lm_tab.ndim if lm_tab is not None else 1
     use_lexicon = "lex_trans" in aux
@@ -238,25 +249,29 @@ def _beam_loop(log_probs, frame_lengths, K: int, blank_id: int, aux, word_cfg):
     vocab_ids = torch.arange(V, device=dev)
     kidx = torch.arange(K, device=dev)
 
-    hashes = ((_mul32(kidx, 2654435761) + 1) & _M32).expand(B, K).contiguous()
-    last = torch.full((B, K), -1, dtype=torch.int64, device=dev)
-    p_b = torch.full((B, K), LOG0, dtype=torch.float32, device=dev)
-    p_b[:, 0] = 0.0
-    p_nb = torch.full((B, K), LOG0, dtype=torch.float32, device=dev)
-    ctx = torch.zeros((B, K, max(1, order - 1)), dtype=torch.int64, device=dev)
-    node = torch.zeros((B, K), dtype=torch.int64, device=dev)
+    # the beam state, updated in place by each step (a captured graph reads and writes these tensors)
+    st = {"hashes": ((_mul32(kidx, 2654435761) + 1) & _M32).expand(B, K).contiguous(),
+          "last": torch.full((B, K), -1, dtype=torch.int64, device=dev),
+          "p_b": torch.full((B, K), LOG0, dtype=torch.float32, device=dev),
+          "p_nb": torch.full((B, K), LOG0, dtype=torch.float32, device=dev),
+          "ctx": torch.zeros((B, K, max(1, order - 1)), dtype=torch.int64, device=dev),
+          "node": torch.zeros((B, K), dtype=torch.int64, device=dev)}
+    st["p_b"][:, 0] = 0.0
     if word_order:
         # [<pad>, ..., <s>]: pad never matches an n-gram (host beam's 1-word startup context)
-        wctx = torch.full((B, K, max(1, word_order - 1)), word_cfg["pad"], dtype=torch.int64, device=dev)
-        wctx[..., -1] = word_cfg["bos"]
+        st["wctx"] = torch.full((B, K, max(1, word_order - 1)), word_cfg["pad"], dtype=torch.int64, device=dev)
+        st["wctx"][..., -1] = word_cfg["bos"]
     else:
-        wctx = torch.zeros((B, K, 1), dtype=torch.int64, device=dev)
-    srcs = torch.empty((T, B, K), dtype=torch.int32, device=dev)
-    toks = torch.empty((T, B, K), dtype=torch.int32, device=dev)
+        st["wctx"] = torch.zeros((B, K, 1), dtype=torch.int64, device=dev)
+    srcs = torch.empty((n, B, K), dtype=torch.int32, device=dev)
+    toks = torch.empty((n, B, K), dtype=torch.int32, device=dev)
     lengths = frame_lengths.to(dev).reshape(B, 1)
+    t = torch.zeros((1,), dtype=torch.int64, device=dev)  # the frame index, on the device
 
-    for t in range(T):
-        frame = log_probs[:, t]  # (B, V)
+    def step():
+        hashes, last, p_b, p_nb = st["hashes"], st["last"], st["p_b"], st["p_nb"]
+        ctx, node, wctx = st["ctx"], st["node"], st["wctx"]
+        frame = log_probs.index_select(1, t)[:, 0]  # (B, V)
         active = t < lengths  # (B, 1)
         p_tot = torch.logaddexp(p_b, p_nb)
 
@@ -308,7 +323,7 @@ def _beam_loop(log_probs, frame_lengths, K: int, blank_id: int, aux, word_cfg):
         if lm_tab is not None:
             old_ctx = _gather_beams(ctx, src_beam)
             shifted = torch.cat([old_ctx[..., 1:], new_last.clamp(0, lm_tab.shape[0] - 1)[..., None]], dim=-1)
-            ctx = torch.where(is_stay[..., None], old_ctx, shifted)
+            ctx.copy_(torch.where(is_stay[..., None], old_ctx, shifted))
         if use_lexicon:
             nxt_tok = torch.gather(_gather_beams(nxt, src_beam), 2, tok.clamp(0, V - 1)[..., None])[..., 0]
             new_node = torch.where(is_stay, torch.gather(node, 1, src_beam), nxt_tok.long())
@@ -320,18 +335,36 @@ def _beam_loop(log_probs, frame_lengths, K: int, blank_id: int, aux, word_cfg):
                 old_wctx = _gather_beams(wctx, src_beam)
                 shifted_w = torch.cat([old_wctx[..., 1:], torch.gather(w_safe, 1, src_beam)[..., None]], dim=-1)
                 new_wctx = torch.where(comp_sel[..., None], shifted_w, old_wctx)
-                wctx = torch.where(active[..., None], new_wctx, wctx)
-            node = new_node
+                wctx.copy_(torch.where(active[..., None], new_wctx, wctx))
+            node.copy_(new_node)
 
         # finished rows keep their state
-        hashes = torch.where(active, new_hash, hashes)
-        last = torch.where(active, new_last, last)
-        p_b = torch.where(active, new_pb, p_b)
-        p_nb = torch.where(active, new_pnb, p_nb)
-        toks[t] = torch.where(active & ~is_stay, tok, -1)
-        srcs[t] = torch.where(active, src_beam, kidx)
+        toks.index_copy_(0, t, torch.where(active & ~is_stay, tok, -1).to(torch.int32)[None])
+        srcs.index_copy_(0, t, torch.where(active, src_beam, kidx).to(torch.int32)[None])
+        hashes.copy_(torch.where(active, new_hash, hashes))
+        last.copy_(torch.where(active, new_last, last))
+        p_b.copy_(torch.where(active, new_pb, p_b))
+        p_nb.copy_(torch.where(active, new_pnb, p_nb))
+        t.add_(1)
 
-    final = torch.logaddexp(p_b, p_nb)
+    g = None
+    if graph and n > 1:
+        step()  # frame 0, eagerly: it also warms up what the capture needs
+        g, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            g.capture_begin(capture_error_mode="thread_local")
+            step()
+            g.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for _ in range(n - 1):
+            g.replay()
+    else:
+        for _ in range(n):
+            step()
+
+    node, wctx = st["node"], st["wctx"]
+    final = torch.logaddexp(st["p_b"], st["p_nb"])
     if use_lexicon:
         # a mid-word ending is not a final state
         accept_node = aux["lex_accept"][node]
@@ -340,7 +373,7 @@ def _beam_loop(log_probs, frame_lengths, K: int, blank_id: int, aux, word_cfg):
             w_safe = aux["node_word"][node].clamp(0, wlm["uni"].shape[0] - 1)
             tail = _word_lm_score(wlm, wctx, w_safe, alpha_scale, word_order, probes) + beta
             final = final + torch.where(accept_node, tail, 0.0)
-    return torch.argmax(final, dim=1), srcs, toks
+    return torch.argmax(final, dim=1), srcs, toks, g
 
 
 # host tables -> device tensors, converted once per table object: the
@@ -408,7 +441,9 @@ def ctc_beam_search_device(log_probs, frame_lengths, beam_width: int = 16, blank
         raise ValueError("word_lm requires lexicon_tables with node_word_ids")
     log_probs = torch.as_tensor(log_probs)
     dev = log_probs.device
-    frame_lengths = torch.as_tensor(frame_lengths, device=dev)
+    frame_lengths = torch.as_tensor(frame_lengths)
+    n_frames = int(frame_lengths.max()) if frame_lengths.numel() else 0  # the loop stops at the longest row
+    frame_lengths = frame_lengths.to(dev)
     aux = {}
     if lm_table is not None:
         aux["char_lm"] = _cached_device(
@@ -427,31 +462,36 @@ def ctc_beam_search_device(log_probs, frame_lengths, beam_width: int = 16, blank
             (word_lm, lexicon_tables), ("wlm", float(lm_alpha), float(lm_beta), str(dev)),
             lambda: _word_lm_aux(word_lm, lexicon_tables, lm_alpha, lm_beta, dev)))
     with torch.no_grad():
-        best, srcs, toks = _beam_loop(log_probs.to(torch.float32), frame_lengths, beam_width, blank_id, aux, word_cfg)
-    handle = _AsyncBeamResult(best, srcs, toks, frame_lengths)
+        best, srcs, toks, graph = _beam_loop(log_probs.to(torch.float32), frame_lengths, beam_width, blank_id, aux,
+                                             word_cfg, n_frames=n_frames)
+    handle = _AsyncBeamResult(best, srcs, toks, frame_lengths, log_probs.shape[1], graph)
     return handle if return_async else handle.result()
 
 
 class _AsyncBeamResult:
-    """Deferred beam result: holds device tensors; .result() fetches them
-    and traces back on the host."""
+    """Deferred beam result: holds device tensors (and the beam's CUDA
+    graph, until its replays are done); .result() fetches them and traces
+    back on the host."""
 
-    def __init__(self, best, srcs, toks, frame_lengths):
-        self._args = (best, srcs, toks, frame_lengths)
+    def __init__(self, best, srcs, toks, frame_lengths, T: int, graph=None):
+        self._args, self._T, self._graph = (best, srcs, toks, frame_lengths), T, graph
 
     def result(self):
-        return _backtrace(*(a.cpu().numpy() for a in self._args))
+        out = _backtrace(*(a.cpu().numpy() for a in self._args), T=self._T)
+        self._graph = None
+        return out
 
 
-def _backtrace(best, srcs, toks, lengths):
-    """Vectorized host backtrace through (T, B, K) parent pointers: one
-    numpy step per frame over the whole batch (the per-(b, t) Python loop
-    was ~16k iterations per 32x10s batch)."""
-    T, B, K = srcs.shape
+def _backtrace(best, srcs, toks, lengths, T: int):
+    """Vectorized host backtrace through (n, B, K) parent pointers (n <= T
+    frames looped): one numpy step per frame over the whole batch (the
+    per-(b, t) Python loop was ~16k iterations per 32x10s batch). Returns
+    tokens padded to (B, T)."""
+    n, B, K = srcs.shape
     bidx = np.arange(B)
     k = best.astype(np.int64)
-    emitted = np.full((B, T), -1, np.int32)
-    for t in range(T - 1, -1, -1):
+    emitted = np.full((B, n), -1, np.int32)
+    for t in range(n - 1, -1, -1):
         valid = t < lengths
         emitted[:, t] = np.where(valid, toks[t, bidx, k], -1)
         k = np.where(valid, srcs[t, bidx, k], k)

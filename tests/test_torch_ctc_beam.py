@@ -89,6 +89,21 @@ def test_device_beam_matches_jax(setup, mode):
     assert got_l[2] == 0 and got_l[0] > 0  # the batch-pad row emits nothing
 
 
+@pytest.mark.parametrize("mode", DEVICE_MODES)
+def test_device_beam_stops_at_longest_row(setup, mode):
+    """The port's loop runs only to the longest row (40 of T = 60 frames
+    here); ssak_tpu's scan runs over all T. The frames past every row's
+    length change nothing: the same tokens, padded to T."""
+    lp, fl = setup["lp"], np.array([40, 31, -1], np.int32)
+    want_t, want_l = JB.ctc_beam_search_device(jnp.asarray(lp), jnp.asarray(fl), beam_width=K,
+                                               **_device_kw(setup["jax"], mode))
+    got_t, got_l = TB.ctc_beam_search_device(torch.from_numpy(lp), torch.from_numpy(fl), beam_width=K,
+                                             **_device_kw(setup["torch"], mode))
+    assert got_t.shape == (B, T)
+    np.testing.assert_array_equal(got_l, want_l)
+    np.testing.assert_array_equal(got_t, want_t)
+
+
 HOST_MODES = ("plain", "word_lm", "lexicon", "lexicon_word_lm")
 
 
