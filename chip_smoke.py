@@ -85,7 +85,17 @@ and prints no result):
              log-probs); then wav2vec2-xlsr CTC training at full width and depth
              at the 140 s bucket (CTCTrainer, batch 4 x 6,999 frames, 6
              steps, eval, checkpoint, resume; L1 forward and backward on
-             every layer); each with the kernels' launch counters checked
+             every layer); then corpus ingest: a Kaldi dir of FLAC files (the
+             port's own decoder, bit for bit to the integers written), sox
+             pipes over 8 kHz WAV with a $VAR in their paths and segments of
+             16 kHz WAV recordings through check_kaldi_dir (utt2dur within
+             10 ms of each decoded length), kaldi2manifest manifest, tar
+             (the shards' audio bit for bit) and tokenizer --type bpe, then
+             the train CLI on a seeded wav2vec2-base directory with --config,
+             --set and --use_manifest_cache (B=16 x 15 s, 4 steps, eval;
+             resumed from the cached manifests), an MP3 refused by name (no
+             libmpg123 there) and resample_torch against the host resampler;
+             each with the kernels' launch counters checked
              against the path exactly (on the accurate and long-form paths,
              against the decode steps the port counts; on CTC serving, L1
              against 24 x the encoder calls at >= 4096 frames)
@@ -3047,6 +3057,398 @@ def run_nemo(torch, dev, tmp, serving_corpus):
     return out
 
 
+# --- phase 3: corpus ingest into sak-train's wav2vec2 step ------------------------------------
+
+# A Kaldi dir of 24 utterances of 10-15 s under one segments file: 8 FLAC files at 48 kHz (stereo,
+# mid/side), 8 sox pipes over 8 kHz WAV files whose paths hold $INGEST_D, each one whole-file
+# segment, and 4 16 kHz WAV recordings cut into 2 segments each. MP3 is left out: the card host
+# has no libmpg123 (ROADMAP.md, Decisions), so read_mp3 must raise its named error there.
+INGEST_FLAC, INGEST_PIPES, INGEST_WAV_RECS = 8, 8, 4
+INGEST_BATCH, INGEST_STEPS, INGEST_BPE_VOCAB = 16, 4, 64
+INGEST_RESAMPLE = ((44100, 1), (48000, 2), (8000, 2))  # (input rate, rows of 15 s) resampled to 16 kHz
+INGEST_MP3 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch", "stereo_44k.mp3")
+_CRC16 = []
+
+
+def _crc16(data):
+    """FLAC's frame CRC-16 (polynomial 0x8005, no reflection, init 0)."""
+    if not _CRC16:
+        for i in range(256):
+            c = i << 8
+            for _ in range(8):
+                c = ((c << 1) ^ 0x8005) & 0xFFFF if c & 0x8000 else (c << 1) & 0xFFFF
+            _CRC16.append(c)
+    c = 0
+    for b in data:
+        c = ((c << 8) & 0xFFFF) ^ _CRC16[(c >> 8) ^ b]
+    return c
+
+
+def _crc8(data):
+    c = 0
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = ((c << 1) ^ 0x07) & 0xFF if c & 0x80 else (c << 1) & 0xFF
+    return c
+
+
+def _pack_bits(vals, lens):
+    """Fields (value, width) packed MSB first into bytes (widths sum to whole
+    bytes; a field of width 0 adds nothing). A field of value 1, as every
+    unary code is, sets only its last bit."""
+    import numpy as np
+
+    vals, lens = np.asarray(vals, np.uint64), np.asarray(lens, np.int64)
+    ends = np.cumsum(lens)
+    bits = np.zeros(int(ends[-1]), np.uint8)
+    one = (vals == 1) & (lens > 0)
+    bits[ends[one] - 1] = 1
+    rest = ~one & (lens > 0)
+    v, ln, st = vals[rest], lens[rest], (ends - lens)[rest]
+    for b in range(int(ln.max()) if ln.size else 0):
+        m = ln > b
+        bits[st[m] + b] = (v[m] >> (ln[m] - 1 - b).astype(np.uint64)) & np.uint64(1)
+    return np.packbits(bits).tobytes()
+
+
+def flac_bytes(samples, rate, block=4096):
+    """A 16-bit FLAC file of integer samples (n, channels): STREAMINFO, then
+    frames of `block` samples (the last one shorter, its size in 16 bits),
+    2 channels as mid/side, FIXED order-2 subframes with one Rice partition."""
+    import numpy as np
+
+    samples = np.asarray(samples, np.int64)
+    n, ch = samples.shape
+    rate_codes = {8000: 4, 16000: 5, 22050: 6, 24000: 7, 32000: 8, 44100: 9, 48000: 10}
+    frames = []
+    for fi, at in enumerate(range(0, n, block)):
+        x = samples[at : at + block]
+        m = len(x)
+        chans = [((x[:, 0] + x[:, 1]) >> 1, 16), (x[:, 0] - x[:, 1], 17)] if ch == 2 else [(x[:, c], 16) for c in range(ch)]
+        hb = _pack_bits([0x3FFE, 0, 12 if m == block else 7, rate_codes[rate], 10 if ch == 2 else ch - 1, 4, 0],
+                        [14, 2, 4, 4, 4, 3, 1])
+        if fi < 0x80:  # the frame number, UTF-8 coded
+            hb += bytes([fi])
+        elif fi < 0x800:
+            hb += bytes([0xC0 | (fi >> 6), 0x80 | (fi & 0x3F)])
+        else:
+            hb += bytes([0xE0 | (fi >> 12), 0x80 | ((fi >> 6) & 0x3F), 0x80 | (fi & 0x3F)])
+        if m != block:
+            hb += (m - 1).to_bytes(2, "big")
+        hb += bytes([_crc8(hb)])
+        vals, lens = [], []
+        for sig, bps in chans:
+            r = sig[2:] - 2 * sig[1:-1] + sig[:-2]
+            u = np.where(r >= 0, 2 * r, -2 * r - 1).astype(np.uint64)
+            k = min(14, max(0, int(np.log2(float(u.mean()) + 1.0))))
+            while k < 14 and int((u >> np.uint64(k)).max()) > 30:
+                k += 1
+            # subframe header (FIXED, order 2), warm-up, Rice with partition order 0, the parameter
+            vals.append(np.array([0x14, sig[0] & ((1 << bps) - 1), sig[1] & ((1 << bps) - 1), 0, k], np.uint64))
+            lens.append(np.array([8, bps, bps, 6, 4], np.int64))
+            v, ln = np.empty(2 * u.size, np.uint64), np.empty(2 * u.size, np.int64)
+            v[0::2], ln[0::2] = 1, (u >> np.uint64(k)).astype(np.int64) + 1  # unary quotient
+            v[1::2], ln[1::2] = u & np.uint64((1 << k) - 1), k
+            vals.append(v)
+            lens.append(ln)
+        pad = -int(sum(int(ln.sum()) for ln in lens)) % 8
+        vals.append(np.zeros(1, np.uint64))
+        lens.append(np.array([pad], np.int64))
+        frame = hb + _pack_bits(np.concatenate(vals), np.concatenate(lens))
+        frames.append(frame + _crc16(frame).to_bytes(2, "big"))
+    info = block.to_bytes(2, "big") * 2 + b"\0" * 6
+    info += ((rate << 44) | ((ch - 1) << 41) | (15 << 36) | n).to_bytes(8, "big") + b"\0" * 16
+    return b"fLaC" + bytes([0x80]) + len(info).to_bytes(3, "big") + info + b"".join(frames)
+
+
+def write_ingest_corpus(root, seed=21):
+    """The ingest run's Kaldi dir (see INGEST_*): recordings, wav.scp,
+    segments, text, utt2spk; $INGEST_D names the audio directory. Returns
+    (dir, {utterance: kind}, {recording: (samples (n, ch) int or float, rate)})."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import save_audio
+
+    rng = np.random.RandomState(seed)
+    audio = os.path.join(root, "audio")
+    os.makedirs(audio, exist_ok=True)
+    os.environ["INGEST_D"] = audio
+
+    def signal(seconds, rate, ch=1):
+        t = np.arange(int(round(seconds * rate)))[:, None] / rate
+        x = sum(0.1 * np.sin(2 * np.pi * rng.uniform(100, min(3000, rate / 3), size=ch) * t) for _ in range(3))
+        return x + 0.01 * rng.randn(t.shape[0], ch)
+
+    def secs():
+        return round(float(rng.uniform(10.0, 14.9)), 3)
+
+    scp, segs, kinds, recs = [], [], {}, {}
+    for i in range(INGEST_FLAC):
+        d = secs()
+        x = np.clip(np.round(signal(d, 48000, 2) * 32768), -32768, 32767).astype(np.int64)
+        with open(os.path.join(audio, f"f{i}.flac"), "wb") as f:
+            f.write(flac_bytes(x, 48000))
+        scp.append(f"f{i} {audio}/f{i}.flac")
+        segs.append((f"f{i}_0", f"f{i}", 0.0, d))
+        kinds[f"f{i}_0"], recs[f"f{i}"] = "flac", (x, 48000)
+    for i in range(INGEST_PIPES):
+        d = secs()
+        x = signal(d, 8000)[:, 0].astype(np.float32)
+        save_audio(os.path.join(audio, f"p{i}.wav"), x, 8000)
+        scp.append(f"p{i} sox $INGEST_D/p{i}.wav -t wav -r 16k -b 16 -c 1 - |")
+        segs.append((f"p{i}_0", f"p{i}", 0.0, d))
+        kinds[f"p{i}_0"], recs[f"p{i}"] = "pipe", (x, 8000)
+    for i in range(INGEST_WAV_RECS):
+        a, b = secs(), secs()
+        x = signal(a + b + 1.0, 16000)[:, 0].astype(np.float32)
+        save_audio(os.path.join(audio, f"w{i}.wav"), x, 16000)
+        scp.append(f"w{i} {audio}/w{i}.wav")
+        segs += [(f"w{i}_0", f"w{i}", 0.2, round(0.2 + a, 3)), (f"w{i}_1", f"w{i}", round(0.7 + a, 3), round(0.7 + a + b, 3))]
+        kinds[f"w{i}_0"] = kinds[f"w{i}_1"] = "wav"
+        recs[f"w{i}"] = (x, 16000)
+    text, spk = [], []
+    for utt, rec, _s, _e in segs:
+        words = ["".join(rng.choice(list(CHARS), size=rng.randint(2, 9))) for _ in range(rng.randint(20, 30))]
+        text.append(f"{utt} {' '.join(words)}")
+        spk.append(f"{utt} s{rec}")
+    d = os.path.join(root, "kaldi")
+    os.makedirs(d, exist_ok=True)
+    files = {"wav.scp": scp, "segments": [f"{u} {r} {s:.3f} {e:.3f}" for u, r, s, e in segs], "text": text,
+             "utt2spk": spk}
+    for name, lines in files.items():
+        with open(os.path.join(d, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines[::-1]) + "\n")  # unsorted: check_kaldi_dir sorts
+    return d, kinds, recs
+
+
+def run_ingest(torch, dev, root):
+    """Slice 8e on the card host: the corpus above through check_kaldi_dir
+    (fix=True writes utt2dur; each utterance's duration within 10 ms of its
+    decoded length; recording durations from the C++ header scan and the
+    pipes' input headers, exact), the FLAC files decoded by the port's own
+    decoder bit for bit to the integers written, `kaldi2manifest manifest`
+    and `tar` (iterate_tarred_dataset gives each row's audio, the int16
+    rounding of load_audio's, bit for bit), `kaldi2manifest tokenizer
+    --type bpe`; then python -m ssak_tpu_torch.train.cli on a seeded
+    wav2vec2-base at full width (an HF directory written here) with
+    --config ingest.yaml --set max_steps=4 --use_manifest_cache: 4 steps of
+    B=16 x 15 s and an evaluation, then the same command again, resumed (one
+    step, an evaluation), its manifests read from the cache (the same files,
+    not rewritten; the rows of an uncached read). K1 once per step and
+    evaluation batch, every other counter 0 (749 frames: no L1). Last,
+    resample_torch on the card against the host resampler at 44.1, 48 and
+    8 kHz -> 16 kHz (0.02 away from the filter edges), timed."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ssak_tpu_torch.audio import array_to_bytes, bytes_to_array, load_audio, resample, resample_torch
+    from ssak_tpu_torch.audio.flac import read_flac
+    from ssak_tpu_torch.audio.mp3 import read_mp3
+    from ssak_tpu_torch.data import kaldi as K
+    from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest, load_manifest
+    from ssak_tpu_torch.data.tarred import iterate_tarred_dataset
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.tokenizer import CTCTokenizer
+    from ssak_tpu_torch.tools import kaldi2manifest
+    from ssak_tpu_torch.train import cli
+    from ssak_tpu_torch.train import loop as LOOP
+
+    tag = "ingest"
+    res = dict(config=tag)
+    try:
+        read_mp3(INGEST_MP3)
+        raise AssertionError(f"{tag}: read_mp3 decoded on a host the probe found without libmpg123")
+    except RuntimeError as e:
+        if "libmpg123" not in str(e):
+            raise
+        res["mp3"] = "refused by name: no libmpg123"
+    t0 = time.perf_counter()
+    kaldi, kinds, recs = write_ingest_corpus(root)
+    res["corpus_write_s"] = time.perf_counter() - t0
+    for rec, (x, rate) in recs.items():
+        if rec.startswith("f"):
+            got, sr = read_flac(os.path.join(os.environ["INGEST_D"], f"{rec}.flac"))
+            if sr != rate or not np.array_equal(got, (x / 32768.0).astype(np.float32)):
+                raise AssertionError(f"{tag}: {rec}.flac did not decode to the integers written")
+
+    t0 = time.perf_counter()
+    report = K.check_kaldi_dir(kaldi, fix=True)
+    res["check_s"] = time.perf_counter() - t0
+    if report["removed_utts"] or report["n_utts"] != len(kinds) or not os.path.exists(os.path.join(kaldi, "utt2dur")):
+        raise AssertionError(f"{tag}: check_kaldi_dir report {report}")
+    t0 = time.perf_counter()
+    rec_durs = K.compute_durations(K.parse_wavscp(os.path.join(kaldi, "wav.scp")))
+    res["recording_durations_s"] = time.perf_counter() - t0
+    for rec, (x, rate) in recs.items():
+        if abs(rec_durs[rec] - len(x) / rate) > 1e-9:
+            raise AssertionError(f"{tag}: {rec} duration {rec_durs[rec]}, written {len(x) / rate}")
+    utt2dur = {k: float(v) for k, v in K.read_keyed_file(os.path.join(kaldi, "utt2dur")).items()}
+    _, rows = kaldi_folder_to_manifest(kaldi)
+    resample(np.zeros(48, np.float32), 48000, 16000)  # scipy.signal's first import stays out of the timings
+    decoded, dec_s, audio_s = {}, {}, {}
+    for r in rows:
+        t0 = time.perf_counter()
+        a = load_audio(r["audio"], start=r["start"], end=r["end"])
+        kind = kinds[r["id"]]
+        dec_s[kind] = dec_s.get(kind, 0.0) + time.perf_counter() - t0
+        audio_s[kind] = audio_s.get(kind, 0.0) + len(a) / 16000
+        decoded[r["id"]] = a
+        if not abs(utt2dur[r["id"]] - len(a) / 16000) <= 0.01:
+            raise AssertionError(f"{tag}: {r['id']} utt2dur {utt2dur[r['id']]} against {len(a) / 16000} s decoded")
+    res["decode_s"] = dec_s
+    res["decode_s_per_audio_hour"] = {k: dec_s[k] / (audio_s[k] / 3600) for k in dec_s}
+    res["audio_s"] = audio_s
+
+    out = os.path.join(root, "nemo")
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        kaldi2manifest.main(["manifest", kaldi, os.path.join(out + ".jsonl")])
+        res["manifest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kaldi2manifest.main(["tar", kaldi, os.path.join(root, "tar"), "--shard_size", "8"])
+        res["tar_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kaldi2manifest.main(["tokenizer", os.path.join(root, "bpe"), "--manifest", out + ".jsonl", "--vocab_size",
+                             str(INGEST_BPE_VOCAB)])
+        res["tokenizer_s"] = time.perf_counter() - t0
+    manifest = load_manifest(out + ".jsonl")
+    pipes = [m for m in manifest if m["audio_filepath"].startswith("sox $INGEST_D/")]
+    if len(manifest) != len(kinds) or len(pipes) != INGEST_PIPES:
+        raise AssertionError(f"{tag}: manifest of {len(manifest)} rows, {len(pipes)} pipes kept verbatim")
+    seen = 0
+    for x, lens, batch_rows in iterate_tarred_dataset(os.path.join(root, "tar"), 8):
+        for a, n, r in zip(x, lens, batch_rows):
+            if r is None:
+                continue
+            seen += 1
+            if not np.array_equal(a[:n], bytes_to_array(array_to_bytes(decoded[r["id"]]))):
+                raise AssertionError(f"{tag}: tarred {r['id']} is not load_audio's int16 rounding")
+    with open(os.path.join(root, "bpe", "tokenizer.json"), encoding="utf-8") as f:
+        bpe = json.load(f)
+    if seen != len(kinds) or len(bpe["model"]["vocab"]) != INGEST_BPE_VOCAB or not bpe["model"]["merges"]:
+        raise AssertionError(f"{tag}: {seen} tarred rows, BPE vocabulary {len(bpe['model']['vocab'])}")
+    res["bpe_vocab"], res["bpe_merges"] = len(bpe["model"]["vocab"]), len(bpe["model"]["merges"])
+
+    # python -m ssak_tpu_torch.train.cli on a seeded wav2vec2-base directory
+    tok = CTCTokenizer.from_corpus([r["text"] for r in rows])
+    cfg = wav2vec2.make_config("base", vocab_size=max(32, len(tok)))
+    model_dir = os.path.join(root, "w2v2-base")
+    res["model_dir_write_s"] = write_wav2vec2_dir(model_dir, wav2vec2.init_params(cfg, seed=0), cfg, tok)
+    with open(os.path.join(root, "ingest.yaml"), "w", encoding="utf-8") as f:
+        f.write(f"# sak-train on the ingest corpus\nbase_model: {model_dir}\nbatch_size: {INGEST_BATCH}\n"
+                f"learning_rate: 1.0e-4\nwarmup_steps: 2\neval_steps: 0\nlanguage: en\noutput_dir: {root}/runs\n")
+    argv = [kaldi, kaldi, "--config", os.path.join(root, "ingest.yaml"), "--set", f"max_steps={INGEST_STEPS}",
+            "--use_manifest_cache"]
+    cache_env = os.environ.get("SSAK_TPU_TORCH_CACHE")
+    os.environ["SSAK_TPU_TORCH_CACHE"] = os.path.join(root, "cache")
+    make_step, batches_fn = LOOP.make_ctc_train_step, LOOP.CTCTrainer._batches
+    marks, shapes = [], set()
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(state, batch):
+            out = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            return out
+
+        return timed
+
+    def seen_batches(self, rows_, shuffle_seed=None):
+        for item in batches_fn(self, rows_, shuffle_seed=shuffle_seed):
+            shapes.add(tuple(item[0]["audio"].shape))
+            yield item
+
+    runs = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    LOOP.make_ctc_train_step, LOOP.CTCTrainer._batches = timed_make_step, seen_batches
+    try:
+        for run in range(2):
+            stdout = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            run_dir = json.loads(stdout.getvalue().strip().splitlines()[-1])["run_dir"]
+            cache = os.path.join(root, "cache", "manifests")
+            runs.append(dict(run_s=run_s, launches=kernel_launches(), run_dir=run_dir,
+                             cache={f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in sorted(os.listdir(cache))}))
+    finally:
+        LOOP.make_ctc_train_step, LOOP.CTCTrainer._batches = make_step, batches_fn
+        if cache_env is None:
+            os.environ.pop("SSAK_TPU_TORCH_CACHE")
+        else:
+            os.environ["SSAK_TPU_TORCH_CACHE"] = cache_env
+    res["train_s"] = sum(r["run_s"] for r in runs)
+    eval_batches = -(-len(rows) // INGEST_BATCH)
+    with open(os.path.join(runs[1]["run_dir"], "trainer_state.json")) as f:
+        state = json.load(f)
+    for i, (run, steps) in enumerate(zip(runs, (INGEST_STEPS, 1))):  # the resumed run takes one step past max_steps
+        want = {k: 0 for k in run["launches"]}
+        want["ctc_fused"] = steps + eval_batches
+        if run["launches"] != want:
+            raise AssertionError(f"{tag}: run {i} launch counters {run['launches']} != {want}")
+    if runs[1]["run_dir"] != runs[0]["run_dir"] or state["global_step"] != INGEST_STEPS + 1:
+        raise AssertionError(f"{tag}: resumed run {runs[1]['run_dir']} at step {state['global_step']}")
+    if len(runs[0]["cache"]) != 2 or runs[1]["cache"] != runs[0]["cache"]:
+        raise AssertionError(f"{tag}: manifest cache {runs[0]['cache']} then {runs[1]['cache']}")
+    cached = sorted((load_manifest(os.path.join(root, "cache", "manifests", f)) for f in runs[0]["cache"]), key=len)
+    manifest_s = {}
+    for use_cache in (False, True):  # the train and valid manifests the CLI reads, parsed, then from the cache
+        os.environ["SSAK_TPU_TORCH_CACHE"] = os.path.join(root, "cache")
+        t0 = time.perf_counter()
+        fresh = sorted((kaldi_folder_to_manifest(kaldi, min_duration=m, max_duration=15.0, seed=69, use_cache=use_cache)[1]
+                        for m in (0.1, None)), key=len)
+        manifest_s["cached" if use_cache else "uncached"] = time.perf_counter() - t0
+        if cache_env is None:
+            os.environ.pop("SSAK_TPU_TORCH_CACHE")
+        else:
+            os.environ["SSAK_TPU_TORCH_CACHE"] = cache_env
+        if cached != fresh:
+            raise AssertionError(f"{tag}: cached manifests differ from an uncached read (use_cache {use_cache})")
+    res["train_manifests_s"] = manifest_s
+    frames = wav2vec2.feature_extract_output_length(cfg, 15 * 16000)
+    if shapes != {(INGEST_BATCH, 15 * 16000)}:
+        raise AssertionError(f"{tag}: batch shapes {shapes}")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[:INGEST_STEPS - 1], marks[1:INGEST_STEPS])]
+    res.update(batch_size=INGEST_BATCH, frames=frames, steps=INGEST_STEPS, eval_batches=eval_batches,
+               step_ms=sum(step_ms) / len(step_ms), run_s=[r["run_s"] for r in runs],
+               launches=[r["launches"] for r in runs], cache_files=len(runs[0]["cache"]), resumed_step=state["global_step"])
+
+    # resample_torch on the card against the host resampler
+    rs = {}
+    for rate, rows_n in INGEST_RESAMPLE:
+        rng = np.random.RandomState(rate)
+        t = np.arange(15 * rate) / rate
+        x = np.stack([sum(0.2 * np.sin(2 * np.pi * rng.uniform(100, 2000) * t + rng.uniform(0, 6)) for _ in range(3))
+                      .astype(np.float32) for _ in range(rows_n)])  # tones well inside both filters' pass bands
+        xd = torch.from_numpy(x).to(dev)
+        ms = time_ms(torch, lambda a: resample_torch(a, rate, 16000), [(xd,)], min_iters=3)
+        got = resample_torch(xd, rate, 16000).cpu().numpy()
+        host = resample(x, rate, 16000, axis=1)
+        n = min(host.shape[1], got.shape[1])
+        err = float(np.abs(host[:, 100 : n - 100] - got[:, 100 : n - 100]).max())
+        if got.shape != (rows_n, int(math.ceil(15 * rate * 16000 / rate))) or not err < 0.02:
+            raise AssertionError(f"resample_torch {rate} -> 16000: shape {got.shape}, {err} off the host resampler")
+        rs[str(rate)] = dict(rows=rows_n, ms=ms, ms_per_row=ms / rows_n, max_abs_err=err)
+        del xd
+    res["resample_torch"] = rs
+    os.environ.pop("INGEST_D", None)
+    log(f"slice {json.dumps(res)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # --- phase 4: the whole path, card against CPU -----------------------------------
 
 
@@ -3775,7 +4177,8 @@ def main():
         "(greedy in bf16, int8 and int4; device beam with lexicon and word LM; host beam with a word 4-gram in process "
         "and over 4 workers; streaming over WebSocket); NeMo Conformer-CTC Large from a .nemo archive (greedy in bf16, "
         "int8 and int4, and device beam serving; fine-tuning through the train CLI, finalized and reloaded); "
-        "wav2vec2-xlsr CTC training at the 140 s bucket")
+        "wav2vec2-xlsr CTC training at the 140 s bucket; corpus ingest (FLAC, sox pipes, segments; check_kaldi_dir, "
+        "manifest, tar, BPE) into the train CLI's wav2vec2-base step with --config, --set and the manifest cache")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
@@ -3826,6 +4229,11 @@ def main():
         slices["ctc_long"] = run_ctc_training(torch, dev, tmp, CTC_RUNS["ctc_long"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_ingest_")
+    try:
+        slices["ingest"] = run_ingest(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
         "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row in bf16), at 1 (in int8 and int4; "
@@ -3867,7 +4275,7 @@ def main():
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
          k1_rows, k1_err, dict(V=32, T=749),
          slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]
-         + slices["nemo_training"]["launches"]["ctc_fused"]),
+         + slices["nemo_training"]["launches"]["ctc_fused"] + sum(r["ctc_fused"] for r in slices["ingest"]["launches"])),
         ("flash_attention", "ssak_tpu_torch/csrc/flash_attention.cu", "ssak_tpu/models/layers.py:290",
          l1_rows, l1_err, dict(B=1, T=7001),
          sum(slices[k]["launches"]["flash_attention"] for k in ("ctc_serving_greedy", "ctc_serving_int8",

@@ -148,6 +148,11 @@ def read_wav(path, start_frame: int = 0, n_frames: int = -1):
     return audio, fmt.sample_rate
 
 
+def wav_info(path) -> WavFormat:
+    with open(path, "rb") as f:
+        return read_wav_header(f)
+
+
 def write_wav(path, audio: np.ndarray, sample_rate: int, bits: int = 16):
     """Write float32/float64 audio (frames,) or (frames, channels) as PCM WAV."""
     audio = np.asarray(audio)

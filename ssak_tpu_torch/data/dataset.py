@@ -1,25 +1,30 @@
 """Manifests and audio batching (counterpart of ssak_tpu.data.dataset).
 
-`to_audio_batches` (serving): a np.ndarray, a list of arrays and/or audio
-paths, a single audio path, a list file of audio paths or Kaldi dirs, or a
-Kaldi dir whose wav.scp holds plain file paths (with `segments` windows).
+`to_audio_batches` (serving): a np.ndarray, a list of arrays, audio paths
+and/or wav.scp command pipes, a single audio path, a list file of audio
+paths or Kaldi dirs, or a Kaldi dir (with `segments` windows).
 
 Training: `kaldi_folder_to_manifest` turns Kaldi dirs (one dir, a list of
 dirs, or a list file of "<dir> [weight]" lines) into a manifest, a list of
 row dicts {id, audio, start, end, duration, text, speaker, gender}, with the
 duration / text-length filters, `max_data` subsets and weighted upsampling
-of ssak_tpu; `bucketed_audio_batches` cuts it into duration-bucketed batches
-padded to the bucket's sample count and to the full batch size (dummy rows
-of one zero sample). Not ported yet: the manifest cache (`use_cache`),
-command-pipe wav.scp entries (refused when the manifest is built), MP3/FLAC.
+of ssak_tpu; `audio` is the wav.scp value verbatim (a path or a command
+pipe; environment variables are expanded when it is decoded). With
+use_cache the manifest is kept as JSONL under the port's cache directory,
+keyed on the dirs' file mtimes and sizes and on the arguments.
+`bucketed_audio_batches` cuts it into duration-bucketed batches padded to
+the bucket's sample count and to the full batch size (dummy rows of one
+zero sample).
 """
 
+import json
 import os
 import random
 
 import numpy as np
 
 from ssak_tpu_torch.data import kaldi as K
+from ssak_tpu_torch.utils.misc import get_cache_dir, hashmd5
 from ssak_tpu_torch.utils.monitoring import logger
 
 
@@ -60,7 +65,7 @@ def to_audio_batches(
     def _file_rows(item):
         path = str(item)
         ext = os.path.splitext(path)[1].lower()
-        if ext in (".wav", ".mp3", ".flac"):
+        if ext in (".wav", ".mp3", ".flac") or path.rstrip().endswith("|"):
             yield {"id": os.path.splitext(os.path.basename(path))[0], "audio": path}
         elif os.path.isfile(path):
             # a list file of audio paths or Kaldi dirs
@@ -113,11 +118,26 @@ def kaldi_folder_to_manifest(
     sort_by_len: int = 0,
     weights: float = 1.0,
     seed: int = 69,
+    use_cache: bool = False,
 ):
     """Load one Kaldi dir, a list file of "<dir> [weight]" lines, or a list
     of dirs. sort_by_len: 0 none, 1 ascending, -1 descending. max_data caps
     the utterance count: a seeded random subset, or the longest utterances
-    with choose_data_with_max_duration. Returns (meta, rows)."""
+    with choose_data_with_max_duration. use_cache: reuse a JSONL manifest
+    keyed on the Kaldi files' (mtime, size) and these arguments, written on
+    a miss. Returns (meta, rows)."""
+    if use_cache:
+        key = _manifest_cache_key(
+            path, min_duration=min_duration, max_duration=max_duration,
+            max_text_length=max_text_length, max_data=max_data,
+            choose_data_with_max_duration=choose_data_with_max_duration,
+            shuffle=shuffle, sort_by_len=sort_by_len, weights=weights, seed=seed,
+        )
+        cached = _manifest_cache_path(key)
+        if os.path.exists(cached):
+            rows = load_manifest(cached)
+            logger.info(f"manifest cache hit: {cached} ({len(rows)} rows)")
+            return _manifest_meta(rows), rows
     rows = []
     if isinstance(path, str) and os.path.isfile(path):
         with open(path, encoding="utf-8") as f:
@@ -158,6 +178,9 @@ def kaldi_folder_to_manifest(
         random.Random(seed).shuffle(rows)
     elif sort_by_len:
         rows.sort(key=lambda r: (r["duration"] or 0.0), reverse=sort_by_len < 0)
+
+    if use_cache:
+        cache_manifest(rows, key)
     return _manifest_meta(rows), rows
 
 
@@ -184,9 +207,6 @@ def _load_one_kaldi_dir(path):
     if "wav.scp" not in d:
         raise FileNotFoundError(f"{path}: not a Kaldi data dir (no wav.scp)")
     wavscp = d["wav.scp"]
-    pipes = [k for k, v in wavscp.items() if v.rstrip().endswith("|")]
-    if pipes:
-        raise NotImplementedError(f"{path}: command-pipe wav.scp entries ({pipes[0]}, ...) are not ported yet")
     text = d.get("text", {})
     utt2spk = d.get("utt2spk", {})
     spk2gender = d.get("spk2gender", {})
@@ -197,7 +217,7 @@ def _load_one_kaldi_dir(path):
             if rec not in wavscp:
                 continue
             spk = utt2spk.get(utt)
-            rows.append({"id": utt, "audio": os.path.expandvars(wavscp[rec]), "start": start, "end": end,
+            rows.append({"id": utt, "audio": wavscp[rec], "start": start, "end": end,
                          "duration": utt2dur.get(utt, end - start), "text": text.get(utt), "speaker": spk,
                          "gender": spk2gender.get(spk)})
     else:
@@ -205,7 +225,7 @@ def _load_one_kaldi_dir(path):
             if utt not in wavscp:
                 continue
             spk = utt2spk.get(utt)
-            rows.append({"id": utt, "audio": os.path.expandvars(wavscp[utt]), "start": None, "end": None,
+            rows.append({"id": utt, "audio": wavscp[utt], "start": None, "end": None,
                          "duration": utt2dur.get(utt), "text": text.get(utt), "speaker": spk,
                          "gender": spk2gender.get(spk)})
     rows.sort(key=lambda r: r["id"])
@@ -227,6 +247,59 @@ def _apply_weight(rows, weight: float, seed: int = 69):
         picked = rng.sample(range(len(rows)), int(round(frac * len(rows))))
         out.extend({**rows[i], "id": f"{rows[i]['id']}_copy{full}"} for i in sorted(picked))
     return out
+
+
+# --- the manifest cache ---------------------------------------------------------------
+
+_KALDI_FILES = ("wav.scp", "text", "segments", "utt2spk", "utt2dur", "spk2gender")
+
+
+def _dir_fingerprint(path):
+    """(abspath, ((name, mtime_ns, size), ...)) over the standard Kaldi files."""
+    fp = []
+    for fn in _KALDI_FILES:
+        p = os.path.join(path, fn)
+        if os.path.exists(p):
+            st = os.stat(p)
+            fp.append((fn, st.st_mtime_ns, st.st_size))
+    return (os.path.abspath(path), tuple(fp))
+
+
+def _manifest_cache_key(path, **opts):
+    if isinstance(path, str) and os.path.isfile(path):
+        st = os.stat(path)
+        with open(path, encoding="utf-8") as f:
+            dirs = [os.path.expandvars(line.split()[0]) for line in f if line.split()]
+        src = ("listfile", os.path.abspath(path), st.st_mtime_ns, st.st_size,
+               tuple(_dir_fingerprint(d) for d in dirs if os.path.isdir(d)))
+    elif isinstance(path, (list, tuple)):
+        src = ("list", tuple(_dir_fingerprint(os.path.expandvars(p)) for p in path))
+    else:
+        src = ("dir", _dir_fingerprint(os.path.expandvars(path)))
+    return (src, tuple(sorted(opts.items())))
+
+
+def _manifest_cache_path(key_obj) -> str:
+    cache = os.path.join(get_cache_dir(), "manifests")
+    os.makedirs(cache, exist_ok=True)
+    return os.path.join(cache, hashmd5(key_obj) + ".jsonl")
+
+
+def cache_manifest(rows, key_obj) -> str:
+    """Write rows to the JSONL cache file of `key_obj` (once); return its path."""
+    path = _manifest_cache_path(key_obj)
+    if not os.path.exists(path):
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            for r in rows:
+                f.write(json.dumps(r, ensure_ascii=False) + "\n")
+        os.replace(tmp, path)
+    return path
+
+
+def load_manifest(path) -> list:
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
 
 
 # --- bucketed batching ----------------------------------------------------------------

@@ -55,12 +55,12 @@ _CHAR_BYTE = {c: b for b, c in _BYTE_CHAR.items()}
 _PRETOKENIZE = None
 
 
-def _category_class(prefix: str) -> str:
-    """A regex class body of every code point whose general category starts
-    with `prefix`, as ranges."""
+def _class_of(keep) -> str:
+    """A regex class body, as ranges, of every code point cp for which
+    keep(cp, its general category) holds."""
     out, start, prev = [], None, None
     for cp in range(sys.maxunicode + 1):
-        if unicodedata.category(chr(cp)).startswith(prefix):
+        if keep(cp, unicodedata.category(chr(cp))):
             if start is None:
                 start = cp
             prev = cp
@@ -70,6 +70,12 @@ def _category_class(prefix: str) -> str:
     if start is not None:
         out.append((start, prev))
     return "".join(re.escape(chr(a)) if a == b else f"{re.escape(chr(a))}-{re.escape(chr(b))}" for a, b in out)
+
+
+def _category_class(prefix: str) -> str:
+    """A regex class body of every code point whose general category starts
+    with `prefix`, as ranges."""
+    return _class_of(lambda _cp, cat: cat.startswith(prefix))
 
 
 def _pretokenizer():
@@ -349,3 +355,151 @@ class CTCTokenizer:
     def save(self, path: str):
         with open(path, "w", encoding="utf-8") as f:
             json.dump(self.vocab, f, ensure_ascii=False, indent=1)
+
+
+# --- the BPE trainer ------------------------------------------------------------------
+
+# Unicode's Other_Alphabetic code points of category So (circled and squared
+# Latin letters) and the two join controls: word characters in the runtime's
+# \w besides categories L, M, Nd, Nl and Pc
+_WORD_EXTRA = ((0x24B6, 0x24E9), (0x1F130, 0x1F149), (0x1F150, 0x1F169), (0x1F170, 0x1F189), (0x200C, 0x200D))
+_WHITESPACE_SPLIT = None
+
+
+def _whitespace_pretokenizer():
+    """The runtime's `Whitespace` pre-tokenizer, \\w+|[^\\w\\s]+, with its
+    regex engine's Unicode classes: \\w is categories L, M, Nd, Nl, Pc and
+    _WORD_EXTRA, \\s the White_Space property. Built from `unicodedata` at
+    first use: code points assigned after this Python's Unicode version are
+    not word characters here."""
+    global _WHITESPACE_SPLIT
+    if _WHITESPACE_SPLIT is None:
+        word = _class_of(lambda cp, cat: cat[0] in "LM" or cat in ("Nd", "Nl", "Pc")
+                         or any(a <= cp <= b for a, b in _WORD_EXTRA))
+        _WHITESPACE_SPLIT = re.compile(rf"[{word}]+|[^{word}{_WHITE_SPACE}]+")
+    return _WHITESPACE_SPLIT
+
+
+class BpeTokenizer:
+    """What `train_bpe_tokenizer` returns: a BPE model (vocab, merges in
+    rank order, <unk>), its special tokens, and the Whitespace
+    pre-tokenizer; `save` writes the runtime's tokenizer.json."""
+
+    def __init__(self, vocab: dict, merges: list, special_tokens=(), unk_token: str = "<unk>"):
+        self.vocab = dict(vocab)
+        self.merges = [tuple(m) for m in merges]
+        self.special_tokens = list(special_tokens)
+        self.unk_token = unk_token
+
+    def get_vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def get_vocab(self) -> dict:
+        return dict(self.vocab)
+
+    def save(self, path: str):
+        """The runtime's tokenizer.json for this model."""
+        added = [{"id": self.vocab[t], "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+                  "normalized": False, "special": True} for t in self.special_tokens]
+        model = {"type": "BPE", "dropout": None, "unk_token": self.unk_token, "continuing_subword_prefix": None,
+                 "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                 "vocab": dict(sorted(self.vocab.items(), key=lambda kv: kv[1])),
+                 "merges": [list(m) for m in self.merges]}
+        out = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added, "normalizer": None,
+               "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None, "decoder": None, "model": model}
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(out, f, ensure_ascii=False, indent=2)
+
+
+def _merge_word(sym: list, c1: int, c2: int, rep: int) -> list:
+    """Merge every (c1, c2) of one word in place, left to right; return the
+    pair-count changes as the runtime's Word::merge gives them (the merged
+    pair itself is not among them)."""
+    changes = []
+    i = 0
+    while i < len(sym):
+        if sym[i] == c1 and i + 1 < len(sym) and sym[i + 1] == c2:
+            second = sym[i + 1]
+            if i > 0:
+                changes.append(((sym[i - 1], c1), -1))
+                changes.append(((sym[i - 1], rep), 1))
+            sym[i : i + 2] = [rep]
+            if i < len(sym) - 1:
+                changes.append(((second, sym[i + 1]), -1))
+                changes.append(((rep, sym[i + 1]), 1))
+        i += 1
+    return changes
+
+
+def train_bpe_tokenizer(texts, vocab_size: int = 1000, save_path: str = None,
+                        special_tokens=("<pad>", "<s>", "</s>", "<unk>")):
+    """Train a BPE subword tokenizer on corpus text, in plain Python: the
+    vocab and merges that ssak_tpu's `tokenizers` BpeTrainer gives (checked
+    against tokenizers 0.22). Words come from the Whitespace pre-tokenizer.
+    The vocab is the special tokens in order, then every character seen,
+    sorted by code point, then one token per merge while it is smaller than
+    vocab_size. Each merge takes the pair of the highest count over all
+    words (ties to the smaller (left id, right id)), from a heap whose stale
+    counts are refreshed when they are popped, and is applied in the words
+    the pair was recorded in, as the runtime does."""
+    split = _whitespace_pretokenizer()
+    word_counts = {}
+    for t in texts:
+        for w in split.findall(t):
+            word_counts[w] = word_counts.get(w, 0) + 1
+    w2id, id2w = {}, []
+    for tok in list(special_tokens) + sorted({c for w in word_counts for c in w}):
+        if tok not in w2id:
+            w2id[tok] = len(id2w)
+            id2w.append(tok)
+    words = [[w2id[c] for c in w] for w in word_counts]
+    counts = list(word_counts.values())
+
+    pair_counts, where = {}, {}
+    for i, sym in enumerate(words):
+        for pair in zip(sym, sym[1:]):
+            pair_counts[pair] = pair_counts.get(pair, 0) + counts[i]
+            where.setdefault(pair, set()).add(i)
+    heap, seq = [], 0
+
+    def push(pair, count, pos):
+        nonlocal seq
+        heapq.heappush(heap, (-count, pair, seq, pos))
+        seq += 1
+
+    def drain():
+        for pair, pos in where.items():
+            if pair_counts[pair] > 0:
+                push(pair, pair_counts[pair], pos)
+        where.clear()
+
+    drain()
+    merges = []
+    while len(w2id) < vocab_size and heap:
+        neg, pair, _seq, pos = heapq.heappop(heap)
+        if -neg != pair_counts[pair]:
+            push(pair, pair_counts[pair], pos)
+            continue
+        if -neg < 1:
+            break
+        new_token = id2w[pair[0]] + id2w[pair[1]]
+        if new_token not in w2id:
+            w2id[new_token] = len(id2w)
+            id2w.append(new_token)
+        new_id = w2id[new_token]
+        merges.append((pair, new_id))
+        for i in pos:
+            for p, change in _merge_word(words[i], pair[0], pair[1], new_id):
+                pair_counts[p] = pair_counts.get(p, 0) + change * counts[i]
+                if change > 0:
+                    where.setdefault(p, set()).add(i)
+        drain()
+
+    rank = {}  # a pair merged twice keeps its last rank, as the runtime's merge map does
+    for r, (pair, _new_id) in enumerate(merges):
+        rank[pair] = r
+    ordered = sorted(rank, key=rank.get)
+    tk = BpeTokenizer(w2id, [(id2w[a], id2w[b]) for a, b in ordered], special_tokens)
+    if save_path:
+        tk.save(save_path)
+    return tk

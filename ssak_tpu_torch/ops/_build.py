@@ -7,9 +7,11 @@ covers the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. The sources expose plain C functions (no PyTorch
 headers), so a build takes seconds.
 
-Host C++ sources (the n-gram scorer, decode/native/ngram.cpp) are built
-the same way by `g++` (`host_library`): into `build/ssak_tpu_torch/`, keyed
-on the source and the flags. A failed build raises.
+Host C++ sources (the n-gram scorer, decode/native/ngram.cpp; the audio
+codecs and the duration scan, audio/native/*.cpp) are built the same way by
+`g++` (`host_library`): one library per source, so a missing system
+library loses only the source that links it, into `build/ssak_tpu_torch/`,
+keyed on the source, the flags and the link flags. A failed build raises.
 
 Nothing here runs at import: the CPU tests import every module, and a host
 without the CUDA toolkit has no nvcc.
@@ -96,16 +98,17 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def host_library(source: str) -> ctypes.CDLL:
+def host_library(source: str, libs=()) -> ctypes.CDLL:
     """The loaded library of the host C++ file `source`, compiled by
-    `g++ -O3 -shared -fPIC -std=c++17` into BUILD_DIR on first use (under a
-    name keyed on the source's and the flags' digest, so an edited source
-    rebuilds). Raises RuntimeError when g++ is missing or fails."""
+    `g++ -O3 -shared -fPIC -std=c++17 SOURCE LIBS` (link flags such as
+    ("-ldl",)) into BUILD_DIR on first use, under a name keyed on the digest
+    of the source, the flags and `libs`, so an edited source rebuilds.
+    Raises RuntimeError when g++ is missing or fails."""
     with _lock:
         if source in _libs:
             return _libs[source]
         with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+            digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS + tuple(libs)).encode()).hexdigest()[:16]
         stem = os.path.splitext(os.path.basename(source))[0]
         path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
         if not os.path.exists(path):
@@ -114,7 +117,7 @@ def host_library(source: str) -> ctypes.CDLL:
                 raise RuntimeError(f"g++ not found: {source} is built with g++ at first use")
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            res = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
+            res = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, source, *libs], capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"g++ failed on {source}:\n{res.stderr}")
             os.replace(tmp, path)

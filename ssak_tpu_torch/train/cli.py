@@ -15,8 +15,12 @@ without it, the seeded tiny_test wav2vec2 with a character vocabulary
 built from the training text. Runs on cuda unless --device cpu. Export a
 run with `python -m ssak_tpu_torch.train.finalize RUN_DIR`.
 
-Not ported yet, refused at start: --config / --set (YAML configs, ROADMAP.md
-slice 8e), --data_augment (slice 8f) and --use_manifest_cache (8e).
+--config FILE.yaml and --set a.b=value (utils/config, read by the port's
+own YAML reader) fill every option left at its CLI default, as ssak_tpu's
+do: a key a.b sets --a_b. --use_manifest_cache keeps each parsed manifest
+as JSONL under the port's cache directory (data/dataset.py).
+
+Not ported yet, refused at start: --data_augment (ROADMAP.md slice 8f).
 """
 
 import argparse
@@ -30,8 +34,8 @@ def build_parser():
     p = argparse.ArgumentParser(description="Fine-tune a CTC model (wav2vec2 or Conformer) on Kaldi data (PyTorch/CUDA port)")
     p.add_argument("train", help="Kaldi dir or weighted list file")
     p.add_argument("valid", help="Kaldi dir or list file")
-    p.add_argument("--config", default=None, help="YAML config file (not ported yet)")
-    p.add_argument("--set", dest="overrides", action="append", default=[], help="config override a.b=value (not ported yet)")
+    p.add_argument("--config", default=None, help="YAML config file; CLI flags and key=value overrides win")
+    p.add_argument("--set", dest="overrides", action="append", default=[], help="config override a.b=value (repeatable)")
     p.add_argument("--mask_time_prob", type=float, default=0.05, help="on-device span-mask probability")
     p.add_argument("--base_model", default=None,
                    help="HF wav2vec2 checkpoint dir or NeMo Conformer-CTC archive (omit for a seeded tiny model)")
@@ -51,7 +55,7 @@ def build_parser():
     p.add_argument("--max_data", type=int, default=None, help="cap utterance count")
     p.add_argument("--choose_data_with_max_duration", action="store_true",
                    help="with --max_data: keep the longest utterances instead of a random subset")
-    p.add_argument("--use_manifest_cache", action="store_true", help="(not ported yet)")
+    p.add_argument("--use_manifest_cache", action="store_true", help="fingerprint-cache parsed kaldi manifests")
     p.add_argument("--max_duration", type=float, default=15.0)
     p.add_argument("--seed", type=int, default=69)
     p.add_argument("--data_augment", action="store_true", help="(not ported yet)")
@@ -76,13 +80,24 @@ def args_to_run_name(args) -> str:
     return f"ctc_b{args.batch_size}_lr{args.learning_rate}_s{args.seed}_{hashmd5(key)[:8]}"
 
 
-def _refuse_unported(args):
+def parse_args(argv=None):
+    """The CLI's arguments, with --config and --set merged as ssak_tpu's
+    sak-train merges them: the YAML tree with its overrides fills every
+    option still at its default (a key a.b names the option a_b)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if args.config or args.overrides:
-        raise NotImplementedError("--config / --set (YAML configs) are not ported yet (ROADMAP.md slice 8e)")
+        from ssak_tpu_torch.utils.config import flatten_config, load_config
+
+        cfg_tree = load_config(args.config, overrides=args.overrides)
+        defaults = {k: parser.get_default(k) for k in vars(args)}
+        for key, val in flatten_config(cfg_tree).items():
+            name = key.replace(".", "_")
+            if hasattr(args, name) and getattr(args, name) == defaults.get(name):
+                setattr(args, name, val)
     if args.data_augment:
         raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 8f)")
-    if args.use_manifest_cache:
-        raise NotImplementedError("--use_manifest_cache is not ported yet (ROADMAP.md slice 8e)")
+    return args
 
 
 def base_model(model_dir: str, seed: int, device):
@@ -107,8 +122,7 @@ def base_model(model_dir: str, seed: int, device):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    args = parse_args(argv)
     from ssak_tpu_torch.utils.env import resolve_device
 
     device = resolve_device(args.device)
@@ -132,8 +146,10 @@ def main(argv=None):
 
     meta_tr, train_rows = kaldi_folder_to_manifest(
         args.train, min_duration=args.min_duration, max_duration=args.max_duration, max_data=args.max_data,
-        choose_data_with_max_duration=args.choose_data_with_max_duration, seed=args.seed)
-    meta_va, valid_rows = kaldi_folder_to_manifest(args.valid, max_duration=args.max_duration, seed=args.seed)
+        choose_data_with_max_duration=args.choose_data_with_max_duration, use_cache=args.use_manifest_cache,
+        seed=args.seed)
+    meta_va, valid_rows = kaldi_folder_to_manifest(args.valid, max_duration=args.max_duration,
+                                                   use_cache=args.use_manifest_cache, seed=args.seed)
     logger.info(f"train: {meta_tr} valid: {meta_va}")
 
     family, model_type = "wav2vec2", "wav2vec2_ctc"

@@ -1,10 +1,30 @@
-"""Small host-side helpers (counterpart of ssak_tpu.utils.misc: `hashmd5`,
-`save_source_dir`)."""
+"""Small host-side helpers (counterpart of ssak_tpu.utils.misc:
+`get_cache_dir`, `hashmd5`, `walk_files`, `save_source_dir`)."""
 
 import hashlib
 import json
 import os
 import shutil
+
+
+def get_cache_dir(name: str = "ssak_tpu_torch") -> str:
+    """Return (and create) the port's per-user cache directory:
+    $SSAK_TPU_TORCH_CACHE, else $XDG_CACHE_HOME/<name>, else
+    $HOME/.cache/<name>, else /tmp/<name>-cache. Apart from ssak_tpu's
+    (which reads $SSAK_TPU_CACHE and defaults to the name ssak_tpu), so the
+    two packages never share a cache file."""
+    root = os.environ.get("SSAK_TPU_TORCH_CACHE")
+    if not root:
+        xdg = os.environ.get("XDG_CACHE_HOME")
+        home = os.environ.get("HOME")
+        if xdg:
+            root = os.path.join(xdg, name)
+        elif home and os.access(home, os.W_OK):
+            root = os.path.join(home, ".cache", name)
+        else:
+            root = os.path.join("/tmp", f"{name}-cache")
+    os.makedirs(root, exist_ok=True)
+    return root
 
 
 def hashmd5(obj) -> str:
@@ -15,6 +35,17 @@ def hashmd5(obj) -> str:
     except TypeError:
         payload = repr(obj)
     return hashlib.md5(payload.encode("utf-8")).hexdigest()
+
+
+def walk_files(root: str, ignore_extensions=None, verbose: bool = False):
+    """Yield all file paths under root (sorted, deterministic order)."""
+    ignore_extensions = tuple(ignore_extensions or ())
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames.sort()
+        for fn in sorted(filenames):
+            if ignore_extensions and fn.endswith(ignore_extensions):
+                continue
+            yield os.path.join(dirpath, fn)
 
 
 def save_source_dir(dest_dir: str) -> str:

@@ -30,8 +30,19 @@ def test_load_audio_matches(tmp_path, rate, channels, bits):
 
 
 def test_load_audio_refuses_other_formats(tmp_path):
-    with pytest.raises(NotImplementedError):
+    """MP3, FLAC and the ffmpeg formats are ported (tests/test_torch_audio_ingest.py):
+    what neither package can decode, a missing file or bytes that are no
+    audio, both refuse with the same error."""
+    with pytest.raises(FileNotFoundError):
+        jax_load_audio(str(tmp_path / "a.mp3"))
+    with pytest.raises(FileNotFoundError):
         load_audio(str(tmp_path / "a.mp3"))
+    for ext in (".mp3", ".flac"):
+        p = tmp_path / f"noise{ext}"
+        p.write_bytes(bytes(range(256)) * 4)
+        for fn in (jax_load_audio, load_audio):
+            with pytest.raises(ValueError):
+                fn(str(p))
 
 
 def test_wire_matches():
@@ -70,12 +81,17 @@ def test_to_audio_batches_kaldi_dir_matches(tmp_path):
 
 
 def test_to_audio_batches_refuses_what_is_not_ported(tmp_path):
+    """Command pipes are ported (tests/test_torch_audio_ingest.py): a pipe
+    whose input file is missing, whole or cut by segments, fails in both
+    packages with the same error when it is decoded."""
     (tmp_path / "wav.scp").write_text("u1 sox in.mp3 -t wav - |\n")
-    with pytest.raises(NotImplementedError):
-        list(to_audio_batches(str(tmp_path)))
+    for batches in (jax_to_audio_batches, to_audio_batches):
+        with pytest.raises(FileNotFoundError):
+            list(batches(str(tmp_path)))
     (tmp_path / "segments").write_text("s1 u1 0.0 1.0\n")
-    with pytest.raises(NotImplementedError):
-        list(to_audio_batches(str(tmp_path)))
+    for batches in (jax_to_audio_batches, to_audio_batches):
+        with pytest.raises(FileNotFoundError):
+            list(batches(str(tmp_path)))
 
 
 def test_prefetch_keeps_order_and_reraises():

@@ -242,3 +242,29 @@ def test_ctc_serving_modules_are_guarded_and_need_a_card(tmp_path):
         stream_main(["--seeded_test_config", "wav2vec2", "--port", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stream_main(["--seeded_test_config", "wav2vec2", "--port", "0", "--load_in_8bit"])
+
+
+def test_ingest_modules_are_guarded_and_carry_their_own_sources(tmp_path):
+    """Slice 8e's modules are among the files the import guards read; the
+    audio codecs' C++ sources are the port's own copies (no path into the
+    JAX package's audio/native), built one library per source; the ingest
+    CLIs run without a card, and load_audio's tensor format defaults to
+    cuda and raises without one."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"ssak_tpu_torch/audio/mp3.py", "ssak_tpu_torch/audio/flac.py", "ssak_tpu_torch/audio/soxcmd.py",
+            "ssak_tpu_torch/audio/native/__init__.py", "ssak_tpu_torch/data/kaldi_dataset.py",
+            "ssak_tpu_torch/data/kaldi_converter.py", "ssak_tpu_torch/data/segment_ops.py",
+            "ssak_tpu_torch/data/tarred.py", "ssak_tpu_torch/utils/config.py",
+            "ssak_tpu_torch/tools/kaldi2manifest.py", "ssak_tpu_torch/tools/kaldi_tools.py"} <= files
+    for src in ("durations", "flacdec", "mp3dec", "avdec"):
+        assert os.path.exists(os.path.join(PORT, "audio", "native", src + ".cpp"))
+    for path in files:
+        with open(os.path.join(REPO, path), encoding="utf-8") as f:
+            assert "ssak_tpu/audio/native" not in f.read(), path
+    _need_gpu_less_host()
+    from ssak_tpu_torch.audio import load_audio, save_audio
+
+    save_audio(str(tmp_path / "a.wav"), np.zeros(160, np.float32), 16000)
+    assert load_audio(str(tmp_path / "a.wav"), return_format="torch", device="cpu").shape == (160,)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_audio(str(tmp_path / "a.wav"), return_format="torch")
