@@ -95,7 +95,24 @@ and prints no result):
              --set and --use_manifest_cache (B=16 x 15 s, 4 steps, eval;
              resumed from the cached manifests), an MP3 refused by name (no
              libmpg123 there) and resample_torch against the host resampler;
-             each with the kernels' launch counters checked
+             then alignment and training data: a Kaldi dir of 4 utterances
+             of the serving corpus (two of 90-140 s, one of 200 s, the
+             first 20 s of another) split by python -m
+             ssak_tpu_torch.tools.align_audio_transcript at --max_duration
+             30 through the xlsr directory (L1 forward 24 times a 140 s
+             chunk, nothing else; check_kaldi_dir; every cut inside its
+             utterance; each long utterance's trellis on the card, graphed
+             and eager, bit for bit the CPU's on the card's log-probs,
+             timed), the train CLI with --data_augment over noise and RIR
+             directories on the ingest corpus (B=16 x 15 s, 4 steps, an
+             evaluation; K1 per step and evaluation batch; the host
+             augmentation timed), the voice converter at its defaults (20
+             steps; vc_forward's delta (out - x - voice) card vs CPU
+             within 1e-4 of its max, Griffin-Lim
+             card vs CPU correlation >= 0.999 and bit-identical on repeat,
+             convert_kaldi_dir over 4 utterances of 10-15 s, lengths kept)
+             and the NN VAD (20 steps; speech_probs card vs CPU within
+             1e-4); each with the kernels' launch counters checked
              against the path exactly (on the accurate and long-form paths,
              against the decode steps the port counts; on CTC serving, L1
              against 24 x the encoder calls at >= 4096 frames)
@@ -3449,6 +3466,411 @@ def run_ingest(torch, dev, root):
     return res
 
 
+# --- phase 3: alignment and training data (slice 8f) -------------------------------------------
+
+# Forced alignment through xlsr: a Kaldi dir of 4 utterances from the serving corpus (two files of
+# 90-140 s, one of 200 s and the first 20 s of the other), split by
+# python -m ssak_tpu_torch.tools.align_audio_transcript at --max_duration ALIGN_MAX_DURATION. Each
+# utterance longer than that runs the encoder once per 140 s chunk, each chunk padded to its bucket;
+# the trellis then runs on the card as one CUDA graph replayed per frame.
+ALIGN_MAX_DURATION, ALIGN_SHORT_SECONDS, ALIGN_WORDS_PER_SECOND = 30.0, 20.0, 2.2
+# sak-train --data_augment on the ingest corpus and its wav2vec2-base directory: B=16 x 15 s
+AUG_STEPS, AUG_NOISES, AUG_RIRS = 4, 2, 2
+# the voice converter at its defaults (80 mels, hidden 128, 4 blocks, batch 8 x 2 s)
+VC_STEPS, VC_CLIPS, VC_CLIP_SECONDS, VC_CONVERT = 20, 4, 6.0, 4
+VAD_STEPS, VAD_CLIPS, VAD_SECONDS = 20, 4, 10.0
+
+
+def _words(rng, seconds):
+    return " ".join("".join(rng.choice(list(CHARS), size=rng.randint(2, 9)))
+                    for _ in range(max(1, int(seconds * ALIGN_WORDS_PER_SECOND))))
+
+
+def write_align_corpus(root, corpus, ids, lens, seed=31):
+    """The alignment Kaldi dir over the serving corpus's wav files:
+    utterances a0, a1 (whole files of 90-140 s), a2 (a whole 200 s file)
+    and a3 (the first ALIGN_SHORT_SECONDS of the other 200 s file), under a
+    segments file, with random lower-case words (all in the seeded
+    vocabulary). Returns (dir, [(utt, recording, start, end)], {recording: seconds})."""
+    import numpy as np
+
+    secs = {u: n / 16000 for u, n in zip(ids, lens)}
+    long = [u for u in ids if 90.0 <= secs[u] <= 140.0][:2]
+    huge = [u for u in ids if secs[u] > 140.0][:2]
+    if len(long) < 2 or len(huge) < 2:
+        raise AssertionError(f"align: the serving corpus has no two files of 90-140 s and two above 140 s: {secs}")
+    rows = [(f"a{k}", u, 0.0, secs[u]) for k, u in enumerate(long + huge[:1])]
+    rows.append(("a3", huge[1], 0.0, ALIGN_SHORT_SECONDS))
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    files = {"wav.scp": [f"{rec} {os.path.join(corpus, rec + '.wav')}" for _u, rec, _s, _e in rows],
+             "segments": [f"{u} {rec} {s:.3f} {e:.3f}" for u, rec, s, e in rows],
+             "text": [f"{u} {_words(rng, e - s)}" for u, _rec, s, e in rows],
+             "utt2spk": [f"{u} spk{u}" for u, _rec, _s, _e in rows]}
+    for name, lines in files.items():
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return root, rows, {rec: secs[rec] for _u, rec, _s, _e in rows}
+
+
+def run_align(torch, dev, root, model_dir, corpus, ids, lens):
+    """Slice 8f's main path on the card: split_long_audio_kaldifolder over
+    the alignment dir with the xlsr directory (bf16): L1 forward 24 times
+    per chunk of at least FLASH_MIN_SEQ frames and nothing else; the split
+    dir passes check_kaldi_dir and every cut lies inside its utterance.
+    Then, for each aligned utterance, the trellis on the card's own
+    log-probs: graphed, eager and on the CPU, bit for bit the same trellis
+    and path, each timed (host clock, the backtrack and its copy included)."""
+    import numpy as np
+
+    from ssak_tpu_torch.align.forced import tokenize_transcript
+    from ssak_tpu_torch.audio import load_audio
+    from ssak_tpu_torch.data import kaldi as K
+    from ssak_tpu_torch.infer import ctc_infer as CI
+    from ssak_tpu_torch.infer import general as G
+    from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
+    from ssak_tpu_torch.models.wav2vec2 import feature_extract_output_length
+    from ssak_tpu_torch.ops.ctc import ctc_alignment_trellis
+    from ssak_tpu_torch.text import format_text
+    from ssak_tpu_torch.tools import align_audio_transcript as AT
+
+    tag = "align"
+    kaldi, rows, rec_secs = write_align_corpus(os.path.join(root, "kaldi"), corpus, ids, lens)
+    out = os.path.join(root, "split")
+    loaded, load_model = [], G.load_model
+
+    def keep(*a, **kw):
+        m = load_model(*a, **kw)
+        loaded.append(m)
+        return m
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    G.load_model = keep
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        report = AT.split_long_audio_kaldifolder(kaldi, out, model_dir, max_duration=ALIGN_MAX_DURATION)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        G.load_model = load_model
+    model = loaded[0]
+    cfg = model.cfg
+
+    audios, l1_chunks = {}, 0
+    for u, rec, s, e in rows:
+        if e - s > ALIGN_MAX_DURATION:
+            audios[u] = load_audio(os.path.join(corpus, rec + ".wav"), start=s, end=e)
+            l1_chunks += sum(feature_extract_output_length(cfg, CI._bucket_len(c)) >= FLASH_MIN_SEQ
+                             for c in CI.chunk_lengths(len(audios[u])))
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.num_layers * l1_chunks
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counters {launches} != {want}")
+    again = K.check_kaldi_dir(out, fix=False, compute_utt2dur=False)
+    segs = K.parse_segments(os.path.join(out, "segments"))
+    text = K.read_keyed_file(os.path.join(out, "text"))
+    if report["removed_utts"] or again["removed_utts"] or again["n_utts"] != len(segs) or sorted(text) != sorted(segs):
+        raise AssertionError(f"{tag}: check_kaldi_dir {report} then {again}")
+    src = {u: (rec, s, e) for u, rec, s, e in rows}
+    cuts = {}
+    for utt, (rec, s, e) in segs.items():
+        base = utt.split("_cut")[0]
+        _rec, bs, be = src[base]
+        if not (bs - 1e-6 <= s < e <= be + 1e-3 and e <= rec_secs[rec] + 1e-3):
+            raise AssertionError(f"{tag}: cut {utt} [{s}, {e}] outside {base} [{bs}, {be}] of {rec}")
+        cuts.setdefault(base, []).append((s, e))
+    if any(not cuts.get(u) for u in audios) or cuts.get("a3") != [(0.0, ALIGN_SHORT_SECONDS)]:
+        raise AssertionError(f"{tag}: cuts {cuts}")
+
+    trellis = {}
+    with open(os.path.join(kaldi, "text"), encoding="utf-8") as f:
+        transcripts = dict(line.rstrip("\n").split(" ", 1) for line in f)
+    for u, audio in audios.items():
+        lp = CI.ctc_compute_logits_chunked(model, audio)  # the card's log-probs, copied to the host
+        norm = format_text(transcripts[u], "fr", extract_parenthesized=False, safety_checks=False).replace("\n", " ")
+        tokens, _chars = tokenize_transcript(norm, model.vocab())
+        lp_card = torch.from_numpy(lp).to(dev)
+        got, ms = {}, {}
+        for name, x, graph in (("graph", lp_card, True), ("eager", lp_card, False), ("cpu", torch.from_numpy(lp), False),
+                               ("graph_again", lp_card, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr, path = ctc_alignment_trellis(x, tokens, blank_id=cfg.blank_id, graph=graph)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            got[name] = (tr.cpu(), path)
+            del tr
+        ref = got["cpu"]
+        same = {k: bool(torch.equal(v[0], ref[0]) and torch.equal(v[1], ref[1])) for k, v in got.items() if k != "cpu"}
+        if not all(same.values()):
+            raise AssertionError(f"{tag}: {u} trellis or path differs from the CPU's on the card's log-probs: {same}")
+        T, S = ref[0].shape
+        trellis[u] = dict(T=T, S=S, seconds=len(audio) / 16000, ms=ms, bit_identical=same,
+                          graph_us_per_frame=ms["graph_again"] * 1e3 / T, eager_us_per_frame=ms["eager"] * 1e3 / T)
+        log(f"{tag}: {u} T={T} S={S} trellis ms graphed {ms['graph_again']:.1f} (first {ms['graph']:.1f}), "
+            f"eager {ms['eager']:.1f}, CPU {ms['cpu']:.1f}; card = CPU bit for bit")
+        del got, lp_card
+    res = dict(config=tag, split_s=split_s, launches=launches, utterances_in=len(rows), utterances_out=len(segs),
+               cuts={u: len(v) for u, v in cuts.items()}, l1_chunks=l1_chunks, trellis=trellis,
+               audio_s=sum(len(a) for a in audios.values()) / 16000)
+    log(f"slice {json.dumps(res)}")
+    del model, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_augmented_training(torch, dev, root):
+    """sak-train --data_augment on the ingest run's corpus and seeded
+    wav2vec2-base directory (left in `root` by run_ingest): noise and RIR
+    directories of AUG_NOISES and AUG_RIRS WAV files written here; AUG_STEPS
+    steps of B=16 x 15 s and an evaluation (whose batches are augmented
+    too, as in ssak_tpu). K1 once per step and evaluation batch, nothing
+    else; finite losses; the augmentation's host ms per batch (in the
+    prefetch thread) and the step ms (CUDA events between steps)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ssak_tpu_torch.audio import save_audio
+    from ssak_tpu_torch.augment import speech as SA
+    from ssak_tpu_torch.data.dataset import kaldi_folder_to_manifest
+    from ssak_tpu_torch.train import cli
+    from ssak_tpu_torch.train import loop as LOOP
+
+    tag = "augmented_training"
+    rng = np.random.RandomState(51)
+    noise, rir = os.path.join(root, "noise"), os.path.join(root, "rir")
+    os.makedirs(noise, exist_ok=True)
+    os.makedirs(rir, exist_ok=True)
+    for i in range(AUG_NOISES):
+        t = np.arange(3 * 16000) / 16000
+        x = 0.1 * rng.randn(t.size) if i == 0 else 0.2 * np.sin(2 * np.pi * 50 * t) + 0.02 * rng.randn(t.size)
+        save_audio(os.path.join(noise, f"n{i}.wav"), x.astype(np.float32), 16000)
+    for i in range(AUG_RIRS):
+        n = int((0.2 + 0.2 * i) * 16000)
+        h = rng.randn(n) * np.exp(-np.arange(n) / (n / 5))
+        save_audio(os.path.join(rir, f"r{i}.wav"), (0.9 * h / np.abs(h).max()).astype(np.float32), 16000)
+    kaldi, model_dir = os.path.join(root, "kaldi"), os.path.join(root, "w2v2-base")
+    os.environ["INGEST_D"] = os.path.join(root, "audio")
+    argv = [kaldi, kaldi, "--base_model", model_dir, "--batch_size", "16", "--max_steps", str(AUG_STEPS),
+            "--warmup_steps", "2", "--learning_rate", "1.0e-4", "--eval_steps", "0", "--language", "en",
+            "--output_dir", os.path.join(root, "aug_runs"), "--data_augment", "--data_augment_noise", noise,
+            "--data_augment_rir", rir]
+    make_step, augment_batch = LOOP.make_ctc_train_step, SA.SpeechAugment.augment_batch
+    marks, aug_s = [], []
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(state, batch):
+            out = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            return out
+
+        return timed
+
+    def timed_augment(self, batch):
+        t0 = time.perf_counter()
+        out = augment_batch(self, batch)
+        aug_s.append((time.perf_counter() - t0, len(batch)))
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    LOOP.make_ctc_train_step, SA.SpeechAugment.augment_batch = timed_make_step, timed_augment
+    try:
+        stdout = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        _, valid = kaldi_folder_to_manifest(kaldi, max_duration=15.0)
+    finally:
+        LOOP.make_ctc_train_step, SA.SpeechAugment.augment_batch = make_step, augment_batch
+        os.environ.pop("INGEST_D", None)
+    run_dir = json.loads(stdout.getvalue().strip().splitlines()[-1])["run_dir"]
+    with open(os.path.join(run_dir, "trainer_state.json")) as f:
+        state = json.load(f)
+    losses = [h["loss"] for h in state["log_history"] if "loss" in h]
+    evals = [h for h in state["log_history"] if "eval_loss" in h]
+    eval_batches = -(-len(valid) // 16)
+    want = {k: 0 for k in launches}
+    want["ctc_fused"] = AUG_STEPS + eval_batches
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counters {launches} != {want}")
+    if state["global_step"] != AUG_STEPS or not losses or not all(math.isfinite(v) for v in losses) or not evals \
+            or not all(math.isfinite(h["eval_loss"]) for h in evals):
+        raise AssertionError(f"{tag}: step {state['global_step']}, losses {losses}, evaluations {evals}")
+    if len(aug_s) != AUG_STEPS + eval_batches:
+        raise AssertionError(f"{tag}: {len(aug_s)} augmented batches, {AUG_STEPS} steps + {eval_batches} evaluated")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[:AUG_STEPS - 1], marks[1:AUG_STEPS])]
+    res = dict(config=tag, run_s=run_s, steps=AUG_STEPS, eval_batches=eval_batches, launches=launches,
+               losses=losses, eval_loss=evals[-1]["eval_loss"], step_ms=sum(step_ms) / len(step_ms),
+               augment_ms_per_batch=1e3 * sum(s for s, _n in aug_s) / len(aug_s),
+               augment_ms_per_row=1e3 * sum(s for s, _n in aug_s) / sum(n for _s, n in aug_s))
+    log(f"slice {json.dumps(res)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _voice(rng, seconds, sr=16000):
+    """A harmonic voice-like signal: a wandering pitch, five harmonics, a syllable envelope."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(100, 220) * (1 + 0.05 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(0.25 / k * np.sin(k * phase) for k in range(1, 6)) * (0.55 + 0.45 * np.sin(2 * np.pi * 3 * t))
+    return (x + 0.003 * rng.randn(t.size)).astype(np.float32)
+
+
+def run_vc(torch, dev, root):
+    """The voice converter on the card: train_voice_converter at its
+    defaults for VC_STEPS steps (finite losses), vc_forward card against
+    the CPU on a 10 s clip's log-mel (the net's delta, out - x - voice,
+    within 1e-4 of its largest value: the identity residual does not set
+    the scale), griffin_lim
+    card against the CPU (32 iterations, correlation >= 0.999), and
+    convert_kaldi_dir over VC_CONVERT utterances of 10-15 s (the output
+    passes check_kaldi_dir; each wav as long as its input, sample for sample)."""
+    import copy
+
+    import numpy as np
+
+    from ssak_tpu_torch.audio import load_audio, save_audio
+    from ssak_tpu_torch.augment import vc as VC
+    from ssak_tpu_torch.data import kaldi as K
+
+    tag = "voice_conversion"
+    rng = np.random.RandomState(61)
+    clips = [_voice(rng, VC_CLIP_SECONDS) for _ in range(VC_CLIPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = VC.train_voice_converter(clips, steps=VC_STEPS, device=dev, log_every=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if len(losses) != VC_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: losses {losses}")
+    cpu_model = copy.deepcopy(model).cpu()
+    x = _voice(rng, 10.0)
+    with torch.no_grad():
+        mel = VC.audio_to_logmel(torch.from_numpy(x).to(dev), model.n_mels)
+        got = VC.vc_forward(model, mel).cpu()
+        want = VC.vc_forward(cpu_model, mel.cpu())
+        delta = want.double() - mel.cpu().double() - cpu_model.voice.double()
+        fwd_err = float((got.double() - want.double()).abs().max() / delta.abs().max())
+        re, im = VC.stft(torch.from_numpy(x).to(dev))
+        mag = torch.sqrt(re**2 + im**2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gl_card = VC.griffin_lim(mag, x.size, iters=32)
+        torch.cuda.synchronize()
+        gl_ms = (time.perf_counter() - t0) * 1e3
+        gl_again = VC.griffin_lim(mag, x.size, iters=32)
+        t0 = time.perf_counter()
+        gl_cpu = VC.griffin_lim(mag.cpu(), x.size, iters=32)
+        gl_cpu_ms = (time.perf_counter() - t0) * 1e3
+    gl_corr = float(np.corrcoef(gl_card.cpu().numpy(), gl_cpu.numpy())[0, 1])
+    gl_repeat = bool(torch.equal(gl_card, gl_again))
+    if not fwd_err <= 1e-4 or not gl_corr >= 0.999 or not gl_repeat:
+        raise AssertionError(f"{tag}: vc_forward {fwd_err} of the delta's max off the CPU, "
+                             f"griffin_lim correlation {gl_corr}, bit-identical on repeat {gl_repeat}")
+
+    kaldi = os.path.join(root, "vc_in")
+    os.makedirs(kaldi, exist_ok=True)
+    n_in = {}
+    with open(os.path.join(kaldi, "wav.scp"), "w", encoding="utf-8") as fw, \
+            open(os.path.join(kaldi, "text"), "w", encoding="utf-8") as ft:
+        for i in range(VC_CONVERT):
+            a = _voice(rng, float(rng.uniform(10.0, 15.0)))
+            save_audio(os.path.join(kaldi, f"v{i}.wav"), a, 16000)
+            n_in[f"v{i}"] = a.size
+            fw.write(f"v{i} {kaldi}/v{i}.wav\n")
+            ft.write(f"v{i} {_words(rng, 3)}\n")
+    npz = os.path.join(root, "voice.npz")
+    VC.save_vc(model, npz)
+    out = os.path.join(root, "vc_out")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    VC.convert_kaldi_dir(kaldi, [npz], out, device=dev)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    report = K.check_kaldi_dir(out, fix=False, compute_utt2dur=False)
+    lengths = {u: load_audio(os.path.join(out, "wavs", f"vc0_{u}.wav")).size for u in n_in}
+    if report["removed_utts"] or report["n_utts"] != VC_CONVERT or lengths != n_in:
+        raise AssertionError(f"{tag}: check_kaldi_dir {report}; lengths {lengths} against {n_in}")
+    res = dict(config=tag, train_s=train_s, train_ms_per_step=1e3 * train_s / VC_STEPS, losses=[losses[0], losses[-1]],
+               vc_forward_delta_rel_err=fwd_err, griffin_lim_corr=gl_corr, griffin_lim_ms=gl_ms, griffin_lim_cpu_ms=gl_cpu_ms,
+               griffin_lim_bit_identical_on_repeat=gl_repeat, convert_s=convert_s,
+               convert_audio_s=sum(n_in.values()) / 16000)
+    log(f"slice {json.dumps(res)}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_vad(torch, dev):
+    """The NN VAD on the card: train_nn_vad for VAD_STEPS steps on VAD_CLIPS
+    clips of VAD_SECONDS (energy-bootstrapped labels), speech_probs card
+    against the CPU (1e-4), the segments of get_vad_segments(method="nn")."""
+    import copy
+
+    import numpy as np
+
+    from ssak_tpu_torch.align import nn_vad as NV
+    from ssak_tpu_torch.align.vad import get_vad_segments
+
+    tag = "nn_vad"
+    rng = np.random.RandomState(71)
+
+    def bursts():
+        x = 0.002 * rng.randn(int(VAD_SECONDS * 16000)).astype(np.float32)
+        for _ in range(6):
+            a = rng.randint(0, x.size - 24000)
+            n = rng.randint(4000, 24000)
+            x[a : a + n] += _voice(rng, n / 16000 + 0.01)[:n]
+        return x
+
+    clips = [bursts() for _ in range(VAD_CLIPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = NV.train_nn_vad(clips, steps=VAD_STEPS, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(model).cpu()
+    x = bursts()
+    t0 = time.perf_counter()
+    got = NV.speech_probs(model, x)
+    probs_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = NV.speech_probs(cpu_model, x)
+    probs_cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got - want).max())
+    segs = get_vad_segments(x, method="nn", nn_params=model)
+    if not err <= 1e-4 or got.shape != (int(VAD_SECONDS * 100),) or not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: speech_probs {err} off the CPU, shape {got.shape}")
+    res = dict(config=tag, train_s=train_s, train_ms_per_step=1e3 * train_s / VAD_STEPS, probs_max_abs_err=err,
+               speech_probs_ms=probs_ms, speech_probs_cpu_ms=probs_cpu_ms, frames=int(got.size), segments=len(segs))
+    log(f"slice {json.dumps(res)}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # --- phase 4: the whole path, card against CPU -----------------------------------
 
 
@@ -4178,7 +4600,9 @@ def main():
         "and over 4 workers; streaming over WebSocket); NeMo Conformer-CTC Large from a .nemo archive (greedy in bf16, "
         "int8 and int4, and device beam serving; fine-tuning through the train CLI, finalized and reloaded); "
         "wav2vec2-xlsr CTC training at the 140 s bucket; corpus ingest (FLAC, sox pipes, segments; check_kaldi_dir, "
-        "manifest, tar, BPE) into the train CLI's wav2vec2-base step with --config, --set and the manifest cache")
+        "manifest, tar, BPE) into the train CLI's wav2vec2-base step with --config, --set and the manifest cache; "
+        "alignment and training data (long Kaldi utterances split by CTC forced alignment through xlsr; the train CLI "
+        "with --data_augment; the voice converter trained and run over a Kaldi dir; the NN VAD)")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
@@ -4218,6 +4642,7 @@ def main():
                                                      ids[:n_beam], lens[:n_beam], "beam", model_dir, lexicon, arpa)
         slices["ctc_host_beam"] = run_host_beam(torch, tmp, corpus, ids, lens, model_dir)
         slices["ctc_streaming"] = run_streaming(torch, dev, model_dir)
+        align = {"split": run_align(torch, dev, os.path.join(tmp, "align"), model_dir, corpus, ids, lens)}
         shutil.rmtree(model_dir)
         nemo = run_nemo(torch, dev, tmp, (corpus, ids, lens))
         dirs["nemo_conformer_ctc_large"] = nemo.pop("nemo_archive")
@@ -4232,6 +4657,14 @@ def main():
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_ingest_")
     try:
         slices["ingest"] = run_ingest(torch, dev, tmp)
+        align["augment"] = run_augmented_training(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_vc_")
+    try:
+        align["vc"] = run_vc(torch, dev, tmp)
+        align["vad"] = run_vad(torch, dev)
+        slices["align"] = align
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4275,11 +4708,13 @@ def main():
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
          k1_rows, k1_err, dict(V=32, T=749),
          slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]
-         + slices["nemo_training"]["launches"]["ctc_fused"] + sum(r["ctc_fused"] for r in slices["ingest"]["launches"])),
+         + slices["nemo_training"]["launches"]["ctc_fused"] + sum(r["ctc_fused"] for r in slices["ingest"]["launches"])
+         + slices["align"]["augment"]["launches"]["ctc_fused"]),
         ("flash_attention", "ssak_tpu_torch/csrc/flash_attention.cu", "ssak_tpu/models/layers.py:290",
          l1_rows, l1_err, dict(B=1, T=7001),
          sum(slices[k]["launches"]["flash_attention"] for k in ("ctc_serving_greedy", "ctc_serving_int8",
-                                                                  "ctc_serving_int4", "ctc_serving_beam", "ctc_long"))),
+                                                                  "ctc_serving_int4", "ctc_serving_beam", "ctc_long"))
+         + slices["align"]["split"]["launches"]["flash_attention"]),
         ("flash_attention_bwd_dkv", "ssak_tpu_torch/csrc/flash_attention_bwd.cu",
          "ssak_tpu/models/layers.py:290 -> jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
          bwd_rows["dkv"], max(bwd_err["dk"], bwd_err["dv"]), dict(B=1, T=6999),

@@ -130,9 +130,8 @@ class ListFile2Kaldi(ToKaldi):
 class TextGrid2Kaldi(ToKaldi):
     """Walk a folder (optionally recursively) for .TextGrid files; each
     non-empty interval of the selected tier(s) becomes one segment row with
-    id "<stem>_<n>" over recording <stem>. Needs the TextGrid reader of
-    formats/transcription, which comes with slice 8f (ROADMAP.md): until
-    then `process` raises NotImplementedError."""
+    id "<stem>_<n>" over recording <stem> (formats.transcription's
+    parse_textgrid_tiers reads the tiers)."""
 
     def __init__(self, subdir: str = "", tiers=(0,), min_duration: float = 0.01):
         self.subdir = subdir
@@ -140,8 +139,25 @@ class TextGrid2Kaldi(ToKaldi):
         self.min_duration = min_duration
 
     def process(self, rows, root):
-        raise NotImplementedError("TextGrid2Kaldi needs formats.transcription.parse_textgrid_tiers, which is not "
-                                  "ported yet (ROADMAP.md slice 8f)")
+        from ssak_tpu_torch.formats.transcription import parse_textgrid_tiers
+
+        folder = os.path.join(root, self.subdir)
+        for path in walk_files(folder):
+            if not path.lower().endswith(".textgrid"):
+                continue
+            stem = os.path.splitext(os.path.basename(path))[0]
+            with open(path, encoding="utf-8", errors="replace") as f:
+                tiers = parse_textgrid_tiers(f.read())
+            for ti in self.tiers:
+                if ti >= len(tiers):
+                    continue
+                for n, (start, end, text) in enumerate(tiers[ti]):
+                    if not text.strip() or end - start < self.min_duration:
+                        continue
+                    rows[f"{stem}_{n:04d}"] = {
+                        "audio_id": stem, "start": start, "end": end, "text": text.strip(),
+                    }
+        return rows
 
 
 class Row2Info(ToKaldi):

@@ -5,7 +5,8 @@
 
 The scoring runs on the host; like every entry point of the port it asks
 for the card unless --device cpu is given, and raises without one. --plot
-needs eval/plots (matplotlib), not ported yet (ROADMAP.md slice 8f).
+needs eval/plots (matplotlib), which waits among the host-only utilities of
+ROADMAP.md for a plotting route that the card host can run.
 """
 
 import argparse
@@ -29,7 +30,8 @@ def main(argv=None):
 
     resolve_device(args.device)
     if args.plot:
-        raise NotImplementedError("--plot (eval/plots, matplotlib) is not ported yet (ROADMAP.md slice 8f)")
+        raise NotImplementedError("--plot needs eval/plots (matplotlib), one of the host-only utilities of ROADMAP.md "
+                                  "that wait for a plotting route the card host can run")
 
     from ssak_tpu_torch.eval.wer import compute_wer
 

@@ -19,8 +19,9 @@ run with `python -m ssak_tpu_torch.train.finalize RUN_DIR`.
 own YAML reader) fill every option left at its CLI default, as ssak_tpu's
 do: a key a.b sets --a_b. --use_manifest_cache keeps each parsed manifest
 as JSONL under the port's cache directory (data/dataset.py).
-
-Not ported yet, refused at start: --data_augment (ROADMAP.md slice 8f).
+--data_augment augments every batch on the host (augment.SpeechAugment,
+seeded with --seed), with background noise from --data_augment_noise and
+room impulse responses from --data_augment_rir (directories of audio files).
 """
 
 import argparse
@@ -58,7 +59,7 @@ def build_parser():
     p.add_argument("--use_manifest_cache", action="store_true", help="fingerprint-cache parsed kaldi manifests")
     p.add_argument("--max_duration", type=float, default=15.0)
     p.add_argument("--seed", type=int, default=69)
-    p.add_argument("--data_augment", action="store_true", help="(not ported yet)")
+    p.add_argument("--data_augment", action="store_true", help="waveform augmentation of every batch, on the host")
     p.add_argument("--data_augment_noise", default=None)
     p.add_argument("--data_augment_rir", default=None)
     p.add_argument("--no_freeze_feature_encoder", dest="freeze", action="store_false", default=True)
@@ -95,8 +96,6 @@ def parse_args(argv=None):
             name = key.replace(".", "_")
             if hasattr(args, name) and getattr(args, name) == defaults.get(name):
                 setattr(args, name, val)
-    if args.data_augment:
-        raise NotImplementedError("--data_augment is not ported yet (ROADMAP.md slice 8f)")
     return args
 
 
@@ -168,6 +167,12 @@ def main(argv=None):
         cfg = wav2vec2.make_config("tiny_test", vocab_size=max(32, len(tokenizer)))
         model = wav2vec2.init_params(cfg, seed=args.seed, device=device)
 
+    augmenter = None
+    if args.data_augment:
+        from ssak_tpu_torch.augment import SpeechAugment
+
+        augmenter = SpeechAugment(noise_dir=args.data_augment_noise, rir_dir=args.data_augment_rir, seed=args.seed)
+
     with open(os.path.join(run_dir, "README.txt"), "w") as f:
         f.write(" ".join(sys.argv) + "\n\n")
         f.write(json.dumps({"train": meta_tr, "valid": meta_va, "vocab_size": len(tokenizer)}, indent=1))
@@ -184,7 +189,7 @@ def main(argv=None):
         save_total_limit=args.save_total_limit, early_stopping_patience=args.early_stopping,
         freeze_feature_encoder=args.freeze, mask_time_prob=args.mask_time_prob, seed=args.seed,
         normalize_text=norm, optimizer=args.optimizer, schedule=args.schedule, head_lr=args.head_lr,
-        grad_accum=args.grad_accum, family=family, device=device,
+        grad_accum=args.grad_accum, family=family, device=device, augmenter=augmenter,
     )
     if args.resume:
         trainer.resume()

@@ -11,8 +11,9 @@ points.
 
 Runs on `device` (default cuda, via resolve_device; raises without a card
 unless device="cpu"). Families: wav2vec2 and conformer (`family`, as in
-ssak_tpu). Not ported here: waveform augmentation (`augmenter`, ROADMAP.md
-slice 8), which raises.
+ssak_tpu). An `augmenter` (augment.SpeechAugment) rewrites each batch's
+waveforms on the host, in the prefetch thread, before the wire encoding:
+evaluation batches too, as in ssak_tpu.
 """
 
 import json
@@ -81,8 +82,6 @@ class CTCTrainer:
     ):
         """model: a Wav2Vec2Model, or a ConformerModel with family="conformer"
         (moved to `device`)."""
-        if augmenter is not None:
-            raise NotImplementedError("waveform augmentation is not ported yet (ROADMAP.md slice 8)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -91,6 +90,7 @@ class CTCTrainer:
         self.eval_steps = eval_steps
         self.save_total_limit = save_total_limit
         self.early_stopping_patience = early_stopping_patience
+        self.augmenter = augmenter
         self.sample_rate = sample_rate
         self.buckets = buckets
         self.seed = seed
@@ -143,6 +143,14 @@ class CTCTrainer:
             real = [r for r in chunk if r is not None]
             if not real:
                 continue
+            if self.augmenter is not None:
+                # one speed factor for the batch; a longer row is cut to the bucket
+                audios = self.augmenter.augment_batch([x[i, : lens[i]] for i in range(len(real))])
+                x = np.zeros_like(x)
+                for i, a in enumerate(audios):
+                    n = min(len(a), x.shape[1])
+                    x[i, :n] = a[:n]
+                    lens[i] = n
             labels, label_lens = self._encode_labels(real)
             if len(real) < x.shape[0]:  # label rows for the batch-pad dummies
                 pad = x.shape[0] - len(real)

@@ -148,5 +148,5 @@ def test_sak_wer_cli_prints_jax_json(tmp_path, flags):
 def test_sak_wer_plot_is_refused():
     from ssak_tpu_torch.eval import cli
 
-    with pytest.raises(NotImplementedError, match="8f"):
+    with pytest.raises(NotImplementedError, match="host-only utilities"):
         cli.main(["r", "h", "--plot", "x.png", "--device", "cpu"])

@@ -1,6 +1,6 @@
 """Guards of the port's rules: ssak_tpu_torch (and chip_smoke.py) import
 neither JAX nor ssak_tpu, nor the tokenizers, safetensors, transformers,
-yaml or websockets packages that the port does without; every module imports with all of them
+yaml, websockets or matplotlib packages that the port does without; every module imports with all of them
 blocked; entry points default to the GPU and raise without one instead of
 running on the CPU; the CLI runs on the CPU only when asked to."""
 
@@ -15,7 +15,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ssak_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml", "websockets")
+FORBIDDEN = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml", "websockets",
+             "matplotlib")
 
 
 def _port_files():
@@ -45,7 +46,7 @@ def test_no_jax_or_ssak_tpu_imports_by_ast():
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml", "websockets")
+BLOCK = ("jax", "jaxlib", "ssak_tpu", "tokenizers", "safetensors", "transformers", "yaml", "websockets", "matplotlib")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCK:
@@ -60,13 +61,19 @@ names = [i.name for i in pkgutil.walk_packages(ssak_tpu_torch.__path__, "ssak_tp
 for n in names:
     importlib.import_module(n)
 print(len(names))
+print(" ".join(names))
 """
 
 
 def test_every_port_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    count, names = out.stdout.strip().splitlines()
+    assert int(count) >= 15
+    # the walk reaches slice 8f's packages and tools
+    assert {"ssak_tpu_torch.align.forced", "ssak_tpu_torch.align.nn_vad", "ssak_tpu_torch.augment.vc",
+            "ssak_tpu_torch.formats.voicelab", "ssak_tpu_torch.tools.align_audio_transcript",
+            "ssak_tpu_torch.tools.convert_voice", "ssak_tpu_torch.tools.get_word_positions"} <= set(names.split())
 
 
 def _need_gpu_less_host():
@@ -268,3 +275,48 @@ def test_ingest_modules_are_guarded_and_carry_their_own_sources(tmp_path):
     assert load_audio(str(tmp_path / "a.wav"), return_format="torch", device="cpu").shape == (160,)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_audio(str(tmp_path / "a.wav"), return_format="torch")
+
+
+def test_alignment_and_training_data_modules_are_guarded_and_need_a_card(tmp_path):
+    """Slice 8f's modules are among the files the import guards read; its
+    entry points (align_audio_to_transcript through load_model, the tools,
+    train_nn_vad, train_voice_converter, convert_kaldi_dir, the VAD and VC
+    loaders and the train CLI's --data_augment) run on cuda unless asked for
+    the CPU, and raise without a card before writing anything."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"ssak_tpu_torch/align/forced.py", "ssak_tpu_torch/align/dtw.py", "ssak_tpu_torch/align/vad.py",
+            "ssak_tpu_torch/align/nn_vad.py", "ssak_tpu_torch/augment/speech.py", "ssak_tpu_torch/augment/vc.py",
+            "ssak_tpu_torch/formats/transcription.py", "ssak_tpu_torch/formats/diarization.py",
+            "ssak_tpu_torch/formats/transcriber.py", "ssak_tpu_torch/formats/voicelab.py",
+            "ssak_tpu_torch/tools/align_audio_transcript.py", "ssak_tpu_torch/tools/get_word_positions.py",
+            "ssak_tpu_torch/tools/convert_voice.py"} <= files
+    _need_gpu_less_host()
+    from ssak_tpu_torch.align import nn_vad
+    from ssak_tpu_torch.augment import vc
+    from ssak_tpu_torch.tools import align_audio_transcript, convert_voice, get_word_positions
+
+    audio = np.zeros(16000, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nn_vad.train_nn_vad([audio], steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vc.train_voice_converter([audio], steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vc.convert_kaldi_dir(str(tmp_path), [str(tmp_path / "m.npz")], str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        align_audio_transcript.split_long_audio_kaldifolder(str(tmp_path), str(tmp_path / "split"),
+                                                            seeded_test_config="wav2vec2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_word_positions.main([str(tmp_path), "--seeded_test_config", "wav2vec2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_voice.main(["train", str(tmp_path), "-o", str(tmp_path / "v.npz")])
+    nn_vad.save_vad(nn_vad.init_params(), str(tmp_path / "vad.npz"))
+    vc.save_vc(vc.init_vc_params(hidden=4, blocks=1), str(tmp_path / "vc.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nn_vad.load_vad(str(tmp_path / "vad.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vc.load_vc(str(tmp_path / "vc.npz"))
+    assert not (tmp_path / "out").exists() and not (tmp_path / "split").exists()
+    cmd = [sys.executable, "-m", "ssak_tpu_torch.train.cli", str(tmp_path), str(tmp_path), "--output_dir",
+           str(tmp_path / "runs"), "--data_augment"]
+    refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not (tmp_path / "runs").exists()

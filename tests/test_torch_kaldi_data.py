@@ -248,6 +248,53 @@ TEI = """<?xml version="1.0" encoding="UTF-8"?>
 </body></text></TEI>"""
 
 
+TEXTGRID = """File type = "ooTextFile"
+Object class = "TextGrid"
+
+xmin = 0
+xmax = 4.5
+tiers? <exists>
+size = 2
+item []:
+    item [1]:
+        class = "IntervalTier"
+        name = "words"
+        xmin = 0
+        xmax = 4.5
+        intervals: size = 4
+        intervals [1]:
+            xmin = 0
+            xmax = 1.25
+            text = "bonjour à tous"
+        intervals [2]:
+            xmin = 1.25
+            xmax = 1.255
+            text = "euh"
+        intervals [3]:
+            xmin = 1.255
+            xmax = 2.0
+            text = ""
+        intervals [4]:
+            xmin = 2.0
+            xmax = 4.5
+            text = "  merci bien "
+    item [2]:
+        class = "IntervalTier"
+        name = "speaker"
+        xmin = 0
+        xmax = 4.5
+        intervals: size = 2
+        intervals [1]:
+            xmin = 0
+            xmax = 2.0
+            text = "L1"
+        intervals [2]:
+            xmin = 2.0
+            xmax = 4.5
+            text = "L2"
+"""
+
+
 def test_converters_match_jax(corpus):
     from ssak_tpu.data import kaldi_converter as JC
     from ssak_tpu_torch.data import kaldi_converter as TC
@@ -284,8 +331,13 @@ def test_converters_match_jax(corpus):
         if C is TC:
             t_rows = rows
     assert t_rows == rows
-    with pytest.raises(NotImplementedError, match="8f"):
-        TC.Reader2Kaldi(str(root), [TC.TextGrid2Kaldi()]).load()
+    # TextGrid2Kaldi on a two-tier TextGrid (formats.transcription.parse_textgrid_tiers, slice 8f)
+    (root / "tg").mkdir()
+    (root / "tg" / "rec1.TextGrid").write_text(TEXTGRID, encoding="utf-8")
+    for tiers in ((0,), (1,), (0, 1, 5)):
+        t = TC.Reader2Kaldi(str(root), [TC.TextGrid2Kaldi("tg", tiers=tiers)]).load(require=("text",))
+        j = JC.Reader2Kaldi(str(root), [JC.TextGrid2Kaldi("tg", tiers=tiers)]).load(require=("text",))
+        assert _rows(t) == _rows(j) and len(t) >= 2
     with pytest.raises(ValueError):
         TC.ListFile2Kaldi("lines.txt").process({"x": {}}, str(root))
 

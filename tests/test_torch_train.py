@@ -455,9 +455,17 @@ def test_trainer_batches_ship_int16_with_dummies(tmp_path):
     assert last["audio"].shape[0] == 4 and len(real) < 4
     assert last["label_lengths"][len(real):].eq(0).all() and last["audio_lengths"][len(real):].eq(1).all()
     assert all(b["labels"].shape[1] == 16 for b, _, _ in batches)  # power-of-two width, floor 16
-    with pytest.raises(NotImplementedError):
-        CTCTrainer(tcfg, TW.init_params(tcfg), CTCTokenizer.from_corpus(TEXTS), str(tmp_path / "x"), device="cpu",
-                   augmenter=object())
+
+    class Loud:
+        """An augmenter whose waveforms leave [-1, 1]: such a batch ships as f32."""
+
+        def augment_batch(self, audios):
+            return [4.0 * a for a in audios]
+
+    tr.augmenter = Loud()
+    loud = list(tr._batches(rows))
+    assert all(b["audio"].dtype == torch.float32 for b, _, _ in loud)
+    assert all(torch.equal(a["audio_lengths"], b["audio_lengths"]) for (a, _, _), (b, _, _) in zip(loud, batches))
 
 
 def test_train_cli_on_cpu(tmp_path):
@@ -479,13 +487,37 @@ def test_train_cli_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--data_augment"]])
-def test_train_cli_refuses_unported_options_at_start(tmp_path, flags):
-    """What still needs a later slice: waveform augmentation (slice 8f).
-    --config, --set and --use_manifest_cache are ported
-    (tests/test_torch_kaldi_data.py), as is a NeMo --base_model
-    (tests/test_torch_nemo.py)."""
+def test_train_cli_refuses_unported_options_at_start(tmp_path, flags, monkeypatch):
+    """The train CLI refuses no option any more: --data_augment, the last
+    one it refused at start, is ported (slice 8f). With it the CLI starts
+    and hands the trainer a SpeechAugment seeded from --seed, over the
+    noise directory's files. --config, --set and --use_manifest_cache are
+    tested in tests/test_torch_kaldi_data.py, a NeMo --base_model in
+    tests/test_torch_nemo.py, augmented training in
+    tests/test_torch_augment.py."""
+    from ssak_tpu_torch.audio import save_audio
+    from ssak_tpu_torch.augment import SpeechAugment
     from ssak_tpu_torch.train import cli
+    from ssak_tpu_torch.train import loop
 
-    with pytest.raises(NotImplementedError):
-        cli.main([str(tmp_path / "none"), str(tmp_path / "none"), "--output_dir", str(tmp_path / "runs"), "--device", "cpu"] + flags)
-    assert not (tmp_path / "runs").exists()
+    d = _kaldi_dir(str(tmp_path / "data"), n=2)
+    os.makedirs(tmp_path / "noise")
+    save_audio(str(tmp_path / "noise" / "n.wav"), np.zeros(1600, np.float32), 16000)
+    seen = {}
+
+    class Trainer:
+        def __init__(self, *a, augmenter=None, **kw):
+            seen["augmenter"] = augmenter
+
+        def resume(self):
+            return False
+
+        def train(self, *a, **kw):
+            self.best_wer, self.best_step = 0.0, 0
+
+    monkeypatch.setattr(loop, "CTCTrainer", Trainer)
+    cli.main([d, d, "--output_dir", str(tmp_path / "runs"), "--device", "cpu", "--data_augment_noise",
+              str(tmp_path / "noise"), "--seed", "5"] + flags)
+    aug = seen["augmenter"]
+    assert isinstance(aug, SpeechAugment) and aug.noise_files == [str(tmp_path / "noise" / "n.wav")]
+    assert aug.np_rng.uniform() == np.random.RandomState(5).uniform()
