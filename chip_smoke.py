@@ -25,7 +25,8 @@ and prints no result):
              on repeat at its timed shapes (the self-attention ranges [0,
              31], [0, 127] and [0, 223] of a decode step included), no
              register spills; L1's forward bit-identical on repeat at every
-             checked case, no register spills and no serialised wgmma in
+             checked case (8 heads at T = 7,001, a tensor-parallel
+             rank's, among them), no register spills and no serialised wgmma in
              its ptxas report, its plan logged at every shape and its tile
              counts on ragged rows, timed also with m and l written (the
              training launch); L1's backward (dK/dV
@@ -44,13 +45,13 @@ and prints no result):
              temperature chain, best_of 5, 32-token windows); then
              Whisper large-v3 fine-tuning from that directory through
              python -m ssak_tpu_torch.train.whisper_loop (--language en,
-             16 files of 20-29 s, batch 4 x 30 s, 6 steps, an evaluation
+             16 files of 20-29 s, batch 4 x 30 s, 4 steps, an evaluation
              at the last over 4 files, --remat): --lora 8 over the bf16 base,
              and with --load_in_8bit and --load_in_4bit (the evaluation's
              K4 bf16, K2 and K3 launches against its decode steps, the frozen base
              bit for bit, adapters.npz reloaded into a fresh model: the
              same loss), and the full fine-tune of the directory's tree,
-             cut to 8 + 8 blocks, in f32 with remat (3 steps, a checkpoint,
+             cut to 4 + 4 blocks, in f32 with remat (3 steps, a checkpoint,
              a resume for one more step); then
              wav2vec2-base CTC training at full width (CTCTrainer, batch 32
              of 15 s, 8 steps, eval, checkpoint, resume) on a seeded Kaldi
@@ -112,7 +113,24 @@ and prints no result):
              card vs CPU correlation >= 0.999 and bit-identical on repeat,
              convert_kaldi_dir over 4 utterances of 10-15 s, lengths kept)
              and the NN VAD (20 steps; speech_probs card vs CPU within
-             1e-4); each with the kernels' launch counters checked
+             1e-4); then parallel/ (slice 8g): a probe of what the card's
+             process groups carry (two gloo ranks sharing the card, each
+             collective on CUDA tensors; one NCCL rank), then, on the xlsr
+             directory before it is removed, tp_serving (4 files of the
+             serving corpus, 2 of 70-140 s and 2 of 12-28 s, through
+             python -m torch.distributed.run -m ssak_tpu_torch.infer.ctc_infer
+             --tensor_parallel 2 --dist_backend gloo and through spawned
+             ranks; each rank on half the heads, q / k / v / fc1 / lm_head
+             column- and out / fc2 row-parallel; L1 forward 24 a 140 s
+             call on every rank; rank 0's
+             log-probs correlated >= 0.999 with the unsharded model's; CER
+             logged) and sp_serving (ctc_log_probs_sp of a 140 s row over
+             'seq' 2 against compute_log_probas through L1, >= 0.999); then
+             moe_training (wav2vec2-base with 4 experts, top 2, through
+             shard_train_step at world size 1, B=8 x 15 s, 4 steps, K1 4)
+             and pp_training (make_pp_ctc_train_step, pipe 1, 2
+             microbatches, B=8 x 15 s, 3 steps, K1 3, the first loss within
+             1e-2 of the unpipelined forward's); each with the kernels' launch counters checked
              against the path exactly (on the accurate and long-form paths,
              against the decode steps the port counts; on CTC serving, L1
              against 24 x the encoder calls at >= 4096 frames)
@@ -135,7 +153,9 @@ and prints no result):
              log-probs of a 30 s and a 140 s row, and two train steps,
              card against CPU; one Whisper LoRA train step over an f32 and
              over an int8 base at large-v3 widths and 2+2 layers in f32,
-             card against CPU
+             card against CPU; one MoE wav2vec2 train step at base widths
+             and 2 layers in f32, card against CPU (the same routing in
+             every layer)
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 = False): f32 products on the card are full
@@ -765,15 +785,17 @@ def check_flash_attention(torch, dev):
     """L1 against its plain version on the card, all T rows (pad rows
     included): the 140 s bucket (T = 7,001) with one full row and with rows
     of 7,001 and 3,000 frames; T = 4,096 without lengths (the no-mask path);
-    a row of length 0 beside a full one at an odd T; Dh = 128 and 256; and
+    a row of length 0 beside a full one at an odd T; 8 heads at the 140 s
+    bucket (a tensor-parallel rank's); Dh = 128 and 256; and
     q/k/v read through the strides of one fused (B, T, 3D) projection. The
     plain version computes the same masked softmax with p rounded to bf16
     against the global row max, the kernel against a running max: held to
     2e-2 of max|out|; a second launch must give the same bits (no atomics).
     The plan (flash_fwd_plan) is logged at every shape, and the tile counts
     (flash_fwd_tile_counts) on the ragged rows. Timed at B = 6 and 1 (T =
-    7,001), and at B = 4, T = 6,999 with m and l written (the training
-    launch, `_flash_forward(..., stats=True)`), against the plain version
+    7,001), at B = 1, T = 7,001 with 8 heads (a tensor-parallel rank's
+    share of xlsr's 16), and at B = 4, T = 6,999 with m and l written (the
+    training launch, `_flash_forward(..., stats=True)`), against the plain version
     (B = 1 only: at B = 6 its logits need about 56 GB) and SDPA in bf16 with
     a (B, 1, 1, T) key-padding mask, beside the operations bound (the
     exponentials reckoned on the SFUs go to the log only; the training row
@@ -789,6 +811,7 @@ def check_flash_attention(torch, dev):
     worst = 0.0
     cases = [
         dict(B=1, T=7001, lengths=[7001]),
+        dict(B=1, T=7001, lengths=[7001], H=8),  # a tensor-parallel rank's heads: xlsr's 16 over 2 ranks
         dict(B=2, T=7001, lengths=[7001, 3000]),
         dict(B=1, T=4096, lengths=None),
         dict(B=2, T=4500, lengths=[0, 4500]),
@@ -821,9 +844,9 @@ def check_flash_attention(torch, dev):
         log(f"flash_attention {c}: max|err| {err:.3g} (limit {tol:.3g}), repeat bit-identical, plan {plan}{tiles}")
         del q, k, v, out, again, ref
     rows = []
-    for B, T, stats in ((6, 7001, False), (1, 7001, False), (4, 6999, True)):
-        H, Dh = 16, 64
-        q, k, v = _qkv(torch, g, dev, B, T)
+    for B, T, stats, H in ((6, 7001, False, 16), (1, 7001, False, 16), (4, 6999, True, 16), (1, 7001, False, 8)):
+        Dh = 64
+        q, k, v = _qkv(torch, g, dev, B, T, H)
         lens = torch.full((B,), T, dtype=torch.int32, device=dev)
         mask = torch.ones(B, 1, 1, T, dtype=torch.bool, device=dev)
         sets = [(q, k, v, lens)]
@@ -1662,10 +1685,10 @@ def run_longform(torch, model_dir):
 WFT_FILES, WFT_SECONDS, WFT_BATCH = 16, (20.0, 29.0), 4
 # the evaluation decodes one window batch (227 host-bound decode steps, ~15 s): cut from 8 files to 4, and
 # from two evaluations a run to one, for the script's time limit (PERF.md)
-WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 6, 6, 4, 3
+WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 4, 4, 4, 3
 # the full fine-tune's depth: at 32 + 32 blocks its two f32 checkpoints (parameters and Adam's moments,
 # 18.5 GB each) took ~140 s of the script's time limit (PERF.md); 8 + 8 keep every width
-WFT_FULL_LAYERS = 8
+WFT_FULL_LAYERS = 4  # 8 until the parallel slice's runs came (the script's time limit)
 WFT_PROMPT, WFT_MAX_TOKENS = 4, 224  # sot_sequence("en"); whisper_transcribe_batch's default budget
 WFT_LR = 1e-4
 WFT_LORA_REMAT = True  # from the reckoning in PERF.md: about 84 GB of activations at B = 4 without it
@@ -3871,6 +3894,647 @@ def run_vad(torch, dev):
     return res
 
 
+# --- phase 3: parallel/ (slice 8g) ----------------------------------------------------------
+
+PROBE_BYTES = 7001 * 1024 * 4  # one row-parallel f32 partial product of xlsr at the 140 s bucket
+
+
+def _dist_rank(rank, world, init_file, backend, fn, args, out):
+    """One spawned rank: join the process group through the port's
+    init_distributed (a file rendezvous) on cuda:0 (every rank shares the
+    one card), run fn(torch, rank, world,
+    *args) and put (rank, result) on `out`; the group is torn down after."""
+    import torch
+    import torch.distributed as dist
+
+    from ssak_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"file://{init_file}", world, rank, backend=backend, device=torch.device("cuda", 0))
+    try:
+        out.put((rank, fn(torch, rank, world, *args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, backend, *args, timeout=600):
+    """fn on `world` spawned processes over `backend`, all on the one card;
+    returns the ranks' results in rank order. A rank that fails, hangs past
+    `timeout` or returns nothing fails the run (every rank is then killed)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="ssak_smoke_rdv_")
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, os.path.join(tmp, "rdv"), backend, fn, args, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.perf_counter() + timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                raise AssertionError(f"spawned ranks: no result from {sorted(set(range(world)) - set(results))} in {timeout} s")
+            try:
+                rank, res = out.get(timeout=min(left, 5.0))
+                results[rank] = res
+            except Exception:  # queue.Empty: look at the ranks, then wait again
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"spawned ranks: a rank exited with {dead}") from None
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"spawned ranks: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [results[r] for r in range(world)]
+
+
+def _probe_ops(torch, dist, rank, world):
+    """{name: fn} of each collective this slice may use, on CUDA tensors of
+    the shared card; each fn raises if the result is wrong."""
+    dev = torch.device("cuda", 0)
+
+    def all_reduce(dtype):
+        x = torch.full((1024,), float(rank + 1), dtype=dtype, device=dev)
+        dist.all_reduce(x)
+        assert float(x[0]) == world * (world + 1) / 2, float(x[0])
+
+    def all_gather(dtype):
+        x = torch.full((4, 8), float(rank), dtype=dtype, device=dev)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        assert [float(p[0, 0]) for p in parts] == [float(r) for r in range(world)]
+
+    def all_gather_into_tensor():
+        x = torch.full((4,), float(rank), device=dev)
+        y = torch.empty(4 * world, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        assert float(y[-1]) == world - 1
+
+    def broadcast():
+        x = torch.full((16,), float(rank + 7), device=dev)
+        dist.broadcast(x, 0)
+        assert float(x[0]) == 7.0
+
+    def send_recv():
+        x = torch.full((16,), float(rank), device=dev)
+        y = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (rank + 1) % world), dist.P2POp(dist.irecv, y, (rank - 1) % world)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        assert float(y[0]) == (rank - 1) % world
+
+    def all_to_all():
+        x = [torch.full((4,), float(rank * world + j), device=dev) for j in range(world)]
+        y = [torch.empty(4, device=dev) for _ in range(world)]
+        dist.all_to_all(y, x)
+        assert [float(t[0]) for t in y] == [float(j * world + rank) for j in range(world)]
+
+    def reduce_scatter():
+        x = torch.ones(4 * world, device=dev)
+        y = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        assert float(y[0]) == world
+
+    def device_mesh():
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        x = torch.ones(8, device=dev)
+        dist.all_reduce(x, group=mesh["model"].get_group())
+        assert float(x[0]) == world
+
+    def all_reduce_ms():
+        x = torch.ones(PROBE_BYTES // 4, device=dev)
+        for _ in range(2):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    return {"all_reduce_f32": lambda: all_reduce(torch.float32), "all_reduce_bf16": lambda: all_reduce(torch.bfloat16),
+            "all_gather_f32": lambda: all_gather(torch.float32), "all_gather_bf16": lambda: all_gather(torch.bfloat16),
+            "all_gather_into_tensor": all_gather_into_tensor, "broadcast": broadcast, "device_mesh": device_mesh,
+            "all_reduce_ms": all_reduce_ms, "reduce_scatter": reduce_scatter, "all_to_all": all_to_all,
+            "send_recv": send_recv}
+
+
+def _probe_rank(rank, world, init_file, backend, names, out):
+    """One probing rank: each op of `names` in turn, (rank, name, True or
+    its value, or the error it raised) put on `out` as it ends. An op the
+    backend cannot stage may abort the process: the parent sees which."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=30))
+    ops = _probe_ops(torch, dist, rank, world)
+    for name in names:
+        try:
+            res = ops[name]()
+            torch.cuda.synchronize()
+            out.put((rank, name, True if res is None else res))
+        except Exception as e:  # the probe records what the backend refuses
+            out.put((rank, name, f"{type(e).__name__}: {str(e)[:160]}"))
+            if "timed out" in str(e).lower():
+                break
+    dist.destroy_process_group()
+
+
+def _probe_world(world, backend, names, timeout=90):
+    """{op: outcome} over `world` spawned ranks, rank 0's outcome (and
+    whether every rank saw the same). Where a rank dies inside an op, that
+    op reads 'aborted the process' and the ops after it run in new ranks."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    res, todo = {}, list(names)
+    while todo:
+        out = ctx.Queue()
+        tmp = tempfile.mkdtemp(prefix="ssak_smoke_rdv_")
+        procs = [ctx.Process(target=_probe_rank, args=(r, world, os.path.join(tmp, "rdv"), backend, todo, out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        seen, deadline = {}, time.perf_counter() + timeout
+        try:
+            while (time.perf_counter() < deadline and not all(p.exitcode is not None for p in procs)
+                   and not any(p.exitcode not in (None, 0) for p in procs)):
+                try:
+                    rank, name, val = out.get(timeout=1.0)
+                    seen.setdefault(name, {})[rank] = val
+                except Exception:  # queue.Empty: look at the ranks again
+                    pass
+            while not out.empty():
+                rank, name, val = out.get()
+                seen.setdefault(name, {})[rank] = val
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=10)
+            shutil.rmtree(tmp, ignore_errors=True)
+        done = [n for n in todo if len(seen.get(n, {})) == world]
+        for n in done:
+            vals = seen[n]
+            res[n] = vals[0] if n == "all_reduce_ms" or all(v == vals[0] for v in vals.values()) else vals
+        rest = [n for n in todo if n not in seen or len(seen[n]) < world]
+        if rest:
+            res[rest[0]] = f"aborted the process (exit codes {[p.exitcode for p in procs]})"
+            rest = rest[1:]
+        todo = rest
+    return res
+
+
+PROBE_OPS = ("all_reduce_f32", "all_reduce_bf16", "all_gather_f32", "all_gather_bf16", "all_gather_into_tensor",
+             "broadcast", "device_mesh", "all_reduce_ms", "reduce_scatter", "all_to_all", "send_recv")
+
+
+def probe_collectives(torch):
+    """What the card's process groups carry: two gloo ranks sharing the card
+    (NCCL refuses two ranks on one device), each collective tried on CUDA
+    tensors, one f32 all_reduce of PROBE_BYTES timed; and one NCCL world of
+    1 (this process). Returns {"gloo": {op: outcome}, "nccl_world1": ..., "tp_world": 2
+    where gloo passed all_reduce f32 and all_gather, else 1}."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    gloo = _probe_world(2, "gloo", PROBE_OPS)
+    tmp = _world1(torch, "probe")  # NCCL at world size 1, in this process
+    try:
+        nccl = {}
+        for name, fn in _probe_ops(torch, dist, 0, 1).items():
+            try:
+                res = fn()
+                torch.cuda.synchronize()
+                nccl[name] = True if res is None else res
+            except Exception as e:  # the probe records what the backend refuses
+                nccl[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    finally:
+        _end_world1(tmp)
+    ok = gloo.get("all_reduce_f32") is True and gloo.get("all_gather_f32") is True
+    out = {"gloo": gloo, "nccl_world1": nccl, "tp_world": 2 if ok else 1, "seconds": time.perf_counter() - t0}
+    log(f"parallel probe: {json.dumps(out)}")
+    return out
+
+
+def _world1(torch, kind):
+    """A process group of one rank over NCCL for this process (a file
+    rendezvous): the port's parallel code at world size 1."""
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix=f"ssak_smoke_{kind}_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}", rank=0, world_size=1)
+    return tmp
+
+
+def _end_world1(tmp):
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+TP_BATCH = 2  # files a batch in the tp_serving runs: 2 x 2 ranks of about 8 GiB each share the card at once
+
+
+def _parallel_rank(torch, rank, world, model_dir, subset, files, sp_index, backend):
+    """One rank of the tp_serving / sp_serving runs on the shared card: the
+    xlsr directory loaded, ctc_log_probs_sp of one 140 s row over ('data',
+    'seq') = (1, world); then shard_model over ('data', 'model') = (1,
+    world) and each file's log-probs (ctc_compute_logits_chunked); then
+    ctc_infer(..., tensor_parallel=world) over the Kaldi dir in batches of
+    TP_BATCH files, its kernel launches counted. Rank 0 returns its
+    log-probs."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import load_audio
+    from ssak_tpu_torch.infer.ctc_infer import MAX_CHUNK_SAMPLES, ctc_compute_logits_chunked, ctc_infer
+    from ssak_tpu_torch.infer.general import load_model, shard_model
+    from ssak_tpu_torch.parallel.mesh import make_mesh
+    from ssak_tpu_torch.parallel.sequence import ctc_log_probs_sp
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    model = load_model(model_dir, device=dev)
+    load_s = time.perf_counter() - t0
+    audio = [load_audio(f) for f in files]
+    row = np.zeros((1, MAX_CHUNK_SAMPLES), np.float32)
+    row[0, : audio[sp_index].size] = audio[sp_index]
+    reset_counts()
+    seq = make_mesh(data=1, model=world, names=("data", "seq"), device_type="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lp_sp, fl_sp = ctc_log_probs_sp(model.module, torch.from_numpy(row).to(dev), model.cfg, seq,
+                                        lengths=torch.tensor([audio[sp_index].size], device=dev))
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0
+    sp_launches = kernel_launches()
+    shard_model(model, mesh=make_mesh(data=1, model=world, device_type="cuda"))
+    local_heads = model.cfg.num_heads // model.module.encoder.blocks[0].attn.tp_size
+    tp_cut = _tp_cut_faults(model.module, model.cfg, world)
+    lps = [ctc_compute_logits_chunked(model, a) for a in audio]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    texts = list(ctc_infer(model_dir, subset, batch_size=TP_BATCH, tensor_parallel=world, device=dev,
+                           dist_backend=backend, output_ids=True))
+    torch.cuda.synchronize()
+    tp_s = time.perf_counter() - t0
+    out = dict(rank=rank, texts=texts, launches=kernel_launches(), sp_launches=sp_launches, tp_s=tp_s, sp_s=sp_s,
+               load_s=load_s, local_heads=local_heads, tp_cut_faults=tp_cut,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if rank == 0:
+        out["lps"] = lps
+        out["lp_sp"] = lp_sp[0, : int(fl_sp[0])].float().cpu().numpy()
+    return out
+
+
+def _tp_cut_faults(module, cfg, world):
+    """What shard_model failed to cut on a rank of `world`: every block's
+    attention on num_heads / world heads with query / key / value
+    column-parallel (out / world rows) and out row-parallel (in / world
+    columns), fc1 column- and fc2 row-parallel the same way, lm_head
+    column-parallel with its logits gathered. [] where all of it holds."""
+    D, Fd, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    want = {"query": ("col", (D // world, D)), "key": ("col", (D // world, D)), "value": ("col", (D // world, D)),
+            "out": ("row", (D, D // world)), "fc1": ("col", (Fd // world, D)), "fc2": ("row", (D, Fd // world))}
+    faults = []
+    for i, blk in enumerate(module.encoder.blocks):
+        if blk.attn.tp_size != world or cfg.num_heads // blk.attn.tp_size != cfg.num_heads // world:
+            faults.append(f"block {i}: attention tp_size {blk.attn.tp_size}, want {world}")
+        for name, lin in (("query", blk.attn.query), ("key", blk.attn.key), ("value", blk.attn.value),
+                          ("out", blk.attn.out), ("fc1", blk.mlp.fc1), ("fc2", blk.mlp.fc2)):
+            mode = getattr(lin.tp, "mode", None)
+            if (mode, tuple(lin.weight.shape)) != want[name]:
+                faults.append(f"block {i} {name}: {mode} {tuple(lin.weight.shape)}, want {want[name]}")
+    head = module.lm_head
+    if (getattr(head.tp, "mode", None), tuple(head.weight.shape)) != ("gather", (V // world, D)):
+        faults.append(f"lm_head: {getattr(head.tp, 'mode', None)} {tuple(head.weight.shape)}, want gather "
+                      f"{(V // world, D)}")
+    return faults
+
+
+def _corr(a, b):
+    import numpy as np
+
+    return float(np.corrcoef(np.asarray(a).ravel(), np.asarray(b).ravel())[0, 1])
+
+
+def run_tp_serving(torch, dev, root, model_dir, corpus, ids, lens, probe):
+    """tp_serving and sp_serving: the xlsr directory over 4 files of the
+    serving corpus (2 of 70-140 s at 7,001 frames, 2 of 12-28 s; batches
+    of TP_BATCH files), on 2 gloo ranks sharing the card (the run fails
+    where the probe found gloo short of all_reduce f32 or all_gather: one
+    rank would cut nothing). Once through python -m torch.distributed.run
+    -m ssak_tpu_torch.infer.ctc_infer --tensor_parallel 2, once through
+    spawned ranks (_parallel_rank), the two at once. Held: every rank holds
+    num_heads / 2 heads and the layers cut as the rules say
+    (_tp_cut_faults); L1 forward on every rank, 24 a
+    140 s encoder call, nothing else; rank 0's log-probs of each file
+    correlated >= 0.999 with the unsharded bf16 model's; the sequence-
+    parallel log-probs of a 140 s row (unfused attention over gathered keys,
+    no kernel) >= 0.999 with compute_log_probas's (L1). Logged: the CER of
+    each route against the unsharded transcripts, seconds, peak GiB."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import load_audio
+    from ssak_tpu_torch.infer.ctc_infer import MAX_CHUNK_SAMPLES, ctc_compute_logits_chunked, padded_batch_shape
+    from ssak_tpu_torch.infer.general import compute_log_probas, decode_log_probas, load_model
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
+
+    gc.collect()
+    torch.cuda.empty_cache()  # 2 + 2 ranks share the card with this process
+    parent_gib = torch.cuda.memory_allocated() / 2**30
+    world = probe["tp_world"]
+    if world < 2:
+        raise AssertionError(f"parallel probe: gloo on the card did not carry all_reduce f32 and all_gather, so "
+                             f"tensor parallelism would run on one rank, where sharding cuts nothing: {probe['gloo']}")
+    backend = "gloo"
+    longs = [i for i, n in enumerate(lens) if 70 * 16000 <= n <= 140 * 16000][:2]
+    shorts = [i for i, n in enumerate(lens) if 12 * 16000 <= n <= 28 * 16000][:2]
+    sel = sorted(longs + shorts, key=lambda i: ids[i])  # a Kaldi dir is read in utterance order
+    sp_index = sel.index(longs[0])
+    with open(os.path.join(corpus, "wav.scp"), encoding="utf-8") as f:
+        scp = dict(line.split(" ", 1) for line in f.read().splitlines())
+    subset = os.path.join(root, "tp")
+    os.makedirs(subset, exist_ok=True)
+    with open(os.path.join(subset, "wav.scp"), "w", encoding="utf-8") as f:
+        f.write("".join(f"{ids[i]} {scp[ids[i]]}\n" for i in sel))
+    files = [scp[ids[i]] for i in sel]
+    sel_lens = [lens[i] for i in sel]
+    cfg = wav2vec2.make_config(SERVE_MODEL.split(":")[1])
+    frames = [wav2vec2.feature_extract_output_length(cfg, padded_batch_shape(sel_lens[i : i + TP_BATCH], TP_BATCH)[1])
+              for i in range(0, len(sel_lens), TP_BATCH)]  # batches of TP_BATCH files in utterance order
+    long_calls = sum(fr >= FLASH_MIN_SEQ for fr in frames)
+
+    model = load_model(model_dir, device=dev)
+    model_heads = model.cfg.num_heads
+    audio = [load_audio(p) for p in files]
+    with torch.no_grad():
+        ref_lps = [ctc_compute_logits_chunked(model, a) for a in audio]
+        row = np.zeros((1, MAX_CHUNK_SAMPLES), np.float32)
+        row[0, : audio[sp_index].size] = audio[sp_index]
+        lp, fl = compute_log_probas(model, row, [audio[sp_index].size])
+        ref_sp = lp[0, : int(fl[0])].float().cpu().numpy()
+    ref_texts = [decode_log_probas(model, torch.from_numpy(lp)[None], [lp.shape[0]])[0] for lp in ref_lps]
+    del model, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the torchrun route runs beside the spawned ranks (its own process group on the same card): their
+    # seconds overlap and are logged as such
+    out_txt = os.path.join(root, "tp_torchrun.txt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(world), "-m",
+           "ssak_tpu_torch.infer.ctc_infer", subset, model_dir, "--tensor_parallel", str(world), "--dist_backend",
+           backend, "--batch_size", str(TP_BATCH), "--output", out_txt]
+    t0 = time.perf_counter()
+    run = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = spawn_ranks(_parallel_rank, world, backend, model_dir, subset, files, sp_index, backend, timeout=600)
+        spawn_s = time.perf_counter() - t0
+        _out, err = run.communicate(timeout=600)
+    finally:
+        if run.poll() is None:
+            run.kill()
+            run.communicate()
+    torchrun_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun ctc_infer --tensor_parallel {world} failed:\n{err[-4000:]}")
+    with open(out_txt, encoding="utf-8") as f:
+        torchrun = [line.split(" ", 1) for line in f.read().splitlines()]
+    if [u for u, _t in torchrun] != [ids[i] for i in sel]:
+        raise AssertionError(f"torchrun ctc_infer wrote ids {[u for u, _t in torchrun]}, want {[ids[i] for i in sel]}")
+    faults = {r["rank"]: r["tp_cut_faults"] for r in ranks if r["tp_cut_faults"]}
+    if faults or any(r["local_heads"] != model_heads // world for r in ranks):
+        raise AssertionError(f"shard_model on {world} ranks: local heads {[r['local_heads'] for r in ranks]} (want "
+                             f"{model_heads // world}); layers not cut as the rules say: {faults}")
+    want_l1 = 24 * long_calls
+    for r in ranks:
+        want = {k: 0 for k in r["launches"]}
+        want["flash_attention"] = want_l1
+        if r["launches"] != want or not want_l1 or any(r["sp_launches"].values()):
+            raise AssertionError(f"tp rank {r['rank']}: launches {r['launches']} (want {want}), SP launches "
+                                 f"{r['sp_launches']} (want none)")
+    r0 = ranks[0]
+    corr = [_corr(a, b) for a, b in zip(r0["lps"], ref_lps)]
+    corr_sp = _corr(r0["lp_sp"], ref_sp)
+    if [u for u, _t in r0["texts"]] != [ids[i] for i in sel] or any(r["texts"] for r in ranks[1:]):
+        raise AssertionError(f"spawned ranks' transcripts: {[[u for u, _t in r['texts']] for r in ranks]}")
+    texts = [t for _u, t in r0["texts"]]
+    res = dict(world=world, backend=backend, probe_tp_world=probe["tp_world"], files=len(sel),
+               seconds=[round(n / 16000, 2) for n in sel_lens], encoder_frames=frames, local_heads=r0["local_heads"],
+               sp_seconds=round(sel_lens[sp_index] / 16000, 2),
+               l1_launches_per_rank=[r["launches"]["flash_attention"] for r in ranks], log_prob_correlation=corr,
+               cer_vs_unsharded=cer(ref_texts, texts), cer_torchrun_vs_unsharded=cer(ref_texts, [t for _u, t in torchrun]),
+               torchrun_equals_spawned=[t for _u, t in torchrun] == texts, torchrun_s=torchrun_s, spawn_s=spawn_s,
+               ctc_infer_s=[r["tp_s"] for r in ranks], load_s=[r["load_s"] for r in ranks],
+               peak_gib=[r["peak_gib"] for r in ranks], parent_allocated_gib=parent_gib,
+               sp=dict(seq=world, frames=int(ref_sp.shape[0]), correlation=corr_sp, s=[r["sp_s"] for r in ranks]))
+    log(f"parallel tp_serving / sp_serving: {json.dumps(res)}")
+    if min(corr) < 0.999 or corr_sp < 0.999 or len(texts) != len(sel):
+        raise AssertionError(f"tp / sp serving out of tolerance: {res}")
+    return res
+
+
+PAR_BATCH, PAR_SECONDS = 8, 15.0  # wav2vec2-base training runs of the parallel slice: B=8 x 15 s (749 frames)
+
+
+def _par_batch(torch, dev, seed, B=PAR_BATCH, seconds=PAR_SECONDS, U=120, V=32):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * 16000)
+    lens = np.full(B, n, np.int32)
+    lens[1::2] = n - 16000 * rng.randint(1, 5, B // 2)
+    audio = np.stack([tones(rng, seconds)[:n] for _ in range(B)]).astype(np.float32)
+    audio[np.arange(n)[None, :] >= lens[:, None]] = 0
+    lab_len = rng.randint(U // 2, U, B).astype(np.int32)
+    labels = rng.randint(1, V, (B, U)).astype(np.int32)
+    labels[np.arange(U)[None, :] >= lab_len[:, None]] = 0
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            dict(audio=audio, audio_lengths=lens, labels=labels, label_lengths=lab_len).items()}
+
+
+def run_moe_training(torch, dev):
+    """moe_training: a seeded wav2vec2-base (d=768, 12 layers, FFN 3,072)
+    with 4 experts, top 2, capacity 1.25, sharded by WAV2VEC2_MOE_RULES
+    over a ('data', 'expert') mesh of one NCCL rank and stepped through
+    shard_train_step(make_ctc_train_step(moe_aux_weight=0.01)), B=8 x 15 s
+    (S = 5,992 tokens, C = 3,752), 4 steps. Held: K1 4 launches and
+    nothing else, finite losses. Logged: step ms (2-4), peak GiB, the
+    dropped share of (token, choice) pairs per layer."""
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from ssak_tpu_torch.parallel.moe import capacity
+    from ssak_tpu_torch.parallel.sharding import WAV2VEC2_MOE_RULES
+    from ssak_tpu_torch.train import steps as TS
+
+    tmp = _world1(torch, "moe")
+    try:
+        cfg = wav2vec2.make_config("base", num_experts=4, moe_top_k=2)
+        model = wav2vec2.init_params(cfg, seed=0, device=dev)
+        mesh = make_mesh(data=1, model=1, names=("data", "expert"), device_type="cuda")
+        shard_params(model, mesh, WAV2VEC2_MOE_RULES, num_heads=cfg.num_heads)
+        batch = _par_batch(torch, dev, seed=41)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = TS.make_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=10)
+        state = TS.init_train_state(model, opt)
+        step = TS.shard_train_step(TS.make_ctc_train_step(cfg, opt, moe_aux_weight=0.01), mesh)
+        reset_counts()
+        marks, metrics = [], []
+        for _ in range(4):
+            state, m = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        losses = [float(m["loss"]) for m in metrics]
+        frames = wav2vec2.feature_extract_output_length(cfg, int(PAR_SECONDS * 16000))
+        S = PAR_BATCH * frames
+        dropped = [float(1.0 - b.moe.last_route[1].float().mean()) for b in model.encoder.blocks]
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        res = dict(experts=cfg.num_experts, top_k=cfg.moe_top_k, tokens=S, capacity=capacity(S, 4, 2, 1.25),
+                   frames=frames, losses=losses, grad_norms=[float(m["grad_norm"]) for m in metrics],
+                   step_ms=sum(step_ms) / len(step_ms), step_ms_each=step_ms,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, dropped_share_per_layer=dropped,
+                   launches=launches)
+        log(f"parallel moe_training: {json.dumps(res)}")
+        want = {k: 0 for k in launches}
+        want["ctc_fused"] = 4
+        if launches != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"moe_training: launches {launches} (want {want}) or losses {losses}")
+        del state, model, step
+        return res
+    finally:
+        _end_world1(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_pp_training(torch, dev):
+    """pp_training: make_pp_ctc_train_step at wav2vec2-base widths over a
+    ('data', 'pipe') mesh of one NCCL rank, 2 microbatches, B=8 x 15 s, 3
+    steps. Held: K1 3 launches and nothing else; the first step's loss
+    within 1e-2 (relative) of the unpipelined forward's on the same batch
+    and weights (bf16: microbatches of 4 rows)."""
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.ops.ctc_fused import ctc_loss_fast
+    from ssak_tpu_torch.parallel.mesh import make_mesh
+    from ssak_tpu_torch.parallel.pipeline import make_pp_ctc_train_step, shard_pp_params
+    from ssak_tpu_torch.train import steps as TS
+
+    tmp = _world1(torch, "pp")
+    try:
+        cfg = wav2vec2.make_config("base")
+        model = wav2vec2.init_params(cfg, seed=1, device=dev)
+        batch = _par_batch(torch, dev, seed=42)
+        with torch.no_grad():
+            lp, fl = wav2vec2.ctc_log_probs(model, batch["audio"], cfg, batch["audio_lengths"])
+            dense_loss = float(ctc_loss_fast(lp, fl, batch["labels"], batch["label_lengths"]))
+        del lp
+        mesh = make_mesh(data=1, model=1, names=("data", "pipe"), device_type="cuda")
+        shard_pp_params(model, mesh)
+        opt = TS.make_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=10)
+        state = TS.init_train_state(model, opt)
+        step = make_pp_ctc_train_step(cfg, opt, mesh, n_microbatches=2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        marks, metrics = [], []
+        for _ in range(3):
+            state, m = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        losses = [float(m["loss"]) for m in metrics]
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+        rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+        res = dict(pipe=1, microbatches=2, losses=losses, dense_first_loss=dense_loss, first_loss_rel=rel,
+                   step_ms=sum(step_ms) / len(step_ms), step_ms_each=step_ms,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+        log(f"parallel pp_training: {json.dumps(res)}")
+        want = {k: 0 for k in launches}
+        want["ctc_fused"] = 3
+        if launches != want or rel > 1e-2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"pp_training out of tolerance: {res}")
+        del state, model, step
+        return res
+    finally:
+        _end_world1(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_moe_train_step_card_vs_cpu(torch, dev):
+    """One MoE wav2vec2 train step on the card and on the CPU in f32 from
+    the same weights: base widths (d=768, FFN 3,072, 4 experts, top 2), 2
+    layers, batch 2 x 4 s. Loss to 1e-4 relative and grad_norm to 1e-3, as
+    the dense f32 steps; every layer routes the same tokens to the same
+    experts and keeps the same ones."""
+    import numpy as np
+
+    from ssak_tpu_torch.models import wav2vec2
+    from ssak_tpu_torch.models.convert import wav2vec2_from_tree, wav2vec2_to_tree
+    from ssak_tpu_torch.train import steps as TS
+
+    cfg = wav2vec2.make_config("base", num_layers=2, num_experts=4, moe_top_k=2, dtype="float32")
+    tree = wav2vec2_to_tree(wav2vec2.init_params(cfg, seed=8))
+    rng = np.random.RandomState(4)
+    n = 64000
+    lens = np.array([n, 48000], np.int32)
+    audio = (0.1 * rng.randn(2, n)).astype(np.float32)
+    audio[np.arange(n)[None, :] >= lens[:, None]] = 0
+    lab_len = np.array([50, 40], np.int32)
+    labels = rng.randint(1, 32, (2, 64)).astype(np.int32)
+    labels[np.arange(64)[None, :] >= lab_len[:, None]] = 0
+    out = {}
+    for where in ("cpu", dev):
+        batch = {k: torch.from_numpy(v.copy()).to(where) for k, v in
+                 dict(audio=audio, audio_lengths=lens, labels=labels, label_lengths=lab_len).items()}
+        opt = TS.make_optimizer(learning_rate=1e-4, warmup_steps=1, total_steps=10)
+        state = TS.init_train_state(wav2vec2_from_tree(tree, where), opt)
+        state, m = TS.make_ctc_train_step(cfg, opt, moe_aux_weight=0.01)(state, batch)
+        routes = [tuple(t.cpu() for t in b.moe.last_route) for b in state["model"].encoder.blocks]
+        out[str(where)] = (m["loss"].item(), m["grad_norm"].item(), routes)
+        del state
+    (lc, gc_, rc), (lg, gg, rg) = out["cpu"], out[str(dev)]
+    same = [bool(torch.equal(a[1], b[1]) and torch.equal(a[0][a[1]], b[0][b[1]])) for a, b in zip(rg, rc)]
+    res = dict(loss_rel=abs(lg - lc) / abs(lc), grad_norm_rel=abs(gg - gc_) / abs(gc_), same_routing_per_layer=same,
+               kept_share=[float(r[1].float().mean()) for r in rg], card=[lg, gg], cpu=[lc, gc_])
+    log(f"moe train step card vs cpu: {json.dumps(res)}")
+    if not (res["loss_rel"] <= 1e-4 and res["grad_norm_rel"] <= 1e-3 and all(same)):
+        raise AssertionError(f"moe train step card vs cpu out of tolerance: {res}")
+    return res
+
+
 # --- phase 4: the whole path, card against CPU -----------------------------------
 
 
@@ -4311,9 +4975,9 @@ def check_long_train_step_card_vs_cpu(torch, dev):
             init = staticmethod(opt.init)
 
             @staticmethod
-            def update(gr, state, params):
+            def update(gr, state, params, norm_fn=None):
                 grads.update({k: v.detach().float().cpu() for k, v in gr.items()})
-                return opt.update(gr, state, params)
+                return opt.update(gr, state, params, norm_fn)
 
         state = TS.init_train_state(wav2vec2.init_params(cfg, seed=3, device=where), Capture)
         step = TS.make_ctc_train_step(cfg, Capture, mask_time_prob=0.0)
@@ -4602,7 +5266,9 @@ def main():
         "wav2vec2-xlsr CTC training at the 140 s bucket; corpus ingest (FLAC, sox pipes, segments; check_kaldi_dir, "
         "manifest, tar, BPE) into the train CLI's wav2vec2-base step with --config, --set and the manifest cache; "
         "alignment and training data (long Kaldi utterances split by CTC forced alignment through xlsr; the train CLI "
-        "with --data_augment; the voice converter trained and run over a Kaldi dir; the NN VAD)")
+        "with --data_augment; the voice converter trained and run over a Kaldi dir; the NN VAD); parallel/ (a probe "
+        "of the card's process groups; tensor-parallel and sequence-parallel xlsr serving over ranks sharing the card, "
+        "through torchrun and spawned ranks; MoE wav2vec2-base training through shard_train_step; GPipe training)")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
@@ -4643,6 +5309,8 @@ def main():
         slices["ctc_host_beam"] = run_host_beam(torch, tmp, corpus, ids, lens, model_dir)
         slices["ctc_streaming"] = run_streaming(torch, dev, model_dir)
         align = {"split": run_align(torch, dev, os.path.join(tmp, "align"), model_dir, corpus, ids, lens)}
+        parallel = {"probe": probe_collectives(torch)}
+        parallel["tp_serving"] = run_tp_serving(torch, dev, tmp, model_dir, corpus, ids, lens, parallel["probe"])
         shutil.rmtree(model_dir)
         nemo = run_nemo(torch, dev, tmp, (corpus, ids, lens))
         dirs["nemo_conformer_ctc_large"] = nemo.pop("nemo_archive")
@@ -4667,12 +5335,17 @@ def main():
         slices["align"] = align
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    parallel["moe_training"] = run_moe_training(torch, dev)
+    parallel["pp_training"] = run_pp_training(torch, dev)
+    slices["parallel"] = parallel
+    log(f"slice parallel {json.dumps(parallel)}")
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
         "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row in bf16), at 1 (in int8 and int4; "
         "a bf16 train step at the 100 s bucket); a bf16 dense at B=4 x 6,999; NeMo Conformer-CTC Large widths at 2 layers, "
         "f32 (log-probs of a 30 s and a 140 s row; train steps); "
-        "Whisper LoRA and int8 QLoRA train steps at large-v3 widths, 2+2 layers, f32")
+        "Whisper LoRA and int8 QLoRA train steps at large-v3 widths, 2+2 layers, f32; an MoE wav2vec2 train step at "
+        "base widths, 2 layers, f32")
     corr = check_card_vs_cpu(torch, dev)
     train_parity = check_train_step_card_vs_cpu(torch, dev)
     serving_parity = check_ctc_serving_card_vs_cpu(torch, dev)
@@ -4686,6 +5359,7 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     whisper_step_parity = check_whisper_train_steps_card_vs_cpu(torch, dev)
+    moe_step_parity = check_moe_train_step_card_vs_cpu(torch, dev)
 
     def head(rows, **shape):
         return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
@@ -4709,12 +5383,14 @@ def main():
          k1_rows, k1_err, dict(V=32, T=749),
          slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]
          + slices["nemo_training"]["launches"]["ctc_fused"] + sum(r["ctc_fused"] for r in slices["ingest"]["launches"])
-         + slices["align"]["augment"]["launches"]["ctc_fused"]),
+         + slices["align"]["augment"]["launches"]["ctc_fused"] + parallel["moe_training"]["launches"]["ctc_fused"]
+         + parallel["pp_training"]["launches"]["ctc_fused"]),
         ("flash_attention", "ssak_tpu_torch/csrc/flash_attention.cu", "ssak_tpu/models/layers.py:290",
          l1_rows, l1_err, dict(B=1, T=7001),
          sum(slices[k]["launches"]["flash_attention"] for k in ("ctc_serving_greedy", "ctc_serving_int8",
                                                                   "ctc_serving_int4", "ctc_serving_beam", "ctc_long"))
-         + slices["align"]["split"]["launches"]["flash_attention"]),
+         + slices["align"]["split"]["launches"]["flash_attention"]
+         + sum(parallel["tp_serving"]["l1_launches_per_rank"])),
         ("flash_attention_bwd_dkv", "ssak_tpu_torch/csrc/flash_attention_bwd.cu",
          "ssak_tpu/models/layers.py:290 -> jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
          bwd_rows["dkv"], max(bwd_err["dk"], bwd_err["dv"]), dict(B=1, T=6999),
@@ -4735,6 +5411,7 @@ def main():
                                  "quantized_ctc_card_vs_cpu": quantized_parity, "dense_card_vs_cpu": dense_parity,
                                  "nemo_card_vs_cpu": nemo_parity, "nemo_train_step_card_vs_cpu": nemo_step_parity,
                                  "whisper_train_step_card_vs_cpu": whisper_step_parity,
+                                 "moe_train_step_card_vs_cpu": moe_step_parity,
                                  "flash_attention_30s_bucket": l1_short, "flash_attention_training_launch": l1_training,
                                  "flash_attention_bwd_pairs": bwd_pairs}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,7 +20,13 @@ self-attention goes through the fused kernel L1 (models.layers._can_flash);
 a Conformer's 3,501 frames stay on its unfused rel-pos attention, as in
 ssak_tpu.
 
-Not ported yet (ROADMAP.md): tensor parallelism.
+Tensor parallelism (`tensor_parallel=N`, `--tensor_parallel N`): one
+process per rank, started by torchrun (`python -m torch.distributed.run
+--nproc_per_node N -m ssak_tpu_torch.infer.ctc_infer ...`); each rank loads
+the model, keeps its slice of the weights (infer.general.shard_model) and
+reads the same batches, and rank 0 yields (the CLI: writes) the
+transcripts. `dist_backend` picks the process groups' backend (nccl on
+cards by default, gloo on the CPU).
 """
 
 import os
@@ -192,6 +198,7 @@ def ctc_infer(
     quantize_bits: int = 0,
     num_workers: int = 0,
     device=None,
+    dist_backend: str = None,
 ):
     """Iterator over transcripts (or (id, text) with output_ids) of any
     audio source to_audio_batches takes, on `device` (default cuda; raises
@@ -202,6 +209,9 @@ def ctc_infer(
     num_workers > 1 fans over a process pool (decode.pool, one beam width
     for pooled and in-process runs). quantize_bits: 8 or 4 quantizes the
     model on load.
+    tensor_parallel=N shards the model over the N ranks of a process group
+    (torchrun's; raises ValueError without one), on the backend
+    `dist_backend`; only rank 0 yields transcripts.
 
     batch_size=0 auto-packs batches under the samples budget. Ingest runs in
     a prefetch thread, and each batch's device work (encoder, greedy or
@@ -210,9 +220,28 @@ def ctc_infer(
     from ssak_tpu_torch.data.dataset import to_audio_batches
     from ssak_tpu_torch.infer.general import compute_log_probas, load_model
 
+    rank0 = True
     if tensor_parallel:
-        raise NotImplementedError("tensor-parallel CTC serving is not ported yet (comes with parallel/, ROADMAP.md)")
+        import torch.distributed as dist
+
+        from ssak_tpu_torch.parallel.mesh import init_distributed
+        from ssak_tpu_torch.utils.env import resolve_device
+
+        resolve_device(device)  # no card and no device="cpu": raise here, at the call
+        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            raise ValueError(f"tensor_parallel={tensor_parallel} needs a process group of {tensor_parallel} ranks: run "
+                             f"under torchrun (python -m torch.distributed.run --nproc_per_node {tensor_parallel} -m "
+                             "ssak_tpu_torch.infer.ctc_infer ...)")
+        device = init_distributed(backend=dist_backend, device=device)
+        if dist.get_world_size() != tensor_parallel:
+            raise ValueError(f"tensor_parallel={tensor_parallel} but the process group has {dist.get_world_size()} "
+                             f"ranks: start {tensor_parallel} with torchrun --nproc_per_node {tensor_parallel}")
+        rank0 = dist.get_rank() == 0
     model = load_model(model_dir, seeded_test_config=seeded_test_config, quantize_bits=quantize_bits, device=device)
+    if tensor_parallel:
+        from ssak_tpu_torch.infer.general import shard_model
+
+        shard_model(model, model_axis=tensor_parallel)
     lm = None
     if lm_path:
         from ssak_tpu_torch.decode.native_lm import load_lm
@@ -360,7 +389,15 @@ def ctc_infer(
                                 sort_by_len=sort_by_len, io_threads=io_threads)
         batches = auto_pack_batches(((a, i) for b, ids in rows for a, i in zip(b, ids)),
                                     max_samples=int(AUTO_BATCH_SECONDS * model.sample_rate))
-    return _pipelined(batches, submit, model.sample_rate, output_ids, log_memtime, pool)
+    items = _pipelined(batches, submit, model.sample_rate, output_ids, log_memtime, pool)
+    return items if rank0 else _drain(items)
+
+
+def _drain(items):
+    """A rank other than 0 runs every batch (its collectives) and yields nothing."""
+    for _ in items:
+        pass
+    yield from ()
 
 
 def _pipelined(batches, submit, sample_rate, output_ids, log_memtime, pool=None):
@@ -415,7 +452,10 @@ def cli(argv=None):
     parser.add_argument("--beam_width", type=int, default=0, help=">1 enables the device beam search")
     parser.add_argument("--num_workers", type=int, default=0, help=">1 fans host-beam word-LM decoding over a process pool")
     parser.add_argument("--tensor_parallel", "--tp", type=int, default=0, dest="tensor_parallel",
-                        help="shard model weights over N cards (not ported yet)")
+                        help="shard the model's weights over N ranks (megatron TP rules); run under torchrun "
+                             "--nproc_per_node N")
+    parser.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                        help="backend of the tensor-parallel process group (default nccl on cards, gloo on the CPU)")
     parser.add_argument("--load_in_8bit", action="store_true", help="int8 weight-only quantized decode")
     parser.add_argument("--load_in_4bit", action="store_true", help="int4 weight-only quantized decode")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -427,16 +467,21 @@ def cli(argv=None):
         log_memtime=args.log_memtime, lm_path=args.lm, lm_alpha=args.lm_alpha, lm_beta=args.lm_beta,
         beam_width=args.beam_width, lexicon_path=args.lexicon, num_workers=args.num_workers,
         tensor_parallel=args.tensor_parallel, quantize_bits=4 if args.load_in_4bit else (8 if args.load_in_8bit else 0),
-        seeded_test_config=args.seeded_test_config, device=args.device,
+        seeded_test_config=args.seeded_test_config, device=args.device, dist_backend=args.dist_backend,
     )
-    out = open(args.output, "w", encoding="utf-8") if args.output else sys.stdout
+    import torch.distributed as dist
+
+    to_file = args.output and (not dist.is_initialized() or dist.get_rank() == 0)  # rank 0 writes the transcripts
+    out = open(args.output, "w", encoding="utf-8") if to_file else sys.stdout
     try:
-        for item in items:
+        for item in items:  # none on the other ranks
             out.write(f"{item[0]} {item[1]}\n" if args.use_ids else f"{item}\n")
             out.flush()
     finally:
-        if args.output:
+        if to_file:
             out.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ with its tokenizer, wav2vec2 with its vocab.json); MMS per-language
 adapters (`load_adapter`); seeded weights (`seeded_test_config`, Whisper
 and wav2vec2, the families ssak_tpu seeds) or an ssak_tpu parameter tree
 (`from_tree`, used by the tests). Any of them may be quantized on load
-(`quantize_bits` 8 or 4). Tensor-parallel sharding (8g) is a later slice of
-ROADMAP.md and raises NotImplementedError.
+(`quantize_bits` 8 or 4). A CTC model is sharded tensor-parallel over the
+ranks of a process group by `shard_model`; Whisper's tensor-parallel decode
+is a later slice of ROADMAP.md (8h) and raises NotImplementedError.
 """
 
 import dataclasses
@@ -201,8 +202,32 @@ def from_tree(params, cfg, device=None, tokenizer=None) -> LoadedModel:
     return _from_params(ModelType.WHISPER, params, cfg, dev, tokenizer)
 
 
-def shard_model(model: LoadedModel, model_axis: int = None, mesh=None):
-    raise NotImplementedError("tensor-parallel sharding is not ported yet (comes with parallel/, ROADMAP.md slice 8g)")
+def shard_model(model: LoadedModel, model_axis: int = None, mesh=None) -> LoadedModel:
+    """Tensor-parallel sharding of a loaded CTC model over the 'model' dim
+    of `mesh` (Megatron rules of parallel.sharding: WAV2VEC2_RULES or
+    CONFORMER_RULES; MoE experts stay whole): each rank keeps its
+    slice of the weights, IN PLACE, and the forward all-reduces and
+    all-gathers where XLA would for ssak_tpu. Needs a process group (ranks
+    started by torchrun, or parallel.init_distributed); the mesh defaults
+    to (1, model_axis), model_axis to the world size. Returns the same
+    LoadedModel with `.mesh` set. Whisper's tensor-parallel decode is slice
+    8h and raises NotImplementedError."""
+    import torch.distributed as dist
+
+    from ssak_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from ssak_tpu_torch.parallel.sharding import CONFORMER_RULES, WAV2VEC2_RULES
+
+    if model.type == ModelType.WHISPER:
+        raise NotImplementedError("tensor-parallel Whisper decode is not ported yet (slice 8h, ROADMAP.md)")
+    if mesh is None:
+        if not dist.is_initialized():
+            raise ValueError("shard_model needs a process group: start one process per rank with torchrun "
+                             "(python -m torch.distributed.run --nproc_per_node N ...)")
+        mesh = make_mesh(model=model_axis or dist.get_world_size(), device_type=model.device.type)
+    rules = CONFORMER_RULES if model.type == ModelType.CONFORMER_CTC else WAV2VEC2_RULES
+    shard_params(model.module, mesh, rules, num_heads=model.cfg.num_heads)
+    model.mesh = mesh
+    return model
 
 
 def load_adapter(model: LoadedModel, model_dir: str, language: str) -> bool:

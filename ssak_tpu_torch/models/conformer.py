@@ -193,9 +193,10 @@ def _conv_module(x, p, cfg, pad_mask):
 def _attention_rope(x, p, cfg, pad_mask):
     dt = cfg.compute_dtype
     T = x.shape[1]
-    q = L.split_heads(L.dense(x, p.query, dt), cfg.num_heads)
-    k = L.split_heads(L.dense(x, p.key, dt), cfg.num_heads)
-    v = L.split_heads(L.dense(x, p.value, dt), cfg.num_heads)
+    H = cfg.num_heads // p.tp_size  # the rank's heads under tensor parallelism
+    q = L.split_heads(L.dense(x, p.query, dt), H)
+    k = L.split_heads(L.dense(x, p.key, dt), H)
+    v = L.split_heads(L.dense(x, p.value, dt), H)
     positions = torch.arange(T, dtype=torch.float32, device=x.device)
     q = _rope(q, positions)
     k = _rope(k, positions)
@@ -227,7 +228,7 @@ def _attention_relpos(x, p, cfg, pad_mask, pe=None):
     when not given (encode makes it once for all blocks)."""
     dt = cfg.compute_dtype
     T = x.shape[1]
-    H = cfg.num_heads
+    H = cfg.num_heads // p.tp_size  # the rank's heads (and their linear_pos and pos_bias slices) under TP
     q = L.split_heads(L.dense(x, p.query, dt), H)  # (B, T, H, Dh)
     k = L.split_heads(L.dense(x, p.key, dt), H)
     v = L.split_heads(L.dense(x, p.value, dt), H)

@@ -86,27 +86,39 @@ def whisper_from_tree(params, device="cpu") -> W.WhisperModel:
 # --- wav2vec2 ------------------------------------------------------------------------
 
 
+def _moe_from_tree(p, device):
+    from ssak_tpu_torch.parallel.moe import MoE
+
+    return MoE(linear_from_tree(p["gate"], device), *(_t(p[k], device) for k in ("w1", "b1", "w2", "b2")))
+
+
 def wav2vec2_from_tree(params, device="cpu") -> W2V.Wav2Vec2Model:
-    """ssak_tpu wav2vec2 tree (`wav2vec2.init_params` layout) -> Wav2Vec2Model."""
+    """ssak_tpu wav2vec2 tree (`wav2vec2.init_params` layout, or its encoder
+    blocks layer-stacked by `stack_wav2vec2_params`; dense or MoE blocks)
+    -> Wav2Vec2Model."""
     blocks_t = params["encoder"]["blocks"]
     if isinstance(blocks_t, dict):
-        raise ValueError("layer-stacked trees are not supported; pass the list layout")
-    if any("moe" in b for b in blocks_t):
-        raise NotImplementedError("wav2vec2 with a Mixture-of-Experts FFN is not ported yet (comes with parallel/, ROADMAP.md)")
+        from ssak_tpu_torch.parallel.pipeline import unstack_blocks
+
+        blocks_t = unstack_blocks(blocks_t)
     convs = []
     for c in params["feature_extractor"]["convs"]:
         norms = {k: ln_from_tree(c[k], device) for k in ("layer_norm", "group_norm") if k in c}
         convs.append(W2V.ConvLayer(conv_from_tree(c["conv"], device), **norms))
     blocks = []
     for b in blocks_t:
-        mlp = L.MLP(linear_from_tree(b["mlp"]["fc1"], device), linear_from_tree(b["mlp"]["fc2"], device))
+        mlp = moe = None
+        if "moe" in b:
+            moe = _moe_from_tree(b["moe"], device)
+        else:
+            mlp = L.MLP(linear_from_tree(b["mlp"]["fc1"], device), linear_from_tree(b["mlp"]["fc2"], device))
         adapter = None
         if "adapter" in b:
             a = b["adapter"]
             adapter = W2V.Adapter(ln_from_tree(a["norm"], device), linear_from_tree(a["down"], device),
                                   linear_from_tree(a["up"], device))
         blocks.append(W2V.EncoderBlock(attn_from_tree(b["attn"], device), ln_from_tree(b["attn_ln"], device),
-                                       ln_from_tree(b["mlp_ln"], device), mlp, adapter))
+                                       ln_from_tree(b["mlp_ln"], device), mlp, adapter, moe))
     fp, enc = params["feature_projection"], params["encoder"]
     return W2V.Wav2Vec2Model(
         convs,
@@ -200,7 +212,8 @@ def _conv_to_tree(p):
 
 def wav2vec2_to_tree(model) -> dict:
     """Wav2Vec2Model -> ssak_tpu wav2vec2 tree with f32 numpy leaves (dense
-    kernels (in, out), conv kernels (K, Cin/groups, Cout))."""
+    kernels (in, out), conv kernels (K, Cin/groups, Cout), MoE blocks'
+    gate kernel (D, E) and expert-stacked w1, b1, w2, b2), list layout."""
     convs = []
     for c in model.feature_extractor:
         layer = {"conv": _conv_to_tree(c.conv)}
@@ -215,8 +228,11 @@ def wav2vec2_to_tree(model) -> dict:
             "attn": {n: _linear_to_tree(getattr(b.attn, n)) for n in ("query", "key", "value", "out")},
             "attn_ln": _ln_to_tree(b.attn_ln),
             "mlp_ln": _ln_to_tree(b.mlp_ln),
-            "mlp": {"fc1": _linear_to_tree(b.mlp.fc1), "fc2": _linear_to_tree(b.mlp.fc2)},
         }
+        if b.moe is not None:
+            blk["moe"] = {"gate": _linear_to_tree(b.moe.gate), **{k: _np(getattr(b.moe, k)) for k in ("w1", "b1", "w2", "b2")}}
+        else:
+            blk["mlp"] = {"fc1": _linear_to_tree(b.mlp.fc1), "fc2": _linear_to_tree(b.mlp.fc2)}
         if b.adapter is not None:
             blk["adapter"] = {"norm": _ln_to_tree(b.adapter.norm), "down": _linear_to_tree(b.adapter.down),
                               "up": _linear_to_tree(b.adapter.up)}

@@ -37,6 +37,7 @@ from ssak_tpu_torch.ops.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 from ssak_tpu_torch.ops.flash_attention import flash_self_attention
 from ssak_tpu_torch.ops.flash_decode import flash_decode_attention, flash_decode_supported
 from ssak_tpu_torch.ops.int8_matmul import int4_dense_supported, int8_dense_supported, matmul_int4, matmul_int8
+from ssak_tpu_torch.parallel.collectives import all_gather, all_reduce, copy_to_region
 
 _NEG = -1e30
 
@@ -53,10 +54,13 @@ class _Dense(nn.Module):
     lora_A (in, r) and lora_B (r, out) in ssak_tpu's layout and names, and
     the buffer lora_scale (alpha / r, f32), so that named_parameters() reads
     like ssak_tpu's paths ('decoder.blocks.0.attn.query.lora_A' for
-    '/decoder/blocks/0/attn/query/lora_A')."""
+    '/decoder/blocks/0/attn/query/lora_A'). `tp`: the layer's tensor
+    parallelism (parallel.mesh.TensorParallel) once shard_params cut it,
+    else None."""
 
     def __init__(self):
         super().__init__()
+        self.tp = None
         self.register_parameter("lora_A", None)
         self.register_parameter("lora_B", None)
         self.register_buffer("lora_scale", None)
@@ -113,10 +117,12 @@ class Conv1d(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """query/key/value/out projections; fuse_qkv_params replaces the first
-    three by one `qkv`."""
+    three by one `qkv`. tp_size: the ranks its heads are split over
+    (parallel.mesh.shard_params), each rank holding n_heads / tp_size."""
 
     def __init__(self, out, query, key, value):
         super().__init__()
+        self.tp_size = 1
         self.out = out
         self.query, self.key, self.value = query, key, value
 
@@ -216,7 +222,11 @@ def dense(x, p, dtype=None):
     """Linear or QuantLinear layer. With `dtype` the operands are rounded
     to that dtype and the result returned in it; the product is f32
     (`matmul_f32`), the LoRA term and then the bias are added to it, and
-    the sum is rounded once, as ssak_tpu's dense does. A QuantLinear on a
+    the sum is rounded once, as ssak_tpu's dense does. Tensor-parallel
+    (p.tp): a row-parallel layer all-reduces its f32 partial product before
+    the bias and the one rounding (where XLA's sharded dot reduces); a
+    column-parallel one keeps its output slice, or all-gathers it ('gather').
+    A QuantLinear on a
     decode-shaped CUDA activation goes through its fused kernel (K2 for
     int8, K3 for int4, f32 out); elsewhere its weight is dequantized to
     `dtype` first, as ssak_tpu does off the TPU. A LoRA adapter adds
@@ -224,6 +234,9 @@ def dense(x, p, dtype=None):
     products in f32 (exact for bf16 operands, as JAX's
     preferred_element_type=f32)."""
     y = None
+    tp = p.tp
+    if tp is not None and tp.mode != "row":
+        x = copy_to_region(x, tp.group)
     if isinstance(p, QuantLinear):
         kernel = None
         if p.bits == 8 and int8_dense_supported(x, p.q8):
@@ -248,9 +261,12 @@ def dense(x, p, dtype=None):
     if p.lora_A is not None:
         xa = torch.matmul(_f32(x, out_dtype), _f32(p.lora_A, out_dtype))
         y = y + p.lora_scale * torch.matmul(xa, _f32(p.lora_B, out_dtype))
-    if p.bias is not None:
-        return _add_rounded(y, p.bias, out_dtype)
-    return y.to(out_dtype)
+    if tp is not None and tp.mode == "row":
+        y = all_reduce(y, tp.group)
+    out = _add_rounded(y, p.bias, out_dtype) if p.bias is not None else y.to(out_dtype)
+    if tp is not None and tp.mode == "gather":
+        out = all_gather(out, -1, tp.group, replicated=True)
+    return out
 
 
 def gelu(x):
@@ -433,7 +449,9 @@ def mha(x, p, n_heads: int, kv_x=None, mask=None, cache=None, cache_index=None,
     ({k, v} (B, H, Dh, L) or the int8 dict), cache_index and
     attn_bounds=(lo, hi): the step's k/v are written into the cache IN
     PLACE at cache_index and attention runs over [lo, hi]
-    (decode_attention_bounded). Returns (y, cache)."""
+    (decode_attention_bounded). A tensor-parallel attention (p.tp_size > 1)
+    runs the rank's n_heads / tp_size heads. Returns (y, cache)."""
+    n_heads //= p.tp_size
     src = x if kv_x is None else kv_x
     if kv_x is None and hasattr(p, "qkv"):
         qkv = dense(x, p.qkv, dtype)

@@ -5,12 +5,11 @@ feature projection, transformer encoder with a grouped convolutional
 positional embedding, CTC head. Both HF variants: do_stable_layer_norm=False
 (base: group norm on conv0, post-LN blocks) and True (large/XLSR: per-conv
 layer norm, pre-LN blocks), MMS attention adapters, block rematerialization
-(`torch.utils.checkpoint`). Public functions keep ssak_tpu's layouts:
-waveform (B, T), hidden (B, F, D), logits (B, F, V).
-
-Not ported here: the Mixture-of-Experts FFN (`num_experts > 0`, with the
-port of `parallel/`), which raises NotImplementedError (ROADMAP.md §1). HF
-checkpoints load through `models.hf_loader`.
+(`torch.utils.checkpoint`), and the Mixture-of-Experts FFN (`num_experts >
+0`: each block's `moe` in place of its `mlp`, parallel.moe; the per-layer
+load-balancing losses collected through `aux_out`). Public functions keep
+ssak_tpu's layouts: waveform (B, T), hidden (B, F, D), logits (B, F, V).
+HF checkpoints load through `models.hf_loader`.
 """
 
 from dataclasses import dataclass
@@ -65,11 +64,6 @@ def make_config(name: str = "base", **overrides) -> Wav2Vec2Config:
     return Wav2Vec2Config(**kw)
 
 
-def _check_supported(cfg: Wav2Vec2Config):
-    if cfg.num_experts:
-        raise NotImplementedError("wav2vec2 with a Mixture-of-Experts FFN is not ported yet (comes with parallel/, ROADMAP.md)")
-
-
 def feature_extract_output_length(cfg: Wav2Vec2Config, input_length):
     """Frames the conv stack produces for a waveform length (int or tensor;
     floor division, so 1 sample gives -1 frames at the base strides)."""
@@ -108,10 +102,13 @@ class Adapter(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, attn, attn_ln, mlp_ln, mlp, adapter=None):
+    """attention, norms and the FFN: `mlp`, or with experts `moe` (mlp None)."""
+
+    def __init__(self, attn, attn_ln, mlp_ln, mlp, adapter=None, moe=None):
         super().__init__()
         self.attn, self.attn_ln, self.mlp_ln, self.mlp = attn, attn_ln, mlp_ln, mlp
         self.adapter = adapter
+        self.moe = moe
 
 
 class Encoder(nn.Module):
@@ -132,8 +129,8 @@ class Wav2Vec2Model(nn.Module):
 
 def init_params(cfg: Wav2Vec2Config, seed: int = 0, device="cpu") -> Wav2Vec2Model:
     """A seeded model: dense N(0, 1/d_in), conv N(0, 1/fan_in), zero biases,
-    unit norms (ssak_tpu's initializers, on a torch.Generator)."""
-    _check_supported(cfg)
+    unit norms (ssak_tpu's initializers, on a torch.Generator); with
+    experts, parallel.moe.moe_init's in place of each mlp."""
     gen = torch.Generator().manual_seed(seed)
     D = cfg.hidden_size
     convs, c_in = [], 1
@@ -148,11 +145,17 @@ def init_params(cfg: Wav2Vec2Config, seed: int = 0, device="cpu") -> Wav2Vec2Mod
     for _ in range(cfg.num_layers):
         attn = L.MultiHeadAttention(L.linear_init(gen, D, D), query=L.linear_init(gen, D, D),
                                     key=L.linear_init(gen, D, D), value=L.linear_init(gen, D, D))
-        mlp = L.MLP(L.linear_init(gen, D, cfg.intermediate_size), L.linear_init(gen, cfg.intermediate_size, D))
+        mlp = moe = None
+        if cfg.num_experts:
+            from ssak_tpu_torch.parallel.moe import moe_init
+
+            moe = moe_init(gen, D, cfg.intermediate_size, cfg.num_experts)
+        else:
+            mlp = L.MLP(L.linear_init(gen, D, cfg.intermediate_size), L.linear_init(gen, cfg.intermediate_size, D))
         adapter = None
         if cfg.adapter_attn_dim:
             adapter = Adapter(L.ln_init(D), L.linear_init(gen, D, cfg.adapter_attn_dim), L.linear_init(gen, cfg.adapter_attn_dim, D))
-        blocks.append(EncoderBlock(attn, L.ln_init(D), L.ln_init(D), mlp, adapter))
+        blocks.append(EncoderBlock(attn, L.ln_init(D), L.ln_init(D), mlp, adapter, moe))
     model = Wav2Vec2Model(
         convs,
         FeatureProjection(L.ln_init(cfg.conv_dim[-1]), L.linear_init(gen, cfg.conv_dim[-1], D)),
@@ -189,30 +192,51 @@ def _adapt(blk, x, dt):
     return x + L.dense(h, a.up, dt)
 
 
-def _block_stable(blk, x, frame_lengths, cfg):
+def _attend(blk, x, frame_lengths, cfg):
+    """The layer's self-attention: layers.mha (L1 where it routes there)."""
+    return L.mha(x, blk.attn, cfg.num_heads, lengths=frame_lengths, dtype=cfg.compute_dtype)[0]
+
+
+def _ffn(blk, x, cfg, aux_out, data_group):
     dt = cfg.compute_dtype
-    h, _ = L.mha(L.layer_norm(x, blk.attn_ln), blk.attn, cfg.num_heads, lengths=frame_lengths, dtype=dt)
-    x = x + h
-    x = x + L.mlp(L.layer_norm(x, blk.mlp_ln), blk.mlp, dtype=dt)
+    if blk.moe is None:
+        return L.mlp(x, blk.mlp, dtype=dt)
+    from ssak_tpu_torch.parallel.moe import moe_mlp
+
+    y, aux = moe_mlp(x, blk.moe, top_k=cfg.moe_top_k, dtype=dt, data_group=data_group)
+    if aux_out is not None:
+        aux_out.append(aux)
+    return y
+
+
+def _block_stable(blk, x, frame_lengths, cfg, aux_out=None, data_group=None, attend=_attend):
+    dt = cfg.compute_dtype
+    x = x + attend(blk, L.layer_norm(x, blk.attn_ln), frame_lengths, cfg)
+    x = x + _ffn(blk, L.layer_norm(x, blk.mlp_ln), cfg, aux_out, data_group)
     return _adapt(blk, x, dt)
 
 
-def _block_post(blk, x, frame_lengths, cfg):
+def _block_post(blk, x, frame_lengths, cfg, aux_out=None, data_group=None, attend=_attend):
     dt = cfg.compute_dtype
-    h, _ = L.mha(x, blk.attn, cfg.num_heads, lengths=frame_lengths, dtype=dt)
-    x = L.layer_norm(x + h, blk.attn_ln)
-    x = L.layer_norm(x + L.mlp(x, blk.mlp, dtype=dt), blk.mlp_ln)
+    x = L.layer_norm(x + attend(blk, x, frame_lengths, cfg), blk.attn_ln)
+    x = L.layer_norm(x + _ffn(blk, x, cfg, aux_out, data_group), blk.mlp_ln)
     return _adapt(blk, x, dt)
 
 
-def encode(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False):
-    """waveform: (B, T) f32 -> (hidden (B, F, D), frame_lengths (B,)).
+def block_fn(cfg: Wav2Vec2Config):
+    """One transformer-encoder layer of either variant, fn(blk, x,
+    frame_lengths, cfg, aux_out=None, data_group=None, attend=...) -> x:
+    the body of `encode`, of parallel.pipeline's stages and of
+    parallel.sequence's time-sharded encoder, which passes its own
+    `attend(blk, x, frame_lengths, cfg)`. data_group: the data-parallel
+    ranks an MoE layer routes over (parallel.moe.moe_mlp)."""
+    return _block_stable if cfg.do_stable_layer_norm else _block_post
 
-    time_mask: optional bool (B, F); masked frames are zeroed after the
-    feature projection. freeze_feature_encoder=True runs the conv stack
-    without autograd (ssak_tpu's stop_gradient): its weights get no
-    gradient and no backward is built for it."""
-    _check_supported(cfg)
+
+def embed(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False):
+    """The encoder before its transformer blocks: conv stack, feature
+    projection, padding zeroed, convolutional positional embedding ->
+    (x (B, F, D), frame_lengths (B,) int32)."""
     dt = cfg.compute_dtype
     if freeze_feature_encoder:
         with torch.no_grad():
@@ -239,14 +263,28 @@ def encode(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, f
                    groups=cfg.num_conv_pos_embedding_groups, dtype=dt)
     if k % 2 == 0:
         pos = pos[:, :-1]
-    x = x + L.gelu(pos)
+    return x + L.gelu(pos), frame_lengths
 
-    block = _block_stable if cfg.do_stable_layer_norm else _block_post
+
+def encode(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False,
+           aux_out=None, data_group=None):
+    """waveform: (B, T) f32 -> (hidden (B, F, D), frame_lengths (B,)).
+
+    time_mask: optional bool (B, F); masked frames are zeroed after the
+    feature projection. freeze_feature_encoder=True runs the conv stack
+    without autograd (ssak_tpu's stop_gradient): its weights get no
+    gradient and no backward is built for it. aux_out: a list that each
+    MoE layer appends its load-balancing loss to. With experts no block is
+    rematerialized (as in ssak_tpu: the loss is collected as the layer runs).
+    data_group: the data-parallel ranks whose batches make the global one,
+    which the MoE layers route over together (None: this batch alone)."""
+    x, frame_lengths = embed(model, waveform, cfg, lengths, time_mask, freeze_feature_encoder)
+    block = block_fn(cfg)
 
     def run(blk, x):
-        if cfg.remat and torch.is_grad_enabled():
+        if cfg.remat and not cfg.num_experts and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(block, blk, x, frame_lengths, cfg, use_reentrant=False)
-        return block(blk, x, frame_lengths, cfg)
+        return block(blk, x, frame_lengths, cfg, aux_out, data_group)
 
     if cfg.do_stable_layer_norm:
         for blk in model.encoder.blocks:
@@ -259,15 +297,19 @@ def encode(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, f
     return x, frame_lengths
 
 
-def ctc_logits(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False):
+def ctc_logits(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False,
+               aux_out=None, data_group=None):
     """Full forward: waveform -> (logits (B, F, V) in the compute dtype, frame_lengths)."""
     hidden, frame_lengths = encode(model, waveform, cfg, lengths, time_mask=time_mask,
-                                   freeze_feature_encoder=freeze_feature_encoder)
+                                   freeze_feature_encoder=freeze_feature_encoder, aux_out=aux_out,
+                                   data_group=data_group)
     return L.dense(hidden, model.lm_head, cfg.compute_dtype), frame_lengths
 
 
-def ctc_log_probs(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False):
+def ctc_log_probs(model, waveform, cfg: Wav2Vec2Config, lengths=None, time_mask=None, freeze_feature_encoder=False,
+                  aux_out=None, data_group=None):
     """log_softmax in f32 of the logits -> (log_probs (B, F, V), frame_lengths)."""
     logits, fl = ctc_logits(model, waveform, cfg, lengths, time_mask=time_mask,
-                            freeze_feature_encoder=freeze_feature_encoder)
+                            freeze_feature_encoder=freeze_feature_encoder, aux_out=aux_out,
+                            data_group=data_group)
     return torch.log_softmax(logits.to(torch.float32), dim=-1), fl

@@ -8,10 +8,13 @@ value at step 0, gradient accumulation. So the port carries the few optax
 transforms it needs, written out here:
 
   * a transform has `init(params) -> state` and
-    `update(grads, state, params) -> (updates, state)`; params, grads and
-    updates are dicts name -> tensor, states nested dicts of tensors and
-    Python numbers, None for a stateless transform (so a checkpoint stores
-    them as they are);
+    `update(grads, state, params, norm_fn=None) -> (updates, state)`;
+    params, grads and updates are dicts name -> tensor, states nested dicts
+    of tensors and Python numbers, None for a stateless transform (so a
+    checkpoint stores them as they are); `norm_fn(grads)`, where the
+    caller gives one, is the global norm of gradients split over ranks
+    (parallel.mesh.global_grad_norm): clip_by_global_norm reads it and the
+    combinators pass it on;
   * `apply_updates` adds the updates to the parameters IN PLACE (optax
     returns new arrays; the port keeps one copy of the weights).
 
@@ -27,9 +30,18 @@ import torch
 
 
 class Transform:
-    def __init__(self, init, update):
+    """reads_norm: `update` takes norm_fn as its fourth argument (the clip
+    and the combinators); the others are called without it."""
+
+    def __init__(self, init, update, reads_norm: bool = False):
         self.init = init
-        self.update = update
+        self._update = update
+        self._reads_norm = reads_norm
+
+    def update(self, grads, state, params, norm_fn=None):
+        if self._reads_norm:
+            return self._update(grads, state, params, norm_fn)
+        return self._update(grads, state, params)
 
 
 def _f32(x) -> float:
@@ -52,24 +64,26 @@ def chain(*transforms) -> Transform:
     def init(params):
         return {str(i): t.init(params) for i, t in enumerate(transforms)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm_fn):
         new = {}
         for i, t in enumerate(transforms):
-            grads, new[str(i)] = t.update(grads, state[str(i)], params)
+            grads, new[str(i)] = t.update(grads, state[str(i)], params, norm_fn)
         return grads, new
 
-    return Transform(init, update)
+    return Transform(init, update, reads_norm=True)
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
-    """g * max_norm / norm where norm >= max_norm, g untouched below it (no epsilon)."""
+    """g * max_norm / norm where norm >= max_norm, g untouched below it (no
+    epsilon); the norm is global_norm of the gradients, or norm_fn(grads)
+    where the caller gives one."""
 
-    def update(grads, state, params):
-        norm = global_norm(grads.values())
+    def update(grads, state, params, norm_fn):
+        norm = global_norm(grads.values()) if norm_fn is None else norm_fn(grads)
         keep = norm < max_norm
         return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}, state
 
-    return Transform(lambda params: None, update)
+    return Transform(lambda params: None, update, reads_norm=True)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
@@ -156,15 +170,15 @@ def multi_transform(transforms: dict, label_fn) -> Transform:
     def init(params):
         return {g: transforms[g].init(ps) for g, ps in split(params).items()}
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm_fn):
         out, new = {}, {}
         pg = split(params)
         for g, gs in split(grads).items():
-            u, new[g] = transforms[g].update(gs, state[g], pg[g])
+            u, new[g] = transforms[g].update(gs, state[g], pg[g], norm_fn)
             out.update(u)
         return out, new
 
-    return Transform(init, update)
+    return Transform(init, update, reads_norm=True)
 
 
 def regex_labels(rules, default: str):
@@ -189,34 +203,35 @@ def inject_learning_rate(make, learning_rate: float) -> Transform:
     def init(params):
         return {"hyperparams": {"lr": _f32(learning_rate)}, "inner_state": make(_f32(learning_rate)).init(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm_fn):
         lr = state["hyperparams"]["lr"]
-        updates, inner = make(lr).update(grads, state["inner_state"], params)
+        updates, inner = make(lr).update(grads, state["inner_state"], params, norm_fn)
         return updates, {"hyperparams": dict(state["hyperparams"]), "inner_state": inner}
 
-    return Transform(init, update)
+    return Transform(init, update, reads_norm=True)
 
 
 def multi_steps(inner: Transform, every: int) -> Transform:
     """Gradient accumulation (optax.MultiSteps, mean of the micro-step
     gradients by Welford updates): the inner transform updates once every
-    `every` calls, on the mean gradient; the other calls return zeros."""
+    `every` calls, on the mean gradient; the other calls return zeros.
+    norm_fn, given, is applied to the mean gradient by the inner clip."""
 
     def init(params):
         return {"mini_step": 0, "gradient_step": 0, "inner_opt_state": inner.init(params),
                 "acc_grads": {k: torch.zeros_like(p) for k, p in params.items()}}
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm_fn):
         n = state["mini_step"]
         acc = {k: state["acc_grads"][k] + (g - state["acc_grads"][k]) / (n + 1) for k, g in grads.items()}
         if n == every - 1:
-            updates, inner_state = inner.update(acc, state["inner_opt_state"], params)
+            updates, inner_state = inner.update(acc, state["inner_opt_state"], params, norm_fn)
             return updates, {"mini_step": 0, "gradient_step": state["gradient_step"] + 1, "inner_opt_state": inner_state,
                              "acc_grads": {k: torch.zeros_like(a) for k, a in acc.items()}}
         updates = {k: torch.zeros_like(g) for k, g in grads.items()}
         return updates, {**state, "mini_step": n + 1, "acc_grads": acc}
 
-    return Transform(init, update)
+    return Transform(init, update, reads_norm=True)
 
 
 # --- schedules (optax's, evaluated in f32) ---------------------------------------------

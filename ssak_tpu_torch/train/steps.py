@@ -26,6 +26,8 @@ when any exist), so a frozen base, float or int8 / int4, stays bit for bit
 as it was.
 """
 
+import functools
+
 import torch
 
 from ssak_tpu_torch.ops.ctc import ctc_greedy_decode
@@ -192,30 +194,51 @@ def _cudnn_benchmark():
 
 
 def make_ctc_train_step(cfg, optimizer, frozen_feature_encoder: bool = True, mask_time_prob: float = 0.0,
-                        mask_time_length: int = 10, family: str = "wav2vec2"):
+                        mask_time_length: int = 10, family: str = "wav2vec2", moe_aux_weight: float = 0.01):
     """step(state, batch) -> (state, {"loss", "grad_norm"} device scalars).
     batch: {audio (B, T) int16 wire words or f32, audio_lengths (B,),
     labels (B, U), label_lengths (B,)} on the model's device. The state is
     updated IN PLACE and returned. grad_norm is the pre-clip global norm of
     the gradients (zeros for a frozen feature encoder). mask_time_prob > 0
     draws a span mask over frames from a generator seeded with the step
-    (for the Conformer, over its subsampled frames)."""
+    (for the Conformer, over its subsampled frames). A wav2vec2 with experts
+    adds moe_aux_weight times the mean of its layers' load-balancing losses
+    to the loss.
+
+    step(state, batch, mesh=mesh) is the data-parallel step (what
+    shard_train_step returns): each rank takes its slice of the batch on
+    the mesh's `data_axis` (equal slices in rank order), the MoE routes over
+    the global token set (parallel.moe.moe_mlp's data_group), the
+    gradients are averaged over the data ranks before the optimizer, the
+    clip and grad_norm read the global norm (parameters split over ranks,
+    as sharded experts are, add their group's share:
+    parallel.mesh.global_grad_norm), and the loss is the mean over the data
+    ranks: ssak_tpu's global program over the whole batch."""
     from ssak_tpu_torch.augment.specaugment import mask_time_indices
 
     model_fn = _family(family)
     conformer = family == "conformer"
     frozen_feature_encoder = frozen_feature_encoder and not conformer
+    moe = not conformer and getattr(cfg, "num_experts", 0)
 
     def n_frames(n_samples):
         if conformer:
             return model_fn.subsampled_length(cfg, model_fn.mel_frame_count(cfg, n_samples))
         return model_fn.feature_extract_output_length(cfg, n_samples)
 
-    def step(state, batch):
+    def step(state, batch, mesh=None, data_axis: str = "data"):
         with _cudnn_benchmark():
-            return _step(state, batch)
+            return _step(state, batch, mesh, data_axis)
 
-    def _step(state, batch):
+    def _step(state, batch, mesh, data_axis):
+        from ssak_tpu_torch.parallel.collectives import all_reduce
+        from ssak_tpu_torch.parallel.mesh import axis_group, data_sharding, global_grad_norm, sync_grads
+
+        data_group = n_data = None
+        if mesh is not None:
+            data_group, _, n_data = axis_group(mesh, data_axis)
+            place = data_sharding(mesh, data_axis)
+            batch = {k: place(v) for k, v in batch.items()}
         model = state["model"]
         params = dict(model.named_parameters())
         for p in params.values():
@@ -226,26 +249,46 @@ def make_ctc_train_step(cfg, optimizer, frozen_feature_encoder: bool = True, mas
             B, T = audio.shape
             gen = torch.Generator(device=audio.device).manual_seed(state["step"])
             time_mask = mask_time_indices(gen, (B, n_frames(T)), mask_prob=mask_time_prob, mask_length=mask_time_length)
+        aux = [] if moe else None
         if conformer:
             log_probs, frame_lengths = model_fn.ctc_log_probs(model, audio, cfg, batch["audio_lengths"], time_mask=time_mask)
         else:
             log_probs, frame_lengths = model_fn.ctc_log_probs(model, audio, cfg, batch["audio_lengths"], time_mask=time_mask,
-                                                              freeze_feature_encoder=frozen_feature_encoder)
+                                                              freeze_feature_encoder=frozen_feature_encoder, aux_out=aux,
+                                                              data_group=data_group)
         loss = ctc_loss(log_probs, frame_lengths, batch["labels"], batch["label_lengths"], blank_id=cfg.blank_id)
+        if aux:
+            loss = loss + moe_aux_weight * sum(aux) / len(aux)  # GShard load balancing, mean over layers
         loss.backward()
         grads = {}
         for name, p in params.items():
             frozen = frozen_feature_encoder and name.startswith("feature_extractor.")
             grads[name] = torch.zeros_like(p) if frozen or p.grad is None else p.grad
-        gnorm = optim.global_norm(grads.values())
-        updates, state["opt_state"] = optimizer.update(grads, state["opt_state"], {k: p.detach() for k, p in params.items()})
+        norm_fn = None
+        if mesh is not None:
+            sync_grads(grads, data_group)
+            norm_fn = functools.partial(global_grad_norm, params=params)
+        gnorm = optim.global_norm(grads.values()) if norm_fn is None else norm_fn(grads)
+        updates, state["opt_state"] = optimizer.update(grads, state["opt_state"],
+                                                       {k: p.detach() for k, p in params.items()}, norm_fn)
         optim.apply_updates(params, updates)
         for p in params.values():
             p.grad = None
         state["step"] += 1
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce(loss, data_group) / n_data
+        return state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def shard_train_step(step_fn, mesh, data_axis: str = "data"):
+    """The data-parallel form of a step from make_ctc_train_step over the
+    mesh's `data_axis` (ssak_tpu's shard_train_step, which places the batch
+    on 'data' and runs the global program): step_fn(state, batch,
+    mesh=mesh, data_axis=data_axis)."""
+    return functools.partial(step_fn, mesh=mesh, data_axis=data_axis)
 
 
 def make_ctc_eval_step(cfg, family: str = "wav2vec2"):

@@ -320,3 +320,42 @@ def test_alignment_and_training_data_modules_are_guarded_and_need_a_card(tmp_pat
            str(tmp_path / "runs"), "--data_augment"]
     refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr and not (tmp_path / "runs").exists()
+
+
+def test_parallel_modules_are_guarded_and_need_a_card(tmp_path):
+    """Slice 8g's modules (parallel/) are among the files the import guards
+    read and import with JAX blocked; init_distributed and ctc_infer
+    --tensor_parallel run on cuda unless the CPU is asked for, raise without
+    a card, and without a process group of N ranks raise naming torchrun
+    (in process and from the CLI), joining no group."""
+    import torch.distributed as dist
+
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    mods = ("mesh", "sharding", "collectives", "moe", "sequence", "pipeline")
+    assert {f"ssak_tpu_torch/parallel/{m}.py" for m in mods + ("__init__",)} <= files
+    script = _BLOCKED_IMPORT.replace("names = [i.name for i in pkgutil.walk_packages(ssak_tpu_torch.__path__, "
+                                     "\"ssak_tpu_torch.\")]",
+                                     "names = [" + ", ".join(f"'ssak_tpu_torch.parallel.{m}'" for m in mods) + "]")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == str(len(mods))
+    _need_gpu_less_host()
+    from ssak_tpu_torch.infer.ctc_infer import ctc_infer
+    from ssak_tpu_torch.parallel import init_distributed
+
+    audio = [np.zeros(1600, np.float32)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctc_infer(None, audio, seeded_test_config="wav2vec2", tensor_parallel=2)
+    with pytest.raises(ValueError, match="torchrun"):
+        ctc_infer(None, audio, seeded_test_config="wav2vec2", tensor_parallel=2, device="cpu")
+    assert not dist.is_initialized()
+    (tmp_path / "wav.scp").write_text("")
+    cmd = [sys.executable, "-m", "ssak_tpu_torch.infer.ctc_infer", str(tmp_path), "none", "--seeded_test_config",
+           "wav2vec2", "--tensor_parallel", "2"]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    refused = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert refused.returncode != 0 and "no CUDA device" in refused.stderr
+    refused = subprocess.run(cmd + ["--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert refused.returncode != 0 and "torchrun" in refused.stderr

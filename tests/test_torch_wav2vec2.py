@@ -172,9 +172,38 @@ def test_mask_time_indices_count_and_spans():
     assert mask_time_indices(gen, (2, 30), mask_prob=0.0).sum(1).tolist() == [10, 10]  # at least one span
 
 
+class _OneRankMesh:
+    """What shard_params reads of a DeviceMesh: one named dim of `size`,
+    this rank at index 0, no process group (nothing is sent)."""
+
+    def __init__(self, name, size):
+        self.mesh_dim_names, self._size = (name,), size
+
+    def size(self, i):
+        return self._size
+
+    def __getitem__(self, name):
+        return type("Dim", (), {"get_group": staticmethod(lambda: None)})()
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_moe_and_unported_raise():
-    with pytest.raises(NotImplementedError, match="Mixture-of-Experts"):
-        TW.init_params(TW.make_config("tiny_test", num_experts=2))
+    """The Mixture-of-Experts FFN is ported (slice 8g): a seeded model and
+    an ssak_tpu tree both build, each block's `moe` in place of its `mlp`.
+    What stays unported still raises: a tensor-parallel cut of a leaf that
+    only Whisper's decode shards (its token embedding, slice 8h)."""
+    from ssak_tpu_torch.models import whisper as TWh
+    from ssak_tpu_torch.parallel.mesh import shard_params
+    from ssak_tpu_torch.parallel.sharding import WHISPER_RULES
+
+    m = TW.init_params(TW.make_config("tiny_test", num_experts=2))
+    assert all(b.mlp is None and b.moe.num_experts == 2 for b in m.encoder.blocks)
     cfg = JW.make_config("tiny_test", num_experts=2)
-    with pytest.raises(NotImplementedError):
-        wav2vec2_from_tree(_tree(cfg))
+    blk = wav2vec2_from_tree(_tree(cfg)).encoder.blocks[0]
+    assert blk.mlp is None and tuple(blk.moe.w1.shape) == (2, cfg.hidden_size, cfg.intermediate_size)
+    wcfg = TWh.make_config("tiny_test")
+    whisper = TWh.init_params(torch.Generator().manual_seed(0), wcfg)
+    with pytest.raises(NotImplementedError, match="8h"):
+        shard_params(whisper, _OneRankMesh("model", 2), WHISPER_RULES, num_heads=wcfg.n_audio_head)

@@ -156,7 +156,7 @@ def test_transcribe_batch_from_wav_files(tiny, tmp_path):
 
 def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
     """What still needs a later slice raises at the call: tensor-parallel
-    sharding (8g); a quantized CTC model (slice 8b) loads. NeMo checkpoints are read
+    Whisper decode (8h); a quantized CTC model (slice 8b) loads. NeMo checkpoints are read
     (slice 7): an archive that is not there, or a directory without its
     weights, raises FileNotFoundError. A model without a tokenizer ignores
     language= and task=, as ssak_tpu's does. Long-form audio and the
@@ -175,7 +175,7 @@ def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
         whisper_infer(str(tmp_path / "nemo"), [long_audio], device="cpu")
     q = load_model(None, seeded_test_config="wav2vec2", quantize_bits=8, device="cpu")
     assert q.module.encoder.blocks[0].mlp.fc1.bits == 8 and not hasattr(q.cfg, "kv_int8")
-    with pytest.raises(NotImplementedError, match="8g"):
+    with pytest.raises(NotImplementedError, match="8h"):
         shard_model(m)
     short = long_audio[:3000]
     assert whisper_transcribe_batch(m, [short], language="fr", max_tokens=3) == whisper_transcribe_batch(m, [short], max_tokens=3)
