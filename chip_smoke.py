@@ -23,8 +23,9 @@ and prints no result):
              a 16-byte boundary, within 1e-2 of each row's largest output
              (a planted edge-group fault shown to exceed that), bit-identical
              on repeat at its timed shapes (the self-attention ranges [0,
-             31], [0, 127] and [0, 223] of a decode step included), no
-             register spills; L1's forward bit-identical on repeat at every
+             31], [0, 127] and [0, 223] of a decode step included; in bf16
+             also a tensor-parallel rank's 10 heads at T = 1,500 and [0,
+             31] of 448), no register spills; L1's forward bit-identical on repeat at every
              checked case (8 heads at T = 7,001, a tensor-parallel
              rank's, among them), no register spills and no serialised wgmma in
              its ptxas report, its plan logged at every shape and its tile
@@ -41,11 +42,24 @@ and prints no result):
              dir, bf16, --load_in_8bit and --load_in_4bit, transcripts the
              tokenizer's text; the --load_in_4bit --accurate chain (beam 5,
              best_of 5, temperature fallback) over a Kaldi dir of short
-             files; the int4 long-form seek loop over 70 s files (full
-             temperature chain, best_of 5, 32-token windows); then
+             files (16 tokens); the int4 long-form seek loop over 70 s files
+             (full temperature chain, best_of 5, 16-token windows); then
+             whisper_tp on that directory (two gloo ranks sharing the
+             card, spawned: greedy bf16 and int8 over 4 files of 29 s
+             through whisper_infer --tensor_parallel 2 at full depth, K4
+             bf16 on 10 heads a rank, 64 a decode step, and in int8 K2 256
+             and K4 int8 64 a step on whole units; the full-depth sharded
+             teacher-forced logits correlated >= 0.999 with the whole
+             model's; on a directory of large-v3's widths cut to 2 + 2
+             blocks, --accurate over 2 files of 20 s and long-form over one
+             of 70 s at T = 0, and in f32 the sharded logits within 1e-4 of
+             the CPU's unsharded ones; both ranks decode the same ids in
+             every run; the cut directory also through python -m
+             torch.distributed.run -m ssak_tpu_torch.infer.whisper_infer
+             --tensor_parallel 2); then
              Whisper large-v3 fine-tuning from that directory through
              python -m ssak_tpu_torch.train.whisper_loop (--language en,
-             16 files of 20-29 s, batch 4 x 30 s, 4 steps, an evaluation
+             16 files of 20-29 s, batch 4 x 30 s, 3 steps, an evaluation
              at the last over 4 files, --remat): --lora 8 over the bf16 base,
              and with --load_in_8bit and --load_in_4bit (the evaluation's
              K4 bf16, K2 and K3 launches against its decode steps, the frozen base
@@ -115,7 +129,8 @@ and prints no result):
              and the NN VAD (20 steps; speech_probs card vs CPU within
              1e-4); then parallel/ (slice 8g): a probe of what the card's
              process groups carry (two gloo ranks sharing the card, each
-             collective on CUDA tensors; one NCCL rank), then, on the xlsr
+             collective on CUDA tensors, f32 all-reduces timed at xlsr's
+             and large-v3's partials; one NCCL rank), then, on the xlsr
              directory before it is removed, tp_serving (4 files of the
              serving corpus, 2 of 70-140 s and 2 of 12-28 s, through
              python -m torch.distributed.run -m ssak_tpu_torch.infer.ctc_infer
@@ -140,7 +155,7 @@ and prints no result):
              first-step logits card against CPU, and two wav2vec2 train
              steps card against CPU in f32 (large widths, 2 layers, remat),
              and CTC log-probs of a 140 s row card (through L1) against CPU
-             in bf16 (xlsr widths, 2 layers), same weights, and of a
+             in bf16 (xlsr widths, 1 layer), same weights, and of a
              1-layer model quantized to int8 (correlation >= 0.99; int8 and
              int4 against bf16 on the card, reported); a
              bf16 dense with a bias at x 4 x 6,999 x 1,024 -> 4,096, card
@@ -177,10 +192,15 @@ import tempfile
 import time
 
 MAX_TOKENS = 32
+# the accurate chain's and the long-form loop's token budgets (32 until the tensor-parallel Whisper run came: the
+# script's time limit; their decode steps are host-bound)
+ACC_TOKENS, LF_TOKENS = 16, 16
 N_FILES = 24
 FILE_SECONDS = 29.0
-ACC_FILES, ACC_SECONDS = 8, 20.0  # the accurate chain's Kaldi dir: one window batch of 8 (x 5 beams = 40 rows)
+ACC_FILES, ACC_SECONDS = 4, 20.0  # the accurate chain's Kaldi dir: one window batch of 4 (x 5 beams = 20 rows; 8 until
+# the tensor-parallel Whisper run came)
 LF_FILES, LF_SECONDS = 4, 70.0  # long-form: 3 windows a file, 4 rows (x 5 candidates = 20 rows)
+TP_HEADS = 10  # large-v3's 20 heads on each of 2 tensor-parallel ranks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
@@ -437,30 +457,32 @@ def _planted(torch, FD, args, int8):
 def check_flash_decode(torch, dev, int8):
     """K4 against its plain version at the decoder's shapes (H=20, Dh=64; B
     = 24, 40; T = 448, the self-attention cache, and 1,500, the encoder's
-    keys). Checked on rows with the full range, one key, an empty range (lo
-    > hi: every key masked, weighted alike), a range inside the cache and
-    ragged ranges, within 2e-2 and, in every (batch, head) row, within
-    K4_REL of the row's largest output (bf16 p may round the other way
-    where the two sum orders straddle a bf16 boundary; an output shrinks
-    as 1 / sqrt(T), so a fixed limit would pass wrong keys at long
-    ranges). Timed on the full range, and at T = 448 on self-attention
-    ranges of a decode step ([0, 31], [0, 127] and [0, 223]: B = 24 bf16,
-    40 int8), each timed call also checked, and repeated bit-identical (the
-    exchange over the cluster sums in rank order, no atomics). At every
-    timed shape and at T = MAX_T the check is shown to catch a planted
-    edge-group fault (_planted). The plan of every shape is logged; the
-    bound counts the bytes of the keys in range."""
+    keys; in bf16 also a tensor-parallel rank's H = 10 of large-v3's 20 at
+    tp 2, B = 24, on both caches). Checked on rows with the full range, one
+    key, an empty range (lo > hi: every key masked, weighted alike), a
+    range inside the cache and ragged ranges, within 2e-2 and, in every
+    (batch, head) row, within K4_REL of the row's largest output (bf16 p
+    may round the other way where the two sum orders straddle a bf16
+    boundary; an output shrinks as 1 / sqrt(T), so a fixed limit would pass
+    wrong keys at long ranges). Timed on the full range, and at T = 448 on
+    self-attention ranges of a decode step ([0, 31], [0, 127] and [0, 223]:
+    B = 24 bf16, 40 int8; [0, 31] at H = 10), each timed call also checked,
+    and repeated bit-identical (the exchange over the cluster sums in rank
+    order, no atomics). At every timed shape and at T = MAX_T the check is
+    shown to catch a planted edge-group fault (_planted). The plan of every
+    shape is logged; the bound counts the bytes of the keys in range."""
     import torch.nn.functional as F
 
     from ssak_tpu_torch.ops import flash_decode as FD
 
     g = torch.Generator(device=dev).manual_seed(2 + int8)
-    H, Dh = 20, 64
+    Dh = 64
     tag = f"flash_decode_{'int8' if int8 else 'bf16'}"
     rows, worst, worst_rel, weakest = [], 0.0, 0.0, float("inf")
-    timed = ([(B, T, 0, T - 1) for B in (24, 40) for T in (448, 1500)]
-             + [(40 if int8 else 24, 448, 0, n) for n in (31, 127, 223)])
-    for B, T, t_lo, t_hi in timed:
+    timed = ([(B, 20, T, 0, T - 1) for B in (24, 40) for T in (448, 1500)]
+             + [(40 if int8 else 24, 20, 448, 0, n) for n in (31, 127, 223)]
+             + ([] if int8 else [(24, TP_HEADS, 1500, 0, 1499), (24, TP_HEADS, 448, 0, 31)]))
+    for B, H, T, t_lo, t_hi in timed:
         q, kv = _rand_kv(torch, g, dev, B, H, Dh, T, int8)
         plan = FD.flash_decode_plan(B, H, Dh, T, "int8" if int8 else "bf16")
         if t_hi == T - 1:  # ragged ranges for the check, once a shape
@@ -476,7 +498,7 @@ def check_flash_decode(torch, dev, int8):
             torch.cuda.synchronize()
             err, rel = float((out - ref).abs().max()), k4_rel_err(out, ref)
             if not (err <= 2e-2 and rel <= K4_REL):
-                raise AssertionError(f"{tag} B={B} T={T}: max|err| {err} > 2e-2 or {rel} > {K4_REL} of a row's "
+                raise AssertionError(f"{tag} B={B} H={H} T={T}: max|err| {err} > 2e-2 or {rel} > {K4_REL} of a row's "
                                      "largest output (full, one key, empty, inner, ragged)")
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
         t_lo_v = torch.full((B,), t_lo, dtype=torch.int32, device=dev)
@@ -488,11 +510,11 @@ def check_flash_decode(torch, dev, int8):
         torch.cuda.synchronize()
         err, rel, planted = float((out - ref).abs().max()), k4_rel_err(out, ref), _planted(torch, FD, args, int8)
         if not (err <= 2e-2 and rel <= K4_REL):
-            raise AssertionError(f"{tag} B={B} T={T} range [{t_lo}, {t_hi}]: max|err| {err} > 2e-2 or {rel} > {K4_REL}")
+            raise AssertionError(f"{tag} B={B} H={H} T={T} range [{t_lo}, {t_hi}]: max|err| {err} > 2e-2 or {rel} > {K4_REL}")
         if not torch.equal(out, again):
-            raise AssertionError(f"{tag} B={B} T={T} range [{t_lo}, {t_hi}]: two launches differ")
+            raise AssertionError(f"{tag} B={B} H={H} T={T} range [{t_lo}, {t_hi}]: two launches differ")
         if not planted > K4_REL:
-            raise AssertionError(f"{tag} B={B} T={T} range [{t_lo}, {t_hi}]: a planted edge-group fault reads "
+            raise AssertionError(f"{tag} B={B} H={H} T={T} range [{t_lo}, {t_hi}]: a planted edge-group fault reads "
                                  f"{planted}, within the limit {K4_REL}")
         worst, worst_rel, weakest = max(worst, err), max(worst_rel, rel), min(weakest, planted)
         n, elt = t_hi - t_lo + 1, 1 if int8 else 2
@@ -510,7 +532,7 @@ def check_flash_decode(torch, dev, int8):
         lib_sets = [(q[:, :, None], kb.transpose(-1, -2).contiguous(), vb.transpose(-1, -2).contiguous(), mask)
                     for _ in range(n_copies(2 * B * H * Dh * T * 2))]
         row = dict(
-            B=B, T=T, range=f"{t_lo}:{t_hi}", max_abs_err=err, max_rel_err=rel, planted_fault_reads=planted,
+            B=B, H=H, T=T, range=f"{t_lo}:{t_hi}", max_abs_err=err, max_rel_err=rel, planted_fault_reads=planted,
             plan={k: plan[k] for k in ("cluster", "seg_rows", "stages", "warps", "smem", "ctas_per_sm", "clusters",
                                        "sites_per_cluster", "vec")},
             ms=time_ms(torch, FD.flash_decode_attention, sets),
@@ -526,6 +548,7 @@ def check_flash_decode(torch, dev, int8):
         del sets, lib_sets
     # off the decoder's shapes: T = MAX_T (the ring cycles over row segments), odd T (vectors of one key) and
     # caches that start off a 16-byte boundary (views one element into a buffer: plain loads at both ends)
+    H = 20
     for B, T, shift in ((3, FD.MAX_T, 0), (5, 1501, 0), (5, 448, 1)):
         q, kv = _rand_kv(torch, g, dev, B, H, Dh, T, int8)
         kv = tuple(torch.cat([a.new_zeros(shift), a.reshape(-1)])[shift:].view(a.shape) for a in kv)
@@ -546,7 +569,8 @@ def check_flash_decode(torch, dev, int8):
         worst, worst_rel, weakest = max(worst, err), max(worst_rel, rel), min(weakest, planted or weakest)
         log(f"{tag} B={B} T={T} base offset {kv[0].data_ptr() % 16} bytes: max|err| {err}, rel {rel}, planted "
             f"fault reads {planted}, repeat bit-identical, plan {FD.flash_decode_plan(B, H, Dh, T, 'int8' if int8 else 'bf16')}")
-    log(f"{tag}: {len(timed)} timed shapes, 4 checked with full, one-key, empty, inner and ragged ranges, 3 more "
+    log(f"{tag}: {len(timed)} timed shapes, {sum(t[-1] == t[2] - 1 for t in timed)} checked with full, one-key, "
+        "empty, inner and ragged ranges, 3 more "
         f"off the decoder's shapes, max|err| {worst}, largest error of a row {worst_rel} of its largest output "
         f"(limit {K4_REL}); a planted edge-group fault reads at least {weakest}")
     return rows, worst
@@ -1293,11 +1317,13 @@ def write_wav2vec2_dir(root, module, cfg, tokenizer):
     return time.perf_counter() - t0
 
 
-def prepare_whisper_dir(torch, dev, root):
+def prepare_whisper_dir(torch, dev, root, keep=None):
     """Writes the seeded large-v3 (seeded_tree, seed 0) as an HF Whisper
     directory and loads it back with load_model: the module must equal
     whisper_from_tree of the f16-rounded tree, bit for bit, and the
-    tokenizer's specials be large-v3's. Returns the timings."""
+    tokenizer's specials be large-v3's. Returns the timings. With a dict
+    `keep`, keep["teacher_forced"] holds the loaded model's teacher-forced
+    logits in bf16 on wtp_mel (whisper_tp's whole-model reference)."""
     import numpy as np
 
     from ssak_tpu_torch.infer.general import load_model
@@ -1329,6 +1355,9 @@ def prepare_whisper_dir(torch, dev, root):
     size = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
     res = dict(seed_s=seed_s, write_s=write_s, load_s=load_s, bytes=size, tensors=len(ref), bit_identical=True)
     log(f"whisper dir {json.dumps(res)}")
+    if keep is not None:
+        m.module.to(torch.bfloat16)
+        keep["teacher_forced"] = teacher_forced_logits(torch, m.module, m.cfg, wtp_mel(torch).to(dev), WTP_TOKENS)
     del m, ref, got, tree16
     gc.collect()
     torch.cuda.empty_cache()
@@ -1415,18 +1444,18 @@ def kernel_launches():
     return {**k1, **im, **fd, **l1}
 
 
-def want_decode(bits, steps, kv_int8=None):
+def want_decode(bits, steps, kv_int8=None, layers=32):
     """Launches of a Whisper decode run of `steps` cached steps: 8 dense per
-    decoder layer x 32 layers through K2 (int8) or K3 (int4), 32 self + 32
-    cross attention sites through K4, int8 with the int8 K/V caches that
-    load_model's quantized models take (kv_int8 defaults to bool(bits)),
-    bf16 otherwise."""
+    decoder layer x `layers` (large-v3's 32) through K2 (int8) or K3
+    (int4), a self and a cross attention site a layer through K4, int8
+    with the int8 K/V caches that load_model's quantized models take
+    (kv_int8 defaults to bool(bits)), bf16 otherwise."""
     kv_int8 = bool(bits) if kv_int8 is None else kv_int8
     return {
-        "matmul_int8": 256 * steps if bits == 8 else 0,
-        "matmul_int4": 256 * steps if bits == 4 else 0,
-        "flash_decode_int8": 64 * steps if kv_int8 else 0,
-        "flash_decode_bf16": 0 if kv_int8 else 64 * steps,
+        "matmul_int8": 8 * layers * steps if bits == 8 else 0,
+        "matmul_int4": 8 * layers * steps if bits == 4 else 0,
+        "flash_decode_int8": 2 * layers * steps if kv_int8 else 0,
+        "flash_decode_bf16": 0 if kv_int8 else 2 * layers * steps,
     }
 
 
@@ -1471,7 +1500,9 @@ def check_transcripts(tag, texts, decodes, cfg, max_tokens, in_order):
         raise AssertionError(f"{tag}: no transcript holds text: {list(texts)[:3]}")
 
 
-def run_slice(torch, kaldi_dir, ids, quantize_bits, model_dir):
+def run_slice(torch, kaldi_dir, ids, quantize_bits, model_dir, texts=None):
+    """whisper_infer greedy over the Kaldi dir at quantize_bits (0: bf16);
+    the transcripts are appended to `texts` where given."""
     from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
     from ssak_tpu_torch.models.whisper import make_config
 
@@ -1497,6 +1528,8 @@ def run_slice(torch, kaldi_dir, ids, quantize_bits, model_dir):
     if [i for i, _ in out] != ids:
         raise AssertionError(f"{tag}: expected one transcript per file in order, got {[i for i, _ in out]}")
     check_transcripts(tag, [t for _, t in out], decodes, cfg, MAX_TOKENS, in_order=True)
+    if texts is not None:
+        texts.extend(t for _, t in out)
     want = want_decode(quantize_bits, steps)
     if launches != want or counted != steps:
         raise AssertionError(f"{tag}: launch counters {launches} != expected {want} ({steps} decode steps, {counted} counted)")
@@ -1578,7 +1611,7 @@ class DecodeCalls:
 def run_accurate(torch, kaldi_dir, ids, model_dir):
     """python -m ssak_tpu_torch.infer.whisper_infer DIR MODEL_DIR
     --load_in_4bit --accurate, through whisper_infer, with the token budget
-    cut to MAX_TOKENS: beam 5 at T = 0, then sampled best-of-5 at each
+    cut to ACC_TOKENS: beam 5 at T = 0, then sampled best-of-5 at each
     fallback temperature for the windows that fail."""
     from ssak_tpu_torch.infer.whisper_infer import auto_window_batch, whisper_infer
     from ssak_tpu_torch.models.whisper import make_config
@@ -1591,7 +1624,7 @@ def run_accurate(torch, kaldi_dir, ids, model_dir):
     with DecodeCalls() as rec, SelfRanges() as ranges, Decodes() as decodes:
         t0 = time.perf_counter()
         it = whisper_infer(model_dir, kaldi_dir, quantize_bits=4, beam_size=5, best_of=5, temperature_fallback=True,
-                           max_tokens=MAX_TOKENS, output_ids=True)
+                           max_tokens=ACC_TOKENS, output_ids=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         reset_counts()
@@ -1602,7 +1635,7 @@ def run_accurate(torch, kaldi_dir, ids, model_dir):
     del it
     if [i for i, _ in out] != ids:
         raise AssertionError(f"int4 accurate: expected one transcript per file in order, got {[i for i, _ in out]}")
-    check_transcripts("int4 accurate", [t for _, t in out], decodes, cfg, MAX_TOKENS, in_order=False)
+    check_transcripts("int4 accurate", [t for _, t in out], decodes, cfg, ACC_TOKENS, in_order=False)
     want = want_decode(4, steps)
     if launches != want or not steps:
         raise AssertionError(f"int4 accurate: launch counters {launches} != expected {want} ({steps} decode steps)")
@@ -1621,7 +1654,7 @@ def run_longform(torch, model_dir):
     """transcribe_longform_batch on the int4 large-v3 loaded from model_dir
     (as --load_in_4bit loads it) over LF_FILES files of LF_SECONDS (tones +
     noise): timestamps, conditioning, the full temperature chain with
-    best_of 5, the no-speech skip, windows cut to MAX_TOKENS tokens."""
+    best_of 5, the no-speech skip, windows cut to LF_TOKENS tokens."""
     import numpy as np
 
     from ssak_tpu_torch.infer.general import load_model
@@ -1642,7 +1675,7 @@ def run_longform(torch, model_dir):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        results = transcribe_longform_batch(m, audios, best_of=5, max_tokens=MAX_TOKENS)
+        results = transcribe_longform_batch(m, audios, best_of=5, max_tokens=LF_TOKENS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         launches, steps = decode_launches()
@@ -1662,7 +1695,7 @@ def run_longform(torch, model_dir):
     check_transcripts("int4 long-form", [sg["text"].strip() for r in results for sg in r["segments"]], decodes,
                       m.cfg, m.cfg.n_text_ctx, in_order=False)
     res = dict(config="int4 long-form (full temperature chain, best_of 5)", files=LF_FILES, file_s=LF_SECONDS,
-               max_tokens=MAX_TOKENS, seek_iterations=sum(1 for _, t, _ in rec.calls if t == 0.0),
+               max_tokens=LF_TOKENS, seek_iterations=sum(1 for _, t, _ in rec.calls if t == 0.0),
                decode_window_calls=len(rec.calls), windows_per_call=sorted({r for _, _, r in rec.calls}),
                temperatures_used=sorted({sg["temperature"] for r in results for sg in r["segments"]}),
                segments=[len(r["segments"]) for r in results], decode_steps=steps, load_s=load_s, run_s=t1 - t0,
@@ -1684,8 +1717,9 @@ def run_longform(torch, model_dir):
 # WFT_FULL_STEPS steps, a checkpoint and a resume for one more step.
 WFT_FILES, WFT_SECONDS, WFT_BATCH = 16, (20.0, 29.0), 4
 # the evaluation decodes one window batch (227 host-bound decode steps, ~15 s): cut from 8 files to 4, and
-# from two evaluations a run to one, for the script's time limit (PERF.md)
-WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 4, 4, 4, 3
+# from two evaluations a run to one, for the script's time limit (PERF.md); 3 steps (4 until the tensor-parallel
+# Whisper run came)
+WFT_STEPS, WFT_EVAL_STEPS, WFT_EVAL_SAMPLES, WFT_FULL_STEPS = 3, 3, 4, 3
 # the full fine-tune's depth: at 32 + 32 blocks its two f32 checkpoints (parameters and Adam's moments,
 # 18.5 GB each) took ~140 s of the script's time limit (PERF.md); 8 + 8 keep every width
 WFT_FULL_LAYERS = 4  # 8 until the parallel slice's runs came (the script's time limit)
@@ -3897,6 +3931,9 @@ def run_vad(torch, dev):
 # --- phase 3: parallel/ (slice 8g) ----------------------------------------------------------
 
 PROBE_BYTES = 7001 * 1024 * 4  # one row-parallel f32 partial product of xlsr at the 140 s bucket
+# f32 elements of a row-parallel partial of large-v3 on 4 files: a decode step's (4 x 1 x 1,280) and the encoder's
+# (4 x 1,500 x 1,280)
+PROBE_WHISPER_STEP, PROBE_WHISPER_ENCODER = 4 * 1280, 4 * 1500 * 1280
 
 
 def _dist_rank(rank, world, init_file, backend, fn, args, out):
@@ -4012,22 +4049,24 @@ def _probe_ops(torch, dist, rank, world):
         dist.all_reduce(x, group=mesh["model"].get_group())
         assert float(x[0]) == world
 
-    def all_reduce_ms():
-        x = torch.ones(PROBE_BYTES // 4, device=dev)
+    def all_reduce_ms(numel, n=5):
+        x = torch.ones(numel, device=dev)
         for _ in range(2):
             dist.all_reduce(x)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(n):
             dist.all_reduce(x)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / 5 * 1e3
+        return (time.perf_counter() - t0) / n * 1e3
 
     return {"all_reduce_f32": lambda: all_reduce(torch.float32), "all_reduce_bf16": lambda: all_reduce(torch.bfloat16),
             "all_gather_f32": lambda: all_gather(torch.float32), "all_gather_bf16": lambda: all_gather(torch.bfloat16),
             "all_gather_into_tensor": all_gather_into_tensor, "broadcast": broadcast, "device_mesh": device_mesh,
-            "all_reduce_ms": all_reduce_ms, "reduce_scatter": reduce_scatter, "all_to_all": all_to_all,
-            "send_recv": send_recv}
+            "all_reduce_ms": lambda: all_reduce_ms(PROBE_BYTES // 4),
+            "all_reduce_ms_whisper_step": lambda: all_reduce_ms(PROBE_WHISPER_STEP, 50),
+            "all_reduce_ms_whisper_encoder": lambda: all_reduce_ms(PROBE_WHISPER_ENCODER),
+            "reduce_scatter": reduce_scatter, "all_to_all": all_to_all, "send_recv": send_recv}
 
 
 def _probe_rank(rank, world, init_file, backend, names, out):
@@ -4091,7 +4130,7 @@ def _probe_world(world, backend, names, timeout=90):
         done = [n for n in todo if len(seen.get(n, {})) == world]
         for n in done:
             vals = seen[n]
-            res[n] = vals[0] if n == "all_reduce_ms" or all(v == vals[0] for v in vals.values()) else vals
+            res[n] = vals[0] if n.startswith("all_reduce_ms") or all(v == vals[0] for v in vals.values()) else vals
         rest = [n for n in todo if n not in seen or len(seen[n]) < world]
         if rest:
             res[rest[0]] = f"aborted the process (exit codes {[p.exitcode for p in procs]})"
@@ -4101,13 +4140,15 @@ def _probe_world(world, backend, names, timeout=90):
 
 
 PROBE_OPS = ("all_reduce_f32", "all_reduce_bf16", "all_gather_f32", "all_gather_bf16", "all_gather_into_tensor",
-             "broadcast", "device_mesh", "all_reduce_ms", "reduce_scatter", "all_to_all", "send_recv")
+             "broadcast", "device_mesh", "all_reduce_ms", "all_reduce_ms_whisper_step", "all_reduce_ms_whisper_encoder",
+             "reduce_scatter", "all_to_all", "send_recv")
 
 
 def probe_collectives(torch):
     """What the card's process groups carry: two gloo ranks sharing the card
     (NCCL refuses two ranks on one device), each collective tried on CUDA
-    tensors, one f32 all_reduce of PROBE_BYTES timed; and one NCCL world of
+    tensors, f32 all_reduces timed (PROBE_BYTES, and large-v3's partials of
+    a decode step and of the encoder on 4 files); and one NCCL world of
     1 (this process). Returns {"gloo": {op: outcome}, "nccl_world1": ..., "tp_world": 2
     where gloo passed all_reduce f32 and all_gather, else 1}."""
     import torch.distributed as dist
@@ -4535,6 +4576,274 @@ def check_moe_train_step_card_vs_cpu(torch, dev):
     return res
 
 
+# --- phase 3: Whisper tensor-parallel decode (slice 8h) --------------------------------------------
+
+WTP_FILES, WTP_ACC_FILES = 4, 2  # greedy over 4 files of 29 s; --accurate over 2 of 20 s; long-form over 1 of 70 s
+WTP_TOKENS = [50258, 50364, 440, 1000, 25000, 7]  # teacher-forced: sot, no_timestamps, then text ids
+WTP_LAYERS = 2  # the accurate and long-form runs' depth (+ as many encoder blocks): a tp step costs ~20 ms a layer
+
+
+def wtp_mel(torch):
+    """The teacher-forced input of whisper_tp: two 30 s rows of seeded tones, (2, 128, 3000) on the CPU."""
+    import numpy as np
+
+    from ssak_tpu_torch.ops.logmel import log_mel_spectrogram
+
+    rng = np.random.RandomState(11)
+    return log_mel_spectrogram(torch.from_numpy(np.stack([tones(rng, 30.0) for _ in range(2)])), n_mels=128)
+
+
+def _scp_paths(kaldi_dir):
+    with open(os.path.join(kaldi_dir, "wav.scp"), encoding="utf-8") as f:
+        return [line.split(" ", 1)[1] for line in f.read().splitlines()]
+
+
+class K4Heads:
+    """Records the heads (H of q (B, H, Dh)) of every K4 call that
+    models.layers makes while installed."""
+
+    def __init__(self):
+        from ssak_tpu_torch.models import layers as L
+
+        self.L, self.orig, self.heads = L, L.flash_decode_attention, set()
+
+    def __enter__(self):
+        def call(q, *a, **kw):
+            self.heads.add(int(q.shape[1]))
+            return self.orig(q, *a, **kw)
+
+        self.L.flash_decode_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        self.L.flash_decode_attention = self.orig
+
+
+class ShardedModels:
+    """Keeps each model that infer.general.shard_model shards (whisper_infer
+    calls it through the module) while installed."""
+
+    def __init__(self):
+        from ssak_tpu_torch.infer import general
+
+        self.general, self.orig, self.models = general, general.shard_model, []
+
+    def __enter__(self):
+        def call(model, *a, **kw):
+            self.models.append(model)
+            return self.orig(model, *a, **kw)
+
+        self.general.shard_model = call
+        return self
+
+    def __exit__(self, *exc):
+        self.general.shard_model = self.orig
+
+
+def _wtp_run(torch, fn):
+    """fn() with the counters at 0, the K4 heads and the tokenizer's
+    decode calls recorded: (its result, launches, decode steps, K4 heads,
+    the decoded ids in order, seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with K4Heads() as heads, Decodes() as decodes:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    launches, steps = decode_launches()
+    return out, dict(launches=launches, steps=steps, k4_heads=sorted(heads.heads),
+                     ids=[ids for ids, _ in decodes.calls], s=sec)
+
+
+def _wtp_cut(m):
+    """How shard_model cut a Whisper model on this rank: the heads of every
+    attention, the embedding's rows, whether any q/k/v was fused."""
+    enc, dec, cfg = m.module.encoder, m.module.decoder, m.cfg
+    return dict(heads=sorted({cfg.n_text_head // b.attn.tp_size for b in dec.blocks}
+                             | {cfg.n_text_head // b.cross_attn.tp_size for b in dec.blocks}
+                             | {cfg.n_audio_head // b.attn.tp_size for b in enc.blocks}),
+                embedding_rows=int(dec.token_embedding.shape[0]), vocab_tp=getattr(dec.vocab_tp, "mode", None),
+                fused=any(hasattr(b.attn, "qkv") for b in dec.blocks))
+
+
+def _whisper_tp_rank(torch, rank, world, model_dir, dir22, kaldi4, kaldi_acc, long_audio):
+    """One rank of whisper_tp on the shared card. At full depth: greedy bf16
+    through whisper_infer(tensor_parallel=world) over the 4 files, then the
+    model it sharded (10 heads and 25,933 embedding rows a rank) teacher-
+    forced on wtp_mel; int8 greedy through whisper_infer(quantize_bits=8,
+    tensor_parallel=world). On the 2 + 2-block directory in bf16, sharded by
+    shard_model: the --accurate chain (beam 5, best_of 5, the temperature
+    fallback) over 2 files and the long-form seek loop over a 70 s file at
+    T = 0 (whisper_infer's path for a long file without --accurate), 32
+    tokens a window; the same directory in f32, sharded, its decode_train
+    logits. Each run's launches, decode steps, K4 heads and decoded ids."""
+    from ssak_tpu_torch.audio import load_audio
+    from ssak_tpu_torch.infer.general import load_model, shard_model
+    from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch, whisper_infer, whisper_transcribe_batch
+    from ssak_tpu_torch.models import whisper as W
+
+    dev = torch.device("cuda", 0)
+    kw = dict(tensor_parallel=world, dist_backend="gloo", device=dev, max_tokens=MAX_TOKENS, output_ids=True)
+    out = {"rank": rank}
+    for run, bits in (("greedy", 0), ("int8", 8)):
+        t0 = time.perf_counter()
+        with ShardedModels() as sharded:
+            it = whisper_infer(model_dir, kaldi4, quantize_bits=bits, **kw)
+        out[f"{run}_load_s"] = time.perf_counter() - t0
+        texts, out[run] = _wtp_run(torch, lambda: list(it))
+        m = sharded.models[0]
+        out[run].update(texts=texts, cut=_wtp_cut(m))
+        if run == "greedy":
+            out["sharded"] = teacher_forced_logits(torch, m.module, m.cfg, wtp_mel(torch).to(dev), WTP_TOKENS).numpy()
+        del it, m, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    m = load_model(dir22, device=dev)
+    m.module.to(torch.bfloat16)
+    shard_model(m, model_axis=world)
+    acc = [load_audio(f) for f in _scp_paths(kaldi_acc)]
+    with DecodeCalls() as rec:
+        _, out["accurate"] = _wtp_run(torch, lambda: whisper_transcribe_batch(
+            m, acc, beam_size=5, best_of=5, temperature_fallback=True, max_tokens=MAX_TOKENS))
+    out["accurate"].update(decode_calls=rec.calls, cut=_wtp_cut(m))
+    with DecodeCalls() as rec:
+        lf, out["longform"] = _wtp_run(torch, lambda: transcribe_longform_batch(m, [long_audio], temperatures=(0.0,),
+                                                                                max_tokens=MAX_TOKENS))
+    out["longform"].update(decode_calls=len(rec.calls), segments=len(lf[0]["segments"]), cut=_wtp_cut(m))
+    del m
+    m = load_model(dir22, device=dev)
+    m.module.float()
+    cfg = dataclasses.replace(m.cfg, dtype="float32")
+    shard_model(m, model_axis=world)
+    x = wtp_mel(torch).to(dev)
+    toks = torch.tensor([WTP_TOKENS] * x.shape[0], device=dev)
+    with torch.inference_mode():
+        out["f32_22"] = W.decode_train(m.module, toks, W.encode(m.module, x, cfg), cfg).float().cpu().numpy()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank:
+        del out["sharded"], out["f32_22"]
+    return out
+
+
+def run_whisper_tp(torch, dev, root, model_dir, corpus, acc_dir, bf16_texts, whole):
+    """whisper_tp: Whisper large-v3 served tensor-parallel by 2 gloo ranks
+    sharing the card (NCCL refuses two ranks on one device; the times say
+    nothing of NVLink), spawned (_whisper_tp_rank): greedy bf16 and int8
+    over 4 files of 29 s (32 tokens) at full width and depth (32 + 32
+    blocks, 10 heads and 25,933 embedding rows a rank in bf16); --accurate
+    over 2 files of 20 s and long-form over one of 70 s on a directory of
+    large-v3's widths cut to WTP_LAYERS + WTP_LAYERS blocks (a step of two
+    ranks sharing the card costs ~0.64 s at full depth). Beside them, python
+    -m torch.distributed.run -m ssak_tpu_torch.infer.whisper_infer
+    --tensor_parallel 2 --dist_backend gloo on that cut directory (the CLI
+    decodes ssak_tpu's 224-token budget). Held: K4 bf16 on 10 heads, 2 a
+    layer and decode step on every rank, nothing else in bf16; K2 8 and K4
+    int8 2 a layer and step on 20 heads in int8 (the quantized units
+    whole, only the embedding cut); both ranks decode the same ids in every
+    run; the full-depth sharded teacher-forced logits correlate >= 0.999
+    with the whole model's on the card (`whole`, prepare_whisper_dir's);
+    the cut model in f32, sharded on the card, within 1e-4 of its largest
+    logit of the port unsharded on the CPU; the CLI's rank 0 writes one
+    line a file. Logged: agreement with the single-card bf16 transcripts
+    of the same files, seconds, peak GiB."""
+    import numpy as np
+
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.models import whisper as W
+
+    t_start = time.perf_counter()
+    world = 2
+    kaldi4 = kaldi_subset(os.path.join(root, "wtp4"), corpus, WTP_FILES)
+    kaldi_acc = kaldi_subset(os.path.join(root, "wtp_acc"), acc_dir, WTP_ACC_FILES)
+    long_audio = tones(np.random.RandomState(5), LF_SECONDS)  # run_longform's first file
+    dir22 = os.path.join(root, "whisper-large-v3-cut")
+    cfg22 = W.make_config("large-v3", n_audio_layer=WTP_LAYERS, n_text_layer=WTP_LAYERS)
+    write_whisper_dir(dir22, seeded_tree(cfg22, seed=1), cfg22)
+    cpu = load_model(dir22, device="cpu")
+    cpu.module.float()
+    cpu_cfg = dataclasses.replace(cpu.cfg, dtype="float32")
+    with torch.inference_mode():
+        x = wtp_mel(torch)
+        ref22 = W.decode_train(cpu.module, torch.tensor([WTP_TOKENS] * 2), W.encode(cpu.module, x, cpu_cfg),
+                               cpu_cfg).numpy()
+    del cpu
+    gc.collect()
+    prep_s = time.perf_counter() - t_start
+
+    out_txt = os.path.join(root, "wtp_torchrun.txt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(world), "-m",
+           "ssak_tpu_torch.infer.whisper_infer", kaldi4, dir22, "--tensor_parallel", str(world), "--dist_backend",
+           "gloo", "--output", out_txt]
+    t0 = time.perf_counter()
+    run = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = spawn_ranks(_whisper_tp_rank, world, "gloo", model_dir, dir22, kaldi4, kaldi_acc, long_audio,
+                            timeout=600)
+        spawn_s = time.perf_counter() - t0
+        _out, err = run.communicate(timeout=600)
+    finally:
+        if run.poll() is None:
+            run.kill()
+            run.communicate()
+    torchrun_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun whisper_infer --tensor_parallel {world} failed:\n{err[-4000:]}")
+    with open(out_txt, encoding="utf-8") as f:
+        cli_lines = [line.split(" ", 1) for line in f.read().splitlines()]
+    want_ids = [os.path.basename(f)[:-4] for f in _scp_paths(kaldi4)]
+    if [u for u, *_t in cli_lines] != want_ids:
+        raise AssertionError(f"torchrun whisper_infer wrote ids {[u for u, *_t in cli_lines]}, want {want_ids}")
+
+    runs = (("greedy", 0, 32), ("int8", 8, 32), ("accurate", 0, WTP_LAYERS), ("longform", 0, WTP_LAYERS))
+    faults = []
+    for r in ranks:
+        for run_name, bits, layers in runs:
+            got, cut = r[run_name], r[run_name]["cut"]
+            want = want_decode(bits, got["steps"], layers=layers)
+            heads = [20] if bits else [TP_HEADS]
+            if got["launches"] != want or not got["steps"] or got["k4_heads"] != heads:
+                faults.append(f"rank {r['rank']} {run_name}: launches {got['launches']} (want {want}, "
+                              f"{got['steps']} steps), K4 heads {got['k4_heads']} (want {heads})")
+            # bf16: every attention on 10 heads; int8: quantized units whole (20 heads); the embedding cut in both
+            if (cut["heads"] != ([20] if bits else [TP_HEADS]) or cut["fused"] or cut["vocab_tp"] != "vocab"
+                    or cut["embedding_rows"] != 51866 // world):
+                faults.append(f"rank {r['rank']} {run_name}: cut {cut}")
+    for run_name, *_ in runs:
+        if ranks[0][run_name]["ids"] != ranks[1][run_name]["ids"] or not ranks[0][run_name]["ids"]:
+            faults.append(f"{run_name}: the ranks decoded different ids")
+    for run_name in ("greedy", "int8"):
+        if [u for u, _t in ranks[0][run_name]["texts"]] != want_ids or ranks[1][run_name]["texts"]:
+            faults.append(f"{run_name}: rank 0 yields {[u for u, _t in ranks[0][run_name]['texts']]}, rank 1 "
+                          f"{len(ranks[1][run_name]['texts'])} items")
+    r0 = ranks[0]
+    corr = _corr(r0["sharded"], whole.numpy())
+    err22 = float(np.abs(r0["f32_22"] - ref22).max())
+    tol22 = 1e-4 * float(np.abs(ref22).max())
+    tp_texts = [t for _u, t in r0["greedy"]["texts"]]
+    names = [n for n, *_ in runs]
+    res = dict(world=world, backend="gloo", local_heads=TP_HEADS, embedding_rows=r0["greedy"]["cut"]["embedding_rows"],
+               files=dict(greedy=WTP_FILES, int8=WTP_FILES, accurate=WTP_ACC_FILES, longform=1),
+               layers={n: layers for n, _b, layers in runs},
+               decode_steps={k: r0[k]["steps"] for k in names},
+               launches_per_rank={k: [r[k]["launches"] for r in ranks] for k in names},
+               run_s={k: [r[k]["s"] for r in ranks] for k in names},
+               step_ms={k: 1e3 * r0[k]["s"] / r0[k]["steps"] for k in names},
+               greedy_audio_s_per_s=WTP_FILES * FILE_SECONDS / r0["greedy"]["s"],
+               accurate_decode_calls=r0["accurate"]["decode_calls"], longform_decode_calls=r0["longform"]["decode_calls"],
+               longform_segments=r0["longform"]["segments"], load_s=[r["greedy_load_s"] for r in ranks],
+               int8_load_s=[r["int8_load_s"] for r in ranks], teacher_forced_correlation=corr, f32_cut_max_err=err22,
+               f32_cut_tol=tol22, greedy_texts_equal_single_card=sum(a == b for a, b in zip(tp_texts, bf16_texts)),
+               peak_gib=[r["peak_gib"] for r in ranks], prep_s=prep_s, spawn_s=spawn_s, torchrun_s=torchrun_s,
+               seconds=time.perf_counter() - t_start)
+    log(f"slice whisper_tp {json.dumps(res)}")
+    if faults or not corr >= 0.999 or not err22 <= tol22:
+        raise AssertionError(f"whisper_tp: {faults}; correlation {corr} (>= 0.999), f32 cut model max|err| {err22} "
+                             f"(<= {tol22})")
+    return res
+
+
 # --- phase 4: the whole path, card against CPU -----------------------------------
 
 
@@ -4583,7 +4892,7 @@ def teacher_forced_logits(torch, model, cfg, mel, tokens):
     with torch.inference_mode():
         af = W.encode(model, mel, cfg)
         kv = W.precompute_cross_kv(model, af, cfg)
-        caches = W.init_cache(cfg, mel.shape[0], device=mel.device)
+        caches = W.init_cache(cfg, mel.shape[0], device=mel.device, model=model)
         out = []
         for pos, tok in enumerate(tokens):
             token = torch.full((mel.shape[0], 1), tok, dtype=torch.int64, device=mel.device)
@@ -4678,11 +4987,15 @@ def check_window_card_vs_cpu(torch, cpu_model, card_model, cfg_cpu, cfg_card, me
     return res
 
 
+SERVE_PARITY_LAYERS = 1  # 2 until the tensor-parallel Whisper run came (the script's time limit)
+
+
 def check_ctc_serving_card_vs_cpu(torch, dev):
     """CTC log-probs of one 140 s row (a 135 s file padded to the bucket,
     7,001 frames) on the card against the CPU, same seeded weights: xlsr
-    widths at 2 layers in bf16, the dtype in which the card's encoder
-    attention goes through L1 (2 launches) while the CPU runs the unfused
+    widths at SERVE_PARITY_LAYERS layers in bf16, the dtype in which the
+    card's encoder attention goes through L1 (one launch a layer) while the
+    CPU runs the unfused
     attention; a spy on layers._can_flash asserts each attention call's
     route. The valid frames' log-probs must correlate >= 0.999; the share
     of frames with the same argmax is reported."""
@@ -4693,7 +5006,7 @@ def check_ctc_serving_card_vs_cpu(torch, dev):
     from ssak_tpu_torch.models import wav2vec2
     from ssak_tpu_torch.ops import flash_attention as L1
 
-    cfg = wav2vec2.make_config("xlsr", num_layers=2, vocab_size=48)
+    cfg = wav2vec2.make_config("xlsr", num_layers=SERVE_PARITY_LAYERS, vocab_size=48)
     audio = tones(np.random.RandomState(9), 135.0)
     x = np.zeros((1, MAX_CHUNK_SAMPLES), np.float32)
     x[0, : audio.size] = audio
@@ -4732,7 +5045,7 @@ def check_ctc_serving_card_vs_cpu(torch, dev):
     corr = float(np.corrcoef(a.flatten().numpy(), b.flatten().numpy())[0, 1])
     res = dict(frames=card_fl, correlation=corr, argmax_agreement=float((a.argmax(-1) == b.argmax(-1)).float().mean()),
                max_abs_diff=float((a - b).abs().max()), l1_launches=card_l1)
-    log(f"ctc serving card vs cpu (xlsr widths, 2 layers, bf16, 140 s row): {json.dumps(res)}")
+    log(f"ctc serving card vs cpu (xlsr widths, {cfg.num_layers} layers, bf16, 140 s row): {json.dumps(res)}")
     if not corr >= 0.999:
         raise AssertionError(f"ctc serving card vs cpu: correlation {corr} < 0.999")
     return res
@@ -5258,7 +5571,8 @@ def main():
     bwd_rows, bwd_err, bwd_pairs = check_flash_attention_bwd(torch, dev)
 
     log("phase 3: large-v3 transcription from an HF directory (greedy bf16, int8, int4; int4 accurate; int4 "
-        "long-form); large-v3 fine-tuning from that directory (LoRA over bf16, int8 and int4 bases; the full fine-tune, "
+        "long-form; tensor-parallel over two gloo ranks: greedy bf16 and int8, accurate, long-form, the CLI under "
+        "torchrun); large-v3 fine-tuning from that directory (LoRA over bf16, int8 and int4 bases; the full fine-tune, "
         "checkpoint and resume); wav2vec2-base CTC training, finalized and reloaded; wav2vec2-xlsr CTC serving from an HF directory "
         "(greedy in bf16, int8 and int4; device beam with lexicon and word LM; host beam with a word 4-gram in process "
         "and over 4 workers; streaming over WebSocket); NeMo Conformer-CTC Large from a .nemo archive (greedy in bf16, "
@@ -5272,14 +5586,19 @@ def main():
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
-        dirs = {"whisper_large_v3": prepare_whisper_dir(torch, dev, model_dir)}
+        whole = {}
+        dirs = {"whisper_large_v3": prepare_whisper_dir(torch, dev, model_dir, keep=whole)}
         corpus = os.path.join(tmp, "corpus")
         ids = write_corpus(corpus)
-        slices = {r["config"]: r for r in (run_slice(torch, corpus, ids, b, model_dir) for b in (0, 8, 4))}
+        whisper_texts = []
+        slices = {r["config"]: r for r in (run_slice(torch, corpus, ids, b, model_dir, whisper_texts if b == 0 else None)
+                                           for b in (0, 8, 4))}
         acc_dir = os.path.join(tmp, "accurate")
         slices["int4_accurate"] = run_accurate(torch, acc_dir, write_corpus(acc_dir, ACC_FILES, ACC_SECONDS, seed=3),
                                                model_dir)
         slices["int4_longform"] = run_longform(torch, model_dir)
+        slices["whisper_tp"] = run_whisper_tp(torch, dev, tmp, model_dir, corpus, acc_dir, whisper_texts,
+                                              whole.pop("teacher_forced"))
         slices.update(run_whisper_finetune(torch, dev, tmp, model_dir))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5341,7 +5660,7 @@ def main():
     log(f"slice parallel {json.dumps(parallel)}")
 
     log("phase 4: card against CPU, large-v3 widths at 2+2 layers (bf16, int8, int4); wav2vec2 large widths at 2 "
-        "layers (train steps); xlsr widths at 2 layers (CTC log-probs of a 140 s row in bf16), at 1 (in int8 and int4; "
+        "layers (train steps); xlsr widths at 1 layer (CTC log-probs of a 140 s row in bf16, in int8 and int4; "
         "a bf16 train step at the 100 s bucket); a bf16 dense at B=4 x 6,999; NeMo Conformer-CTC Large widths at 2 layers, "
         "f32 (log-probs of a 30 s and a 140 s row; train steps); "
         "Whisper LoRA and int8 QLoRA train steps at large-v3 widths, 2+2 layers, f32; an MoE wav2vec2 train step at "
@@ -5364,21 +5683,27 @@ def main():
     def head(rows, **shape):
         return next(r for r in rows if all(r[k] == v for k, v in shape.items()))
 
+    def wtp(kernel, runs):  # whisper_tp's launches of `kernel` over its runs and ranks
+        return sum(rank[kernel] for r in runs for rank in slices["whisper_tp"]["launches_per_rank"][r])
+
     kernels = []
     specs = [
         ("matmul_int8", "ssak_tpu_torch/csrc/int8_matmul.cu", "ssak_tpu/ops/int8_matmul.py:45",
          k2_rows, k2_err, dict(M=24, K=1280, N=5120),
-         slices["int8"]["launches"]["matmul_int8"] + slices["whisper_ft_qlora_int8"]["launches"]["matmul_int8"]),
+         slices["int8"]["launches"]["matmul_int8"] + slices["whisper_ft_qlora_int8"]["launches"]["matmul_int8"]
+         + wtp("matmul_int8", ("int8",))),
         ("matmul_int4", "ssak_tpu_torch/csrc/int4_matmul.cu", "ssak_tpu/ops/int8_matmul.py:117",
          k3_rows, k3_err, dict(M=32, K=1280, N=5120),
          slices["int4_accurate"]["launches"]["matmul_int4"] + slices["int4_longform"]["launches"]["matmul_int4"]
          + slices["whisper_ft_qlora_int4"]["launches"]["matmul_int4"]),
         ("flash_decode_bf16", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:38",
-         *fd_rows["bf16"], dict(B=24, T=1500, range="0:1499"),
+         *fd_rows["bf16"], dict(B=24, H=20, T=1500, range="0:1499"),
          slices["bf16"]["launches"]["flash_decode_bf16"] + sum(slices[f"whisper_ft_{r}"]["launches"]["flash_decode_bf16"]
-                                                               for r in ("lora_bf16", "qlora_int8", "qlora_int4"))),
+                                                               for r in ("lora_bf16", "qlora_int8", "qlora_int4"))
+         + wtp("flash_decode_bf16", ("greedy", "accurate", "longform"))),
         ("flash_decode_int8", "ssak_tpu_torch/csrc/flash_decode.cu", "ssak_tpu/ops/flash_decode.py:58",
-         *fd_rows["int8"], dict(B=24, T=1500, range="0:1499"), slices["int8"]["launches"]["flash_decode_int8"]),
+         *fd_rows["int8"], dict(B=24, H=20, T=1500, range="0:1499"),
+         slices["int8"]["launches"]["flash_decode_int8"] + wtp("flash_decode_int8", ("int8",))),
         ("ctc_fused", "ssak_tpu_torch/csrc/ctc_fused.cu", "ssak_tpu/ops/ctc_pallas.py:29",
          k1_rows, k1_err, dict(V=32, T=749),
          slices["ctc"]["launches"]["ctc_fused"] + slices["ctc_long"]["launches"]["ctc_fused"]

@@ -218,29 +218,13 @@ def ctc_infer(
     beam) is enqueued before the previous batch's host tail (fetch,
     backtrace, text, or the pool's decode of it) runs."""
     from ssak_tpu_torch.data.dataset import to_audio_batches
-    from ssak_tpu_torch.infer.general import compute_log_probas, load_model
+    from ssak_tpu_torch.infer.general import compute_log_probas, drain, join_tensor_parallel, load_model, shard_model
 
     rank0 = True
     if tensor_parallel:
-        import torch.distributed as dist
-
-        from ssak_tpu_torch.parallel.mesh import init_distributed
-        from ssak_tpu_torch.utils.env import resolve_device
-
-        resolve_device(device)  # no card and no device="cpu": raise here, at the call
-        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
-            raise ValueError(f"tensor_parallel={tensor_parallel} needs a process group of {tensor_parallel} ranks: run "
-                             f"under torchrun (python -m torch.distributed.run --nproc_per_node {tensor_parallel} -m "
-                             "ssak_tpu_torch.infer.ctc_infer ...)")
-        device = init_distributed(backend=dist_backend, device=device)
-        if dist.get_world_size() != tensor_parallel:
-            raise ValueError(f"tensor_parallel={tensor_parallel} but the process group has {dist.get_world_size()} "
-                             f"ranks: start {tensor_parallel} with torchrun --nproc_per_node {tensor_parallel}")
-        rank0 = dist.get_rank() == 0
+        device, rank0 = join_tensor_parallel(tensor_parallel, device, dist_backend, "ctc_infer")
     model = load_model(model_dir, seeded_test_config=seeded_test_config, quantize_bits=quantize_bits, device=device)
     if tensor_parallel:
-        from ssak_tpu_torch.infer.general import shard_model
-
         shard_model(model, model_axis=tensor_parallel)
     lm = None
     if lm_path:
@@ -390,14 +374,7 @@ def ctc_infer(
         batches = auto_pack_batches(((a, i) for b, ids in rows for a, i in zip(b, ids)),
                                     max_samples=int(AUTO_BATCH_SECONDS * model.sample_rate))
     items = _pipelined(batches, submit, model.sample_rate, output_ids, log_memtime, pool)
-    return items if rank0 else _drain(items)
-
-
-def _drain(items):
-    """A rank other than 0 runs every batch (its collectives) and yields nothing."""
-    for _ in items:
-        pass
-    yield from ()
+    return items if rank0 else drain(items)
 
 
 def _pipelined(batches, submit, sample_rate, output_ids, log_memtime, pool=None):

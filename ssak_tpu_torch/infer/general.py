@@ -9,9 +9,8 @@ with its tokenizer, wav2vec2 with its vocab.json); MMS per-language
 adapters (`load_adapter`); seeded weights (`seeded_test_config`, Whisper
 and wav2vec2, the families ssak_tpu seeds) or an ssak_tpu parameter tree
 (`from_tree`, used by the tests). Any of them may be quantized on load
-(`quantize_bits` 8 or 4). A CTC model is sharded tensor-parallel over the
-ranks of a process group by `shard_model`; Whisper's tensor-parallel decode
-is a later slice of ROADMAP.md (8h) and raises NotImplementedError.
+(`quantize_bits` 8 or 4). Any of them is sharded tensor-parallel over the
+ranks of a process group by `shard_model`.
 """
 
 import dataclasses
@@ -203,31 +202,65 @@ def from_tree(params, cfg, device=None, tokenizer=None) -> LoadedModel:
 
 
 def shard_model(model: LoadedModel, model_axis: int = None, mesh=None) -> LoadedModel:
-    """Tensor-parallel sharding of a loaded CTC model over the 'model' dim
-    of `mesh` (Megatron rules of parallel.sharding: WAV2VEC2_RULES or
-    CONFORMER_RULES; MoE experts stay whole): each rank keeps its
-    slice of the weights, IN PLACE, and the forward all-reduces and
-    all-gathers where XLA would for ssak_tpu. Needs a process group (ranks
-    started by torchrun, or parallel.init_distributed); the mesh defaults
-    to (1, model_axis), model_axis to the world size. Returns the same
-    LoadedModel with `.mesh` set. Whisper's tensor-parallel decode is slice
-    8h and raises NotImplementedError."""
+    """Tensor-parallel sharding of a loaded model over the 'model' dim of
+    `mesh` (Megatron rules of parallel.sharding: WHISPER_RULES,
+    WAV2VEC2_RULES or CONFORMER_RULES; MoE experts stay whole): each rank
+    keeps its slice of the weights, IN PLACE, and the forward all-reduces
+    and all-gathers where XLA would for ssak_tpu. Whisper's encoder and
+    decoder split their own heads (n_audio_head, n_text_head), and its
+    token embedding, which the logits share, its vocabulary where that
+    divides. Needs a process group (ranks started by torchrun, or
+    parallel.init_distributed); the mesh defaults to (1, model_axis),
+    model_axis to the world size. Returns the same LoadedModel with `.mesh`
+    set."""
     import torch.distributed as dist
 
     from ssak_tpu_torch.parallel.mesh import make_mesh, shard_params
-    from ssak_tpu_torch.parallel.sharding import CONFORMER_RULES, WAV2VEC2_RULES
+    from ssak_tpu_torch.parallel.sharding import CONFORMER_RULES, WAV2VEC2_RULES, WHISPER_RULES
 
-    if model.type == ModelType.WHISPER:
-        raise NotImplementedError("tensor-parallel Whisper decode is not ported yet (slice 8h, ROADMAP.md)")
     if mesh is None:
         if not dist.is_initialized():
             raise ValueError("shard_model needs a process group: start one process per rank with torchrun "
                              "(python -m torch.distributed.run --nproc_per_node N ...)")
         mesh = make_mesh(model=model_axis or dist.get_world_size(), device_type=model.device.type)
-    rules = CONFORMER_RULES if model.type == ModelType.CONFORMER_CTC else WAV2VEC2_RULES
-    shard_params(model.module, mesh, rules, num_heads=model.cfg.num_heads)
+    if model.type == ModelType.WHISPER:
+        rules, heads = WHISPER_RULES, {"encoder": model.cfg.n_audio_head, "decoder": model.cfg.n_text_head}
+    else:
+        rules = CONFORMER_RULES if model.type == ModelType.CONFORMER_CTC else WAV2VEC2_RULES
+        heads = model.cfg.num_heads
+    shard_params(model.module, mesh, rules, num_heads=heads)
     model.mesh = mesh
     return model
+
+
+def join_tensor_parallel(tensor_parallel: int, device=None, dist_backend: str = None, entry: str = "ctc_infer"):
+    """Join the process group of a tensor-parallel run of `entry` (a
+    module of ssak_tpu_torch.infer) and return (device, is_rank_0). Raises
+    ValueError without a process group (no torchrun environment) or where
+    its size is not tensor_parallel; the backend is `dist_backend` (nccl on
+    a card and gloo on the CPU by default), and nothing switches it after a
+    failure."""
+    import torch.distributed as dist
+
+    from ssak_tpu_torch.parallel.mesh import init_distributed
+
+    resolve_device(device)  # no card and no device="cpu": raise here, at the call
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        raise ValueError(f"tensor_parallel={tensor_parallel} needs a process group of {tensor_parallel} ranks: run "
+                         f"under torchrun (python -m torch.distributed.run --nproc_per_node {tensor_parallel} -m "
+                         f"ssak_tpu_torch.infer.{entry} ...)")
+    device = init_distributed(backend=dist_backend, device=device)
+    if dist.get_world_size() != tensor_parallel:
+        raise ValueError(f"tensor_parallel={tensor_parallel} but the process group has {dist.get_world_size()} "
+                         f"ranks: start {tensor_parallel} with torchrun --nproc_per_node {tensor_parallel}")
+    return device, dist.get_rank() == 0
+
+
+def drain(items):
+    """A rank other than 0 runs every batch (its collectives) and yields nothing."""
+    for _ in items:
+        pass
+    yield from ()
 
 
 def load_adapter(model: LoadedModel, model_dir: str, language: str) -> bool:

@@ -23,7 +23,13 @@ model without one (seeded, from a tree or an export) uses the config's
 special ids, ignores language= and task=, and gives the generated token
 ids joined by spaces, as ssak_tpu does.
 
+With tensor_parallel=N (`--tensor_parallel N` under torchrun, one process
+per rank) the model is sharded over the ranks; every rank runs each path
+above on the same logits, and rank 0 alone yields the transcripts.
+
 CLI: python -m ssak_tpu_torch.infer.whisper_infer <audio|list|kaldi_dir> <model_dir> [--language fr]
+     python -m torch.distributed.run --nproc_per_node 2 -m ssak_tpu_torch.infer.whisper_infer
+         <data> <model_dir> --tensor_parallel 2 [--dist_backend gloo]
 """
 
 import os
@@ -434,31 +440,46 @@ def auto_window_batch(cfg, quantize_bits: int = 0, beam_size: int = 0, best_of: 
 
 def whisper_infer(model_dir, audios, batch_size: int = 0, output_ids: bool = False, seeded_test_config: str = None,
                   beam_size: int = 0, temperature_fallback: bool = False, quantize_bits: int = 0, best_of: int = 1,
-                  max_tokens: int = 224, device=None, language: str = None):
+                  max_tokens: int = 224, device=None, language: str = None, tensor_parallel: int = 0,
+                  dist_backend: str = None):
     """Transcripts of `audios` (anything data.dataset.to_audio_batches
     takes), as an iterator of texts or (id, text) pairs. Loads the model on
     `device` (default cuda; raises here, at the call, when there is none),
     casts it to bf16 unless quantized (quantize_bits 8 or 4), and fuses the
     decoder's q/k/v where they are not quantized. beam_size,
     temperature_fallback and best_of select the accurate chain; files
-    longer than 30 s take the long-form seek loop."""
+    longer than 30 s take the long-form seek loop.
+
+    tensor_parallel=N shards the model over the N ranks of a process group
+    (torchrun's; raises ValueError without one) on the backend
+    `dist_backend`, without the q/k/v fusion, as ssak_tpu does: every rank
+    runs every decode loop on its own heads and gets the same logits, so
+    every rank takes the same host decisions; only rank 0 yields
+    transcripts."""
     from ssak_tpu_torch.data.dataset import to_audio_batches
-    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.infer.general import drain, join_tensor_parallel, load_model, shard_model
     from ssak_tpu_torch.models.whisper import fuse_decode_qkv
 
+    rank0 = True
+    if tensor_parallel:
+        device, rank0 = join_tensor_parallel(tensor_parallel, device, dist_backend, "whisper_infer")
     model = load_model(model_dir, seeded_test_config=seeded_test_config, quantize_bits=quantize_bits, device=device)
     if not quantize_bits:
         # decode-only: bf16 weights (quantized models keep their kernels' payloads and the other leaves as loaded,
         # f32 or a checkpoint's f16)
         model.module.to(torch.bfloat16)
-    fuse_decode_qkv(model.module)
+    if tensor_parallel:
+        shard_model(model, model_axis=tensor_parallel)
+    else:
+        fuse_decode_qkv(model.module)
     if not batch_size or batch_size <= 0:
         batch_size = auto_window_batch(model.cfg, quantize_bits, beam_size=beam_size, best_of=best_of)
     batches = to_audio_batches(audios, batch_size=batch_size, sample_rate=16000, output_ids=True,
                                io_threads=min(4, os.cpu_count() or 2))
     options = dict(language=language, max_tokens=max_tokens, beam_size=beam_size,
                    temperature_fallback=temperature_fallback, best_of=best_of)
-    return _transcripts(model, batches, options, output_ids)
+    items = _transcripts(model, batches, options, output_ids)
+    return items if rank0 else drain(items)
 
 
 def _transcripts(model, batches, options, output_ids):
@@ -495,6 +516,11 @@ def cli(argv=None):
                         help="sampled candidates per utterance at T>0, best kept by average log probability")
     parser.add_argument("--accurate", action="store_true", help="beam 5 + best_of 5 + temperature fallback")
     parser.add_argument("--efficient", action="store_true", help="greedy decode")
+    parser.add_argument("--tensor_parallel", "--tp", type=int, default=0, dest="tensor_parallel",
+                        help="shard the model's weights over N ranks (megatron TP rules); run under torchrun "
+                             "--nproc_per_node N")
+    parser.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                        help="backend of the tensor-parallel process group (default nccl on cards, gloo on the CPU)")
     parser.add_argument("--load_in_8bit", action="store_true", help="int8 weight-only quantized decode")
     parser.add_argument("--load_in_4bit", action="store_true", help="int4 weight-only quantized decode")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -507,16 +533,22 @@ def cli(argv=None):
         args.model, args.data, batch_size=args.batch_size, language=args.language, output_ids=args.use_ids,
         beam_size=beam, temperature_fallback=args.accurate, best_of=best_of,
         quantize_bits=4 if args.load_in_4bit else (8 if args.load_in_8bit else 0),
-        seeded_test_config=args.seeded_test_config, device=args.device,
+        seeded_test_config=args.seeded_test_config, device=args.device, tensor_parallel=args.tensor_parallel,
+        dist_backend=args.dist_backend,
     )
-    out = open(args.output, "w", encoding="utf-8") if args.output else sys.stdout
+    import torch.distributed as dist
+
+    to_file = args.output and (not dist.is_initialized() or dist.get_rank() == 0)  # rank 0 writes the transcripts
+    out = open(args.output, "w", encoding="utf-8") if to_file else sys.stdout
     try:
-        for item in texts:
+        for item in texts:  # none on the other ranks
             out.write(f"{item[0]} {item[1]}\n" if args.use_ids else f"{item}\n")
             out.flush()
     finally:
-        if args.output:
+        if to_file:
             out.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

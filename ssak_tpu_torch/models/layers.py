@@ -491,9 +491,11 @@ def fuse_qkv_params(attn):
     """Fuse one attention module's query/key/value projections into a
     single `qkv` Linear ((3D, D) weight, zeros where a projection had no
     bias), IN PLACE, dropping the three originals. Skipped when any
-    projection is quantized or carries a LoRA adapter. Returns the module."""
+    projection is quantized, carries a LoRA adapter or is tensor-parallel
+    (a rank's q, k and v slices are not a slice of the fused weight).
+    Returns the module."""
     projs = [attn.query, attn.key, attn.value]
-    if not all(isinstance(pr, Linear) and pr.lora_A is None for pr in projs):
+    if not all(isinstance(pr, Linear) and pr.lora_A is None and pr.tp is None for pr in projs):
         return attn
     w0 = projs[0].weight
     biases = [pr.bias if pr.bias is not None else torch.zeros(w0.shape[0], dtype=w0.dtype, device=w0.device) for pr in projs]

@@ -13,6 +13,13 @@ caches (B, H, Dh, n_text_ctx), written in place; it runs the whole budget
 with no host synchronization, as the JAX lax.scan does, and pads finished
 rows with eot.
 
+A model sharded by parallel.mesh.shard_params (infer.general.shard_model)
+runs the same functions on each rank's heads, with caches and cross K/V of
+those heads; a token embedding cut along the vocabulary is looked up across
+the ranks (`_embed`) and gives each rank its slice of the tied logits,
+all-gathered (`_tied_logits`), so every rank holds the same logits and
+takes the same decisions.
+
 Sampling is Gumbel-max over logits / T, as `jax.random.categorical` is,
 with noise from a `torch.Generator` on the model's device seeded by the
 integer that seeds JAX's key; the two generators give different bits, so
@@ -29,6 +36,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from ssak_tpu_torch.models import layers as L
+from ssak_tpu_torch.parallel.collectives import all_gather, copy_to_region, vocab_parallel_lookup
 
 
 @dataclass(frozen=True)
@@ -99,12 +107,17 @@ class AudioEncoder(nn.Module):
 
 
 class TextDecoder(nn.Module):
+    """vocab_tp: the token embedding's tensor parallelism once
+    parallel.mesh.shard_params cut it along the vocabulary (each rank a
+    range of ids), else None."""
+
     def __init__(self, token_embedding, positional_embedding, blocks, ln):
         super().__init__()
         self.token_embedding = L._param(token_embedding)  # (V, D), also the logits projection
         self.positional_embedding = L._param(positional_embedding)  # (n_text_ctx, D)
         self.blocks = nn.ModuleList(blocks)
         self.ln = ln
+        self.vocab_tp = None
 
 
 class WhisperModel(nn.Module):
@@ -188,13 +201,30 @@ def _remat(block, cfg: WhisperConfig):
     return lambda *args: torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
 
 
+def _embed(dec: TextDecoder, tokens):
+    """The token embedding's rows of `tokens`; a vocabulary cut over ranks
+    is looked up across them (exact)."""
+    return vocab_parallel_lookup(dec.token_embedding, tokens, None if dec.vocab_tp is None else dec.vocab_tp.group)
+
+
+def _tied_logits(dec: TextDecoder, x, dt):
+    """x (..., D) @ token_embedding.T in `dt` with an f32 result (..., V).
+    A vocabulary cut over ranks gives each rank its slice of the logits,
+    all-gathered in rank order: every rank holds the same f32 logits."""
+    tp = dec.vocab_tp
+    if tp is not None:
+        x = copy_to_region(x, tp.group)
+    logits = L.matmul_f32(x.to(dt), dec.token_embedding.t().to(dt))
+    return logits if tp is None else all_gather(logits, -1, tp.group, replicated=True)
+
+
 def decode_train(model: WhisperModel, tokens, audio_features, cfg: WhisperConfig):
     """Teacher-forced decoder: tokens (B, U) -> logits (B, U, V) f32, under
     a causal mask, cross-attending to audio_features (B, T, D)."""
     dt = cfg.compute_dtype
     dec = model.decoder
     U = tokens.shape[1]
-    x = dec.token_embedding[tokens.long()] + dec.positional_embedding[:U]
+    x = _embed(dec, tokens.long()) + dec.positional_embedding[:U]
     mask = L.causal_mask(U, U, device=tokens.device)
 
     def block(blk, x, audio_features):
@@ -207,7 +237,7 @@ def decode_train(model: WhisperModel, tokens, audio_features, cfg: WhisperConfig
     for blk in dec.blocks:
         x = _remat(block, cfg)(blk, x, audio_features)
     x = L.layer_norm(x, dec.ln)
-    return L.matmul_f32(x.to(dt), dec.token_embedding.t().to(dt))
+    return _tied_logits(dec, x, dt)
 
 
 def cross_entropy_loss(logits, targets, mask):
@@ -221,8 +251,9 @@ def cross_entropy_loss(logits, targets, mask):
 def fuse_decode_qkv(model: WhisperModel) -> WhisperModel:
     """Load-time decode optimization: fuse each decoder block's self-
     attention q/k/v projections into one (3D, D) matmul, in place.
-    Cross-attention and the encoder are untouched; quantized projections
-    are skipped (layers.fuse_qkv_params)."""
+    Cross-attention and the encoder are untouched; quantized and
+    tensor-parallel projections are skipped (layers.fuse_qkv_params), as
+    ssak_tpu does not fuse under tensor parallelism."""
     for blk in model.decoder.blocks:
         L.fuse_qkv_params(blk.attn)
     return model
@@ -237,7 +268,7 @@ def _decode_layer(blk, cache, cross_kv, x, attn_bounds, cross_bounds, cache_inde
     )
     x = x + h
     xq = L.layer_norm(x, blk.cross_attn_ln)
-    q = L.split_heads(L.dense(xq, blk.cross_attn.query, dt), cfg.n_text_head)
+    q = L.split_heads(L.dense(xq, blk.cross_attn.query, dt), cfg.n_text_head // blk.cross_attn.tp_size)
     y = L.decode_attention_bounded(q, cross_kv, cross_bounds[0], cross_bounds[1], dtype=dt)
     x = x + L.dense(L.merge_heads(y), blk.cross_attn.out, dt)
     return x + L.mlp(L.layer_norm(x, blk.mlp_ln), blk.mlp, dtype=dt)
@@ -245,31 +276,36 @@ def _decode_layer(blk, cache, cross_kv, x, attn_bounds, cross_bounds, cache_inde
 
 def precompute_cross_kv(model: WhisperModel, audio_features, cfg: WhisperConfig):
     """Cross-attention K/V, once per utterance, in the decode-cache layout
-    (B, H, Dh, T_audio), contiguous; int8 with per-position scales when
-    cfg.kv_int8."""
+    (B, H, Dh, T_audio), contiguous (a tensor-parallel attention's H: the
+    rank's heads); int8 with per-position scales when cfg.kv_int8."""
     dt = cfg.compute_dtype
     out = []
     for blk in model.decoder.blocks:
         c = blk.cross_attn
-        k = L.to_decode_kv(L.dense(audio_features, c.key, dt), cfg.n_text_head).contiguous()
-        v = L.to_decode_kv(L.dense(audio_features, c.value, dt), cfg.n_text_head).contiguous()
+        H = cfg.n_text_head // c.tp_size
+        k = L.to_decode_kv(L.dense(audio_features, c.key, dt), H).contiguous()
+        v = L.to_decode_kv(L.dense(audio_features, c.value, dt), H).contiguous()
         out.append(L.quantize_decode_kv(k, v) if cfg.kv_int8 else {"k": k, "v": v})
     return out
 
 
-def init_cache(cfg: WhisperConfig, batch: int, device=None):
+def init_cache(cfg: WhisperConfig, batch: int, device=None, model: WhisperModel = None):
     """Per-layer self-attention caches (B, H, Dh, n_text_ctx): compute
-    dtype, or the int8 format when cfg.kv_int8."""
+    dtype, or the int8 format when cfg.kv_int8. With `model`, each layer's
+    H is the heads its self-attention runs on this rank (tensor parallel:
+    n_text_head / tp), else n_text_head."""
     Dh = cfg.n_text_state // cfg.n_text_head
-    shape = (batch, cfg.n_text_head, Dh, cfg.n_text_ctx)
 
-    def empty():
+    def empty(H):
         if cfg.kv_int8:
-            return L.init_int8_cache(batch, cfg.n_text_head, Dh, cfg.n_text_ctx, device=device)
+            return L.init_int8_cache(batch, H, Dh, cfg.n_text_ctx, device=device)
+        shape = (batch, H, Dh, cfg.n_text_ctx)
         return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
 
-    return [empty() for _ in range(cfg.n_text_layer)]
+    if model is None:
+        return [empty(cfg.n_text_head) for _ in range(cfg.n_text_layer)]
+    return [empty(cfg.n_text_head // blk.attn.tp_size) for blk in model.decoder.blocks]
 
 
 DECODE_STEPS = {"n": 0}  # cached decoder steps run (each runs every decoder layer once)
@@ -282,14 +318,14 @@ def _step(model: WhisperModel, token, pos_emb, attn_bounds, cache_index: int, ca
     dt = cfg.compute_dtype
     dec = model.decoder
     B = token.shape[0]
-    x = dec.token_embedding[token] + pos_emb
+    x = _embed(dec, token) + pos_emb
     zero = torch.zeros((B,), dtype=torch.int32, device=token.device)
     T_audio = (cross_kvs[0]["k8"] if cfg.kv_int8 else cross_kvs[0]["k"]).shape[-1]
     cross_bounds = (zero, torch.full((B,), T_audio - 1, dtype=torch.int32, device=token.device))
     for blk, cache, cross_kv in zip(dec.blocks, caches, cross_kvs):
         x = _decode_layer(blk, cache, cross_kv, x, attn_bounds, cross_bounds, cache_index, cfg)
     x = L.layer_norm(x, dec.ln)
-    logits = L.matmul_f32(x.to(dt), dec.token_embedding.t().to(dt))
+    logits = _tied_logits(dec, x, dt)
     DECODE_STEPS["n"] += 1
     return logits[:, 0], caches
 
@@ -309,7 +345,7 @@ def _prompt_forward(model, mel, cfg: WhisperConfig, prompt):
     caches: (last logits (B, V), caches, cross_kvs)."""
     B = mel.shape[0]
     cross_kvs = precompute_cross_kv(model, encode(model, mel, cfg), cfg)
-    caches = init_cache(cfg, B, device=mel.device)
+    caches = init_cache(cfg, B, device=mel.device, model=model)
     logits = None
     for i, tok in enumerate(prompt):
         token = torch.full((B, 1), int(tok), dtype=torch.int64, device=mel.device)
@@ -538,7 +574,7 @@ def window_prompt_forward(model: WhisperModel, mel, prompt, prompt_len, cfg: Whi
     pad_host = P - host_array(prompt_len).astype(np.int64).reshape(B)
     pad_len = torch.as_tensor(pad_host, dtype=torch.int32).to(dev)
     cross_kvs = precompute_cross_kv(model, encode(model, mel, cfg), cfg)
-    caches = init_cache(cfg, B, device=dev)
+    caches = init_cache(cfg, B, device=dev, model=model)
     sot_slot = P - sot_distance
     probe = logits = None
     for j in range(min(int(pad_host.min()), sot_slot, P - 1), P):

@@ -142,6 +142,23 @@ def all_gather(x, dim, group, replicated: bool = False):
     return _AllGather.apply(x, dim % x.ndim, group, replicated)
 
 
+def vocab_parallel_lookup(table, ids, group):
+    """Rows `ids` of an embedding table whose vocabulary is cut over the
+    ranks of `group` in rank order: this rank holds ids [r * n, (r + 1) * n)
+    as the n rows of `table`. Each rank looks up the ids of its range and
+    gives zeros for the others, and the ranks' rows are summed in f32,
+    which is exact (one rank holds each id), so every rank gets the
+    unsharded lookup bit for bit. Backward: the lookup's, into this rank's
+    rows."""
+    if group_size(group) == 1:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - dist.get_rank(group) * n
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, 0)]
+    return all_reduce(torch.where(mine[..., None], rows, rows.new_zeros(())), group)
+
+
 def ppermute(x, perm, group):
     """lax.ppermute: rank d receives the x of the rank s with (s, d) in
     `perm` (group-local ranks), zeros where no pair names it; backward:

@@ -20,12 +20,14 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from ssak_tpu_torch.parallel.sharding import GATHERED_OUTPUTS, axis_sizes, jax_shape, partition_spec_for, tree_path
+from ssak_tpu_torch.parallel.sharding import (GATHERED_OUTPUTS, VOCAB_PARALLEL, axis_sizes, jax_shape,
+                                              partition_spec_for, tree_path)
 
-# A dense layer's tensor parallelism: mode 'col' (output features sharded;
-# the output stays local), 'gather' (the same, its output all-gathered) or
-# 'row' (input features sharded; the f32 partial product all-reduced
-# before the bias), over `group`.
+# A layer's tensor parallelism: for a dense layer mode 'col' (output
+# features sharded; the output stays local), 'gather' (the same, its output
+# all-gathered) or 'row' (input features sharded; the f32 partial product
+# all-reduced before the bias); for a module holding an embedding table
+# cut along its vocabulary, 'vocab' (its `vocab_tp`); over `group`.
 TensorParallel = namedtuple("TensorParallel", ["mode", "group"])
 
 
@@ -132,7 +134,16 @@ def shardings_like(module, mesh, rules) -> dict:
     return {path: spec for _name, _owner, _leaf, path, spec in specs}
 
 
-def shard_params(module, mesh, rules, num_heads: int = None):
+def _heads(num_heads, unit: str):
+    """The head count of the attention `unit`: num_heads itself, or for a
+    model with several (Whisper's encoder and decoder) the entry of the
+    dict num_heads under the unit's top-level module name."""
+    if isinstance(num_heads, dict):
+        return num_heads[unit.split(".")[0]]
+    return num_heads
+
+
+def shard_params(module, mesh, rules, num_heads=None):
     """Cut this rank's slice of every parameter that `rules` shard on
     `mesh` out of the full `module`, IN PLACE, and mark the layers that
     then communicate. Returns the module.
@@ -143,9 +154,14 @@ def shard_params(module, mesh, rules, num_heads: int = None):
     a sharded in dim row-parallel. An attention's heads divide over the
     axis (its tp_size is set) or the whole attention stays replicated, with
     no collective, even where its kernels' dims would divide: num_heads is
-    needed for that. A group holding a quantized layer stays replicated
-    (the rules match only float kernels and biases). MoE expert tensors
-    shard their leading dim (the MoE's `ep` group is set)."""
+    needed for that, an int, or {top-level module name: heads} where the
+    model's attentions differ (Whisper: {"encoder": n_audio_head,
+    "decoder": n_text_head}). A group holding a quantized layer stays
+    replicated (the rules match only float kernels and biases). An
+    embedding of parallel.sharding.VOCAB_PARALLEL keeps this rank's range
+    of ids (its module's `vocab_tp` is set); where the vocabulary does not
+    divide, the rules keep it whole. MoE expert tensors shard their leading
+    dim (the MoE's `ep` group is set)."""
     from ssak_tpu_torch.models import layers as L
     from ssak_tpu_torch.parallel.moe import MoE
 
@@ -157,13 +173,15 @@ def shard_params(module, mesh, rules, num_heads: int = None):
     drop = set()
     for unit, owner, leaf, path, spec in plans:
         u = modules[unit]
-        if isinstance(owner, L.QuantLinear) or any(isinstance(m, L.QuantLinear) for m in u.modules()):
+        # an embedding table's module holds the blocks around it: only its own leaf decides
+        table = any(re.search(v, path) for v in VOCAB_PARALLEL)
+        if isinstance(owner, L.QuantLinear) or (not table and any(isinstance(m, L.QuantLinear) for m in u.modules())):
             drop.add(unit)
         if isinstance(u, L.MultiHeadAttention):
             axis = next(a for a in spec if a is not None)
             if num_heads is None:
                 raise ValueError("shard_params: sharding an attention needs num_heads")
-            if num_heads % sizes[axis]:
+            if _heads(num_heads, unit) % sizes[axis]:
                 drop.add(unit)
     with torch.no_grad():
         for unit, owner, leaf, path, spec in plans:
@@ -185,10 +203,10 @@ def shard_params(module, mesh, rules, num_heads: int = None):
                 owner.tp = TensorParallel("row" if dim == 1 else ("gather" if gathered else "col"), group)
             elif isinstance(owner, MoE):
                 owner.ep = group
+            elif any(re.search(v, path) for v in VOCAB_PARALLEL):
+                owner.vocab_tp = TensorParallel("vocab", group)
             elif not (isinstance(owner, L.Linear) and leaf == "bias") and not leaf.startswith("pos_bias_"):
-                raise NotImplementedError(
-                    f"{path}: tensor parallelism of this leaf is not ported (Whisper's tensor-parallel decode is "
-                    "slice 8h, ROADMAP.md)")
+                raise NotImplementedError(f"{path}: no layer of the port reads this leaf sharded")
             if isinstance(u, L.MultiHeadAttention):
                 u.tp_size = n
     return module

@@ -3,7 +3,8 @@
 
 Megatron-style TP over the 'model' mesh axis: attention q/k/v and mlp fc1
 shard their output features (column parallel), attention out and mlp fc2
-their input features (row parallel), the CTC head its vocabulary. Paths
+their input features (row parallel), the CTC head and Whisper's token
+embedding their vocabulary. Paths
 and specs are ssak_tpu's: '/encoder/blocks/3/attn/query/kernel', a dense
 kernel laid out (in, out). `parallel.mesh.shard_params` reads a spec in
 that layout and cuts the port's (out, in) weights by it; `tree_path` and
@@ -78,6 +79,13 @@ WAV2VEC2_MOE_RULES = [
 # column-parallel output feeds the rank's own heads or its row-parallel
 # partner.
 GATHERED_OUTPUTS = [r"/lm_head/kernel$"]
+
+# Embedding tables cut along the vocabulary (P('model', None)): each rank
+# holds a contiguous range of ids. A lookup gives zeros for ids outside the
+# rank's range and sums the ranks' rows (parallel.collectives.
+# vocab_parallel_lookup); Whisper's tied logits are the rank's slice of the
+# vocabulary, all-gathered (models.whisper).
+VOCAB_PARALLEL = [r"/token_embedding$"]
 
 
 def axis_sizes(mesh) -> dict:

@@ -53,6 +53,21 @@ def test_plan_fits_and_covers(B, T, variant):
     exactly, ring segments that cover a rank's rows, a ring of at least two
     stages at the decoder's shapes, and persistent clusters that the card
     holds at once, each taking the same number of sites to within one."""
+    _check_plan(B, H, T, variant)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8"])
+@pytest.mark.parametrize("T", [448, 1500])
+@pytest.mark.parametrize("B", [1, 8, 20, 24, 25, 40, 64])
+@pytest.mark.parametrize("heads", [10, 5])
+def test_plan_fits_and_covers_a_tensor_parallel_ranks_heads(heads, B, T, variant):
+    """The same at a tensor-parallel rank's heads of large-v3 (20 heads: 10
+    at tp 2, 5 at tp 4), for every row count of the decode loops (B up to
+    64: a window batch, or B * beam or B * best_of rows)."""
+    _check_plan(B, heads, T, variant)
+
+
+def _check_plan(B, H, T, variant):
     p = FD.flash_decode_plan(B, H, DH, T, variant)
     sites = B * H
     assert p["cluster"] in (1, 2, 4, 8)

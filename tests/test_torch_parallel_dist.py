@@ -3,12 +3,14 @@ rendezvous under tmp_path, a timeout on every join so a hung collective
 fails) against ssak_tpu's sharded programs on its 8 CPU devices.
 
 One world of 4 ranks runs tensor parallelism (shard_model at tp 4 and tp
-2, heads that do not divide), GPipe (forward at (data 2, pipe 2) and (1,
-4), gradients, the PP step), sequence parallelism and the MoE
-(expert-sharded, and CTC training on (data 2, expert 2)); one world of 2
-runs ctc_infer --tensor_parallel 2, shard_train_step and the tarred
-interleave. The JAX references are computed here and the weights passed
-to the ranks as numpy; the ranks never import JAX
+2, heads that do not divide; Whisper's decode loops on the ranks' heads
+with its vocabulary cut at tp 2 and whole at tp 4), GPipe (forward at
+(data 2, pipe 2) and (1, 4), gradients, the PP step), sequence
+parallelism and the MoE (expert-sharded, and CTC training on (data 2,
+expert 2)); one world of 2 runs ctc_infer and whisper_infer
+--tensor_parallel 2, the quantized Whisper at tp 2, shard_train_step and
+the tarred interleave. The JAX references are computed here and the
+weights passed to the ranks as numpy; the ranks never import JAX
 (tests/test_torch_parallel_ranks.py)."""
 
 import dataclasses
@@ -28,6 +30,7 @@ from jax.sharding import Mesh
 
 from ssak_tpu.models import conformer as JC
 from ssak_tpu.models import wav2vec2 as JW
+from ssak_tpu.models import whisper as JWh
 from ssak_tpu.parallel.sharding import WAV2VEC2_MOE_RULES, WAV2VEC2_RULES
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -238,6 +241,125 @@ def _sp_inputs():
     return items, refs
 
 
+# Whisper: tiny_test in f32 with a vocabulary of 130 ids (divides by 2, not
+# by 4: the embedding is cut at tp 2 and stays whole at tp 4, as ssak_tpu's
+# rules keep it) and 2 encoder and 4 decoder heads (at tp 4 the encoder's
+# attention stays whole while the decoder's splits). Its token embedding is
+# scaled up so that the tied logits spread: ssak_tpu's own TP test notes
+# that a seeded model's near-uniform logits make exact tokens ill-posed,
+# so the tokens are compared only where every pick of the unsharded port's
+# loops wins by WHISPER_MARGIN times the 1e-5 of the largest logit that
+# the sharded logits are held to.
+WHISPER_EMB_SCALE = 10.0
+WHISPER_MARGIN = 10.0
+
+
+def _whisper_item():
+    """(JAX config, the inputs the ranks get): the port's seeded tree, a mel
+    batch (3, 80, 200), teacher-forcing tokens, a greedy prompt and budget,
+    two long-form files of 4 and 2.5 s (2 s windows)."""
+    from ssak_tpu_torch.models import whisper as TWh
+    from ssak_tpu_torch.models.convert import whisper_to_tree
+
+    jcfg = JWh.make_config("tiny_test", n_vocab=130, n_audio_head=2, n_text_head=4, dtype="float32")
+    fields = {f.name for f in dataclasses.fields(TWh.WhisperConfig)}
+    cfg = TWh.WhisperConfig(**{k: v for k, v in dataclasses.asdict(jcfg).items() if k in fields})
+    tree = whisper_to_tree(TWh.init_params(torch.Generator().manual_seed(0), cfg))
+    tree["decoder"]["token_embedding"] = tree["decoder"]["token_embedding"] * np.float32(WHISPER_EMB_SCALE)
+    rng = np.random.RandomState(1)
+    item = dict(family="whisper", cfg=dataclasses.asdict(cfg), tree=tree,
+                mel=(rng.randn(3, cfg.n_mels, 200) * 0.3).astype(np.float32),
+                tokens=rng.randint(0, cfg.n_vocab, (3, 7)).astype(np.int64), prompt=[cfg.sot, cfg.no_timestamps],
+                max_tokens=8, long_audio=[(rng.randn(n) * 0.1).astype(np.float32) for n in (64000, 40000)],
+                lf_tokens=6)
+    return jcfg, item
+
+
+class _Margins:
+    """The least gap, in logit units, by which any pick of the port's
+    decode loops wins while installed: greedy's argmax over each step's
+    logits (top-1 against top-2), each draw's logits plus T times its
+    Gumbel noise (re-drawn from a copy of the generator's state), each
+    beam's K-th candidate against its (K+1)-th. Rows that have finished
+    and the prompt's steps count too, so the gap is a lower bound."""
+
+    def __init__(self):
+        from ssak_tpu_torch.models import whisper as TWh
+
+        self.W, self.least, self.greedy = TWh, float("inf"), False
+
+    def _gap(self, v, k=1):
+        v = torch.sort(v, dim=-1, descending=True).values
+        self.least = min(self.least, float((v[..., k - 1] - v[..., k]).min()))
+
+    def __enter__(self):
+        W = self.W
+        self.orig = (W._step, W._pick, W._top_k, W.greedy_decode)
+        step, pick, top_k, greedy = self.orig
+
+        def step_(*a, **kw):
+            logits, caches = step(*a, **kw)
+            if self.greedy:
+                self._gap(logits)
+            return logits, caches
+
+        def pick_(logits, temperature, generator):
+            score = logits
+            if temperature > 0:
+                g = torch.Generator(device=logits.device)
+                g.set_state(generator.get_state())
+                u = torch.rand(logits.shape, generator=g, device=logits.device, dtype=torch.float32)
+                score = logits - temperature * torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+            self._gap(score)
+            return pick(logits, temperature, generator)
+
+        def top_k_(x, k):
+            self._gap(x, k)
+            return top_k(x, k)
+
+        def greedy_(*a, **kw):
+            self.greedy = True
+            try:
+                return greedy(*a, **kw)
+            finally:
+                self.greedy = False
+
+        W._step, W._pick, W._top_k, W.greedy_decode = step_, pick_, top_k_, greedy_
+        return self
+
+    def __exit__(self, *exc):
+        self.W._step, self.W._pick, self.W._top_k, self.W.greedy_decode = self.orig
+
+
+def _whisper_refs(jcfg, item):
+    """The port's loops unsharded (the least margin of their picks) and
+    ssak_tpu's references: decode_train logits unsharded and under its
+    shard_model at tp 2 and 4; greedy, beam 5 and the long-form loop at T
+    = 0."""
+    import test_torch_parallel_ranks as R
+    import ssak_tpu.infer.whisper_infer as JWI
+    from ssak_tpu.infer.general import LoadedModel, ModelType, shard_model
+
+    with _Margins() as margins:
+        port = R.whisper_decode_runs(R.whisper_model(item), item)
+    params = jax.tree.map(jnp.asarray, item["tree"])
+    mel, toks = jnp.asarray(item["mel"]), jnp.asarray(item["tokens"].astype(np.int32))
+    fn = jax.jit(lambda p, t, m: JWh.decode_train(p, t, JWh.encode(p, m, jcfg), jcfg))
+    train = {"dense": np.asarray(fn(params, toks, mel))}
+    for tp in (2, 4):
+        m = shard_model(LoadedModel(ModelType.WHISPER, params, jcfg, None), model_axis=tp)
+        with m.mesh:
+            train[tp] = np.asarray(fn(m.params, toks, mel))
+    n, prompt = item["max_tokens"], item["prompt"]
+    greedy = jax.jit(lambda p, m: JWh.greedy_decode(p, m, jcfg, prompt, max_tokens=n)[0])
+    beam = jax.jit(lambda p, m: JWh.beam_decode(p, m, jcfg, prompt, beam_size=5, max_tokens=n)[0])
+    ref = {"decode_train": train, "greedy": np.asarray(greedy(params, mel)), "beam": np.asarray(beam(params, mel)),
+           "longform_t0": JWI.transcribe_longform_batch(LoadedModel(ModelType.WHISPER, params, jcfg, None),
+                                                        item["long_audio"], temperatures=(0.0,),
+                                                        max_tokens=item["lf_tokens"])}
+    return {"port": port, "margin": margins.least, "jax": ref}
+
+
 MOE_CAPACITY_FACTORS = (1.25, 0.5)
 MOE_OPT = dict(learning_rate=3e-3, warmup_steps=1, total_steps=40, schedule="constant")
 MOE_STEPS, MOE_COMPARED_STEPS = 15, 3
@@ -297,13 +419,16 @@ def world4(tmp_path_factory):
     step_inp, step_ref = _step_inputs()
     sp_inp, sp_refs = _sp_inputs()
     moe_inp, moe_ref = _moe_inputs()
+    jcfg, whisper = _whisper_item()
     inp = {"tp": {k: {kk: vv for kk, vv in v.items() if kk not in ("jcfg", "params")} for k, v in tp.items()},
-           "gpipe": {"fwd": fwd, "grads": grads_inp, "step": step_inp}, "sp": sp_inp, "moe": moe_inp}
+           "gpipe": {"fwd": fwd, "grads": grads_inp, "step": step_inp}, "sp": sp_inp, "moe": moe_inp,
+           "whisper": whisper}
     t1 = time.perf_counter()
     ranks = spawn("main", 4, inp, tmp_path_factory.mktemp("world4"))
     print(f"world4: references {t1 - t0:.1f} s, ranks {time.perf_counter() - t1:.1f} s")
-    return {"ranks": ranks, "tp": tp, "tp_refs": _jax_tp_refs(tp), "gpipe": gpipe_refs, "grads": grads_ref,
-            "step": step_ref, "sp": sp_refs, "moe": moe_ref}
+    return {"ranks": ranks, "tp": {**tp, "whisper": whisper}, "tp_refs": _jax_tp_refs(tp), "gpipe": gpipe_refs,
+            "grads": grads_ref, "step": step_ref, "sp": sp_refs, "moe": moe_ref,
+            "whisper": _whisper_refs(jcfg, whisper)}
 
 
 # --- tensor parallelism ---------------------------------------------------------------------
@@ -347,16 +472,17 @@ def test_shard_model_marks_layers_and_keeps_indivisible_heads_replicated(world4,
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("name", ["w2v_post", "w2v_heads2", "conformer"])
+@pytest.mark.parametrize("name", ["w2v_post", "w2v_heads2", "conformer", "whisper"])
 def test_shard_model_slices_leaf_by_leaf(world4, name, tp):
     """Each rank's slice of every sharded parameter is the JAX leaf cut by
     ssak_tpu's spec (read in the (in, out) layout) at the rank's index on
-    'model', then laid out as the port's (out, in) weight."""
-    from ssak_tpu.parallel.sharding import CONFORMER_RULES, WAV2VEC2_RULES, partition_spec_for
+    'model', then laid out as the port's (out, in) weight; Whisper's token
+    embedding keeps its rows (ids) [r V / tp, (r + 1) V / tp)."""
+    from ssak_tpu.parallel.sharding import CONFORMER_RULES, WAV2VEC2_RULES, WHISPER_RULES, partition_spec_for
     from ssak_tpu_torch.parallel.sharding import tree_path
 
     item = world4["tp"][name]
-    rules = CONFORMER_RULES if item["family"] == "conformer" else WAV2VEC2_RULES
+    rules = {"conformer": CONFORMER_RULES, "whisper": WHISPER_RULES}.get(item["family"], WAV2VEC2_RULES)
     jmesh = type("M", (), {"shape": {"data": 4 // tp, "model": tp}})()
     for r in world4["ranks"]:
         got = r[f"tp{tp}/{name}"]
@@ -373,6 +499,122 @@ def test_shard_model_slices_leaf_by_leaf(world4, name, tp):
             if path.endswith("/kernel"):
                 want = want.T
             np.testing.assert_array_equal(local, want, err_msg=pname)
+
+
+# --- Whisper's tensor-parallel decode ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_whisper_shard_model_places_every_leaf_as_ssak_tpu(world4, tp):
+    """Every leaf that ssak_tpu's WHISPER_RULES shard on (data 4 / tp,
+    model tp) is cut on every rank, but for an attention whose heads do not
+    divide (the encoder's 2 at tp 4: whole, no collective); nothing else is
+    cut. q/k/v and fc1 are column-, out and fc2 row-parallel in the encoder
+    and in both decoder attentions; the token embedding is cut at tp 2 (V =
+    130 rows, 65 a rank) and whole at tp 4, as ssak_tpu's rules keep a
+    vocabulary that does not divide."""
+    from ssak_tpu.parallel.sharding import WHISPER_RULES, partition_spec_for
+    from ssak_tpu_torch.models import whisper as TWh
+    from ssak_tpu_torch.parallel.mesh import shardings_like
+    from ssak_tpu_torch.parallel.sharding import tree_path
+
+    item = world4["whisper"]
+    jmesh = type("M", (), {"shape": {"data": 4 // tp, "model": tp}})()
+    module = TWh.init_params(torch.Generator().manual_seed(0), TWh.WhisperConfig(**world4["tp"]["whisper"]["cfg"]))
+    specs = shardings_like(module, {"data": 4 // tp, "model": tp}, WHISPER_RULES)
+    for r in world4["ranks"]:
+        got = r[f"tp{tp}/whisper"]
+        cut = {tree_path(n) for n in got["shards"]}
+        want = set()
+        for path, spec in specs.items():
+            node = world4["tp"]["whisper"]["tree"]
+            for part in path.strip("/").split("/"):
+                node = node[int(part)] if isinstance(node, list) else node[part]
+            assert spec == partition_spec_for(path, np.asarray(node), WHISPER_RULES, jmesh), path
+            whole_heads = tp == 4 and path.startswith("/encoder/") and "/attn/" in path
+            if any(a is not None for a in spec) and not whole_heads:
+                want.add(path)
+        assert cut == want
+        assert ("/decoder/token_embedding" in cut) == (tp == 2)
+        assert got["vocab_tp"] == ("vocab" if tp == 2 else None)
+        for pre in ("decoder.blocks.1.attn", "decoder.blocks.0.cross_attn") + (("encoder.blocks.0.attn",) if tp == 2 else ()):
+            assert got["tp_size"][pre] == tp
+            assert [got["modes"][f"{pre}.{k}"] for k in ("query", "key", "value", "out")] == ["col"] * 3 + ["row"]
+        assert got["tp_size"]["encoder.blocks.0.attn"] == (2 if tp == 2 else 1)
+        assert got["modes"]["encoder.blocks.1.mlp.fc1"] == "col" and got["modes"]["decoder.blocks.0.mlp.fc2"] == "row"
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_whisper_decode_train_matches_ssak_tpu(world4, tp):
+    """Teacher-forced logits (f32) of every rank within 1e-5 of their
+    largest value of ssak_tpu's unsharded ones and of ssak_tpu's under its
+    shard_model at the same tp, and equal bit for bit across ranks (the
+    tied logits are all-gathered)."""
+    ref = world4["whisper"]["jax"]["decode_train"]
+    got = [r[f"tp{tp}/whisper"]["decode_train"] for r in world4["ranks"]]
+    tol = 1e-5 * float(np.abs(ref["dense"]).max())
+    for g in got:
+        assert g.shape == ref["dense"].shape
+        assert np.abs(g - ref["dense"]).max() <= tol
+        assert np.abs(g - ref[tp]).max() <= tol
+        np.testing.assert_array_equal(g, got[0])
+
+
+def _segments_equal(got, want, rel=1e-4):
+    """Long-form results: the same texts and segments (tokens, seek,
+    start, end, temperature); the scores to `rel`."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g["text"] == w["text"] and len(g["segments"]) == len(w["segments"]) > 0
+        for a, b in zip(g["segments"], w["segments"]):
+            assert (a["tokens"], a["seek"], a["temperature"]) == (b["tokens"], b["seek"], b["temperature"])
+            assert a["start"] == pytest.approx(b["start"]) and a["end"] == pytest.approx(b["end"])
+            assert a["avg_logprob"] == pytest.approx(b["avg_logprob"], rel=rel)
+            assert a["no_speech_prob"] == pytest.approx(b["no_speech_prob"], rel=rel)
+
+
+def _step_logits_close(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.abs(g - w).max() <= 1e-5 * float(np.abs(w).max())
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("loop", ["greedy", "beam", "sample", "fallback", "longform"])
+def test_whisper_decode_loops_on_rank_heads(world4, tp, loop):
+    """Every decode loop on the ranks' heads gives the tokens of the port's
+    unsharded run on every rank (each rank took the same host branches: a
+    rank that branched alone would leave its peers in a collective, and
+    spawn() would fail on its timeout), and ssak_tpu's where it decodes at
+    T = 0 (greedy, beam 5, the long-form loop at T = 0; at T > 0 ssak_tpu
+    draws from another generator). Sampling is best_of 3 at T = 0.6 with
+    one seed on every rank; transcribe_with_fallback and the long-form loop
+    run a chain of three temperatures to its end (logprob_threshold 0,
+    best_of 3).
+    Each cached step's logits within 1e-5 of their largest value. Well
+    posed: every pick of the unsharded loops wins by at least WHISPER_MARGIN
+    times that tolerance."""
+    w = world4["whisper"]
+    tol = 1e-5 * float(np.abs(w["port"]["decode_train"]).max())
+    assert w["margin"] >= WHISPER_MARGIN * tol, (w["margin"], tol)
+    port, jref = w["port"], w["jax"]
+    for r in world4["ranks"]:
+        got = r[f"tp{tp}/whisper"]
+        if loop in ("greedy", "beam", "sample"):
+            np.testing.assert_array_equal(got[loop]["tokens"], port[loop]["tokens"])
+            np.testing.assert_array_equal(got[loop]["lengths"], port[loop]["lengths"])
+            if loop in jref:
+                np.testing.assert_array_equal(got[loop]["tokens"], jref[loop])
+            if loop != "beam":
+                _step_logits_close(got[loop]["step_logits"], port[loop]["step_logits"])
+        elif loop == "fallback":
+            assert got["fallback"] == port["fallback"] and len(got["fallback"]) == 3
+        else:
+            _segments_equal(got["longform"], port["longform"])
+            _segments_equal(got["longform_t0"], port["longform_t0"])
+            _segments_equal(got["longform_t0"], jref["longform_t0"])
+            _step_logits_close(got["longform_t0_step_logits"], port["longform_t0_step_logits"])
+    assert {s["temperature"] for res in port["longform"] for s in res["segments"]} == {1.0}  # the chain ran to its end
 
 
 # --- pipeline ------------------------------------------------------------------------------------
@@ -546,6 +788,7 @@ def _without_experts(tree):
 
 
 DP_OPT = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+WHISPER_INFER_TOKENS = 12
 
 
 @pytest.fixture(scope="module")
@@ -573,7 +816,7 @@ def world2(tmp_path_factory, tmp_audio_dir):
     tarred = str(tmp / "tarred")
     create_tarred_dataset(rows, tarred, buckets=(1.0,), shard_size=2)  # 4 shards
     inp = {"files": files, "dp": {"cfg": dataclasses.asdict(cfg), "tree": params, "batch": batch, "opt": DP_OPT},
-           "tarred": tarred}
+           "tarred": tarred, "whisper": _whisper_item()[1], "whisper_max_tokens": WHISPER_INFER_TOKENS}
     dp_ref = _sharded_steps(cfg, params, batch, _mesh(("data", "model"), (2, 1)), WAV2VEC2_RULES, DP_OPT, 3)
     return {"ranks": spawn("pair", 2, inp, tmp / "ranks"), "inp": inp, "rows": rows, "dp_ref": dp_ref}
 
@@ -584,6 +827,63 @@ def test_ctc_infer_tensor_parallel_equals_one_rank(world2):
     one = list(ctc_infer(None, world2["inp"]["files"], seeded_test_config="wav2vec2", device="cpu", output_ids=True))
     assert world2["ranks"][0]["texts"] == one and len(one) == 3
     assert world2["ranks"][1]["texts"] == []  # rank 0 yields the transcripts
+
+
+def test_whisper_infer_tensor_parallel_rank0_yields(world2):
+    """whisper_infer(tensor_parallel=2) on the seeded tiny Whisper: rank 0
+    yields one (id, text) a file in order, the other rank nothing. With
+    --load_in_8bit every unit stays whole and only the embedding is cut,
+    so the logits are the unsharded model's bit for bit
+    (test_whisper_quantized_tp_keeps_units_whole) and the transcripts are
+    one rank's. In bf16 the row-parallel sums round in another order, and
+    the seeded model's near-uniform logits make its tokens ill-posed: its
+    transcripts are held only to their ids."""
+    from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+
+    files = world2["inp"]["files"]
+    ids = [os.path.splitext(os.path.basename(f))[0] for f in files]
+    one = list(whisper_infer(None, files, seeded_test_config="whisper", quantize_bits=8, device="cpu",
+                             output_ids=True, max_tokens=WHISPER_INFER_TOKENS))
+    assert world2["ranks"][0]["whisper_texts"][8] == one and [i for i, _ in one] == ids
+    bf16 = world2["ranks"][0]["whisper_texts"][0]
+    assert [i for i, _ in bf16] == ids
+    assert all(t and all(0 <= int(x) < 128 for x in t.split()) for _, t in bf16)
+    assert all(r["whisper_texts"] == {0: [], 8: []} for r in world2["ranks"][1:])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_whisper_quantized_tp_keeps_units_whole(world2, bits):
+    """The tiny Whisper quantized (int8 or int4 weights, int8 K/V caches)
+    and sharded at tp 2: ssak_tpu's rules match only float kernels, so
+    every attention and MLP holding a quantized layer stays whole (no
+    dense is marked, every tp_size is 1) and K2 / K3 would run whole on
+    each rank; only the float token embedding is cut (65 of 130 rows).
+    The teacher-forced and every greedy step's logits are the unsharded
+    quantized model's bit for bit (the lookup's sum over ranks is exact and
+    each logit is the same dot product), and so are the tokens."""
+    for r in world2["ranks"]:
+        q = r["whisper_quantized"][f"int{bits}"]
+        assert q["modes"] == {} and set(q["tp_size"].values()) == {1} and q["vocab_tp"] == "vocab"
+        assert list(q["shards"]) == ["decoder.token_embedding"] and q["shards"]["decoder.token_embedding"].shape[0] == 65
+        np.testing.assert_array_equal(q["tp2"]["decode_train"], q["dense"]["decode_train"])
+        np.testing.assert_array_equal(q["tp2"]["tokens"], q["dense"]["tokens"])
+        assert len(q["tp2"]["step_logits"]) == len(q["dense"]["step_logits"]) > 0
+        for a, b in zip(q["tp2"]["step_logits"], q["dense"]["step_logits"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_whisper_infer_tensor_parallel_needs_a_process_group(monkeypatch):
+    """tensor_parallel without a process group (no torchrun environment)
+    raises ValueError at the call, naming torchrun; so does shard_model."""
+    from ssak_tpu_torch.infer.general import load_model, shard_model
+    from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
+        whisper_infer(None, [np.zeros(1600, np.float32)], seeded_test_config="whisper", tensor_parallel=2,
+                      device="cpu")
+    with pytest.raises(ValueError, match="process group"):
+        shard_model(load_model(None, seeded_test_config="whisper", device="cpu"), model_axis=2)
 
 
 def test_shard_train_step_on_two_ranks_equals_one_rank(world2):
@@ -664,3 +964,32 @@ def test_ctc_infer_cli_under_torchrun(tmp_path):
     assert two.returncode == 0, two.stderr[-3000:]
     lines = (tmp_path / "two.txt").read_text().splitlines()
     assert lines == (tmp_path / "one.txt").read_text().splitlines() and len(lines) == 2
+
+
+def test_whisper_infer_cli_under_torchrun(tmp_path):
+    """python -m torch.distributed.run --nproc_per_node 2 -m
+    ssak_tpu_torch.infer.whisper_infer ... --tensor_parallel 2
+    --dist_backend gloo --load_in_8bit --device cpu: rank 0 alone writes
+    --output, one line a file with one rank's transcript (int8: the sharded
+    logits are the unsharded ones bit for bit,
+    test_whisper_quantized_tp_keeps_units_whole)."""
+    from ssak_tpu_torch.audio.io import save_audio
+    from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+
+    d = tmp_path / "data"
+    d.mkdir()
+    rng = np.random.RandomState(9)
+    with open(d / "wav.scp", "w") as f:
+        for i, n in enumerate((6000, 12000)):
+            save_audio(str(d / f"u{i}.wav"), (rng.randn(n) * 0.1).astype(np.float32), 16000)
+            f.write(f"utt{i} {d / f'u{i}.wav'}\n")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    two = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                          "-m", "ssak_tpu_torch.infer.whisper_infer", str(d), "none", "--seeded_test_config", "whisper",
+                          "--load_in_8bit", "--device", "cpu", "--tensor_parallel", "2", "--dist_backend", "gloo",
+                          "--output", str(tmp_path / "two.txt")],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert two.returncode == 0, two.stderr[-3000:]
+    one = whisper_infer(None, str(d), seeded_test_config="whisper", quantize_bits=8, device="cpu", output_ids=True)
+    lines = (tmp_path / "two.txt").read_text().splitlines()
+    assert lines == [f"{i} {t}" for i, t in one] and [line.split(" ", 1)[0] for line in lines] == ["utt0", "utt1"]

@@ -67,10 +67,10 @@ def _tp_log_probs(item, mesh):
 
 def task_main(rank, world, inp):
     """The world of 4: tensor parallelism at tp 4 (mesh 1 x 4) and tp 2
-    (mesh 2 x 2), GPipe forward at (2, 2) and (1, 4), GPipe gradients at
-    (2, 2), the PP step over 8 steps at (2, 2), sequence parallelism at
-    (2, 2) and (1, 4), expert-sharded MoE at (1, 4), MoE CTC training at
-    (data 2, expert 2)."""
+    (mesh 2 x 2), CTC models and Whisper's decode, GPipe forward at (2, 2)
+    and (1, 4), GPipe gradients at (2, 2), the PP step over 8 steps at (2,
+    2), sequence parallelism at (2, 2) and (1, 4), expert-sharded MoE at
+    (1, 4), MoE CTC training at (data 2, expert 2)."""
     from ssak_tpu_torch.parallel.mesh import make_mesh
 
     out = {}
@@ -79,9 +79,142 @@ def task_main(rank, world, inp):
     for name, item in inp["tp"].items():
         out[f"tp4/{name}"] = _tp_log_probs(item, mesh14)
         out[f"tp2/{name}"] = _tp_log_probs(item, mesh22)
+    for tp, mesh in ((4, mesh14), (2, mesh22)):
+        out[f"tp{tp}/whisper"] = _whisper_tp(inp["whisper"], mesh)
     out.update(_gpipe(inp["gpipe"]))
     out.update(_sp(inp["sp"]))
     out.update(_moe(inp["moe"]))
+    return out
+
+
+def whisper_model(item, bits=0):
+    """The f32 Whisper of item["tree"] on the CPU, quantized to `bits` (8
+    or 4) with int8 K/V caches as load_model quantizes."""
+    import dataclasses
+
+    from ssak_tpu_torch.infer.general import from_tree
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.models.quant import quantize_params
+
+    cfg = W.WhisperConfig(**item["cfg"])
+    if bits:
+        cfg = dataclasses.replace(cfg, kv_int8=True)
+    m = from_tree(item["tree"], cfg, device="cpu")
+    if bits:
+        quantize_params(m.module, bits=bits)
+    return m
+
+
+class StepLogits:
+    """Records the logits of every cached decoder step (models.whisper._step)
+    while installed."""
+
+    def __init__(self):
+        from ssak_tpu_torch.models import whisper as W
+
+        self.W, self.orig, self.logits = W, W._step, []
+
+    def __enter__(self):
+        def step(*a, **kw):
+            logits, caches = self.orig(*a, **kw)
+            self.logits.append(_np(logits))
+            return logits, caches
+
+        self.W._step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.W._step = self.orig
+
+
+# The temperature chain of the fallback and long-form runs: T = 0, then two sampled retries (every collective
+# of a decode step waits for all the ranks, so the spawned ranks run few steps)
+TEMPERATURES = (0.0, 0.5, 1.0)
+
+
+def whisper_decode_runs(m, item):
+    """Every Whisper decode loop of the port on `m` (sharded or not) over
+    item's inputs: teacher-forced logits, greedy (tokens and each step's
+    logits), beam 5, sampling best_of 3 at T = 0.6, transcribe_with_fallback
+    (beam 5, then best_of 3 at each of TEMPERATURES: logprob_threshold 0
+    sends every row through the whole chain), and the long-form seek loop
+    with timestamps, at T = 0 alone and through the chain with best_of 3."""
+    from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch, transcribe_with_fallback
+    from ssak_tpu_torch.models import whisper as W
+
+    cfg, mod = m.cfg, m.module
+    mel = torch.tensor(item["mel"])
+    prompt, n = item["prompt"], item["max_tokens"]
+    out = {}
+    with torch.no_grad():
+        out["decode_train"] = _np(W.decode_train(mod, torch.tensor(item["tokens"]), W.encode(mod, mel, cfg), cfg))
+    with StepLogits() as rec:
+        tokens, lengths = W.greedy_decode(mod, mel, cfg, prompt, max_tokens=n)
+    out["greedy"] = {"tokens": tokens.numpy(), "lengths": lengths.numpy(), "step_logits": rec.logits}
+    tokens, lengths, scores = W.beam_decode(mod, mel, cfg, prompt, beam_size=5, max_tokens=n)
+    out["beam"] = {"tokens": tokens.numpy(), "lengths": lengths.numpy(), "scores": scores.numpy()}
+    with StepLogits() as rec:
+        tokens, lengths, acc = W.sample_decode(mod, mel, cfg, prompt, seed=3, temperature=0.6, max_tokens=n, best_of=3)
+    out["sample"] = {"tokens": tokens.numpy(), "lengths": lengths.numpy(), "sum_logprob": acc.numpy(),
+                     "step_logits": rec.logits}
+    out["fallback"] = transcribe_with_fallback(m, mel, prompt, max_tokens=n, beam_size=5, best_of=3,
+                                               temperatures=TEMPERATURES, logprob_threshold=0.0)
+    audios = [np.asarray(a, np.float32) for a in item["long_audio"]]
+    with StepLogits() as rec:
+        out["longform_t0"] = transcribe_longform_batch(m, audios, temperatures=(0.0,), max_tokens=item["lf_tokens"])
+    out["longform_t0_step_logits"] = rec.logits
+    out["longform"] = transcribe_longform_batch(m, audios, best_of=3, temperatures=TEMPERATURES,
+                                                logprob_threshold=0.0, max_tokens=item["lf_tokens"])
+    return out
+
+
+def _tp_marks(module):
+    """What shard_params cut and marked: each cut parameter's slice, each
+    dense layer's mode, each attention's tp_size, the embedding's mark."""
+    from ssak_tpu_torch.models import layers as L
+
+    return {"shards": {name: _np(p) for name, p in module.named_parameters() if hasattr(p, "shard_group")},
+            "modes": {name: mod.tp.mode for name, mod in module.named_modules()
+                      if isinstance(mod, L._Dense) and mod.tp is not None},
+            "tp_size": {name: mod.tp_size for name, mod in module.named_modules()
+                        if isinstance(mod, L.MultiHeadAttention)},
+            "vocab_tp": getattr(module.decoder.vocab_tp, "mode", None)}
+
+
+def _whisper_tp(item, mesh):
+    """The tiny f32 Whisper sharded by shard_model over the mesh's 'model'
+    dim: its marks and every decode loop (whisper_decode_runs)."""
+    from ssak_tpu_torch.infer.general import shard_model
+
+    m = whisper_model(item)
+    shard_model(m, mesh=mesh)
+    return {**_tp_marks(m.module), **whisper_decode_runs(m, item), "model_rank": mesh.get_local_rank("model")}
+
+
+def _whisper_quantized_tp(item):
+    """The tiny Whisper quantized to int8 and int4 (int8 K/V caches),
+    unsharded and sharded at tp 2: the marks, the teacher-forced logits and
+    greedy's tokens and step logits of both."""
+    from ssak_tpu_torch.infer.general import shard_model
+    from ssak_tpu_torch.models import whisper as W
+    from ssak_tpu_torch.parallel.mesh import make_mesh
+
+    mel = torch.tensor(item["mel"])
+    out = {}
+    for bits in (8, 4):
+        res = {}
+        for tag in ("dense", "tp2"):
+            m = whisper_model(item, bits)
+            if tag == "tp2":
+                shard_model(m, mesh=make_mesh(model=2, device_type="cpu"))
+                res.update(_tp_marks(m.module))
+            cfg, mod = m.cfg, m.module
+            with torch.no_grad():
+                train = W.decode_train(mod, torch.tensor(item["tokens"]), W.encode(mod, mel, cfg), cfg)
+            with StepLogits() as rec:
+                tokens, _ = W.greedy_decode(mod, mel, cfg, item["prompt"], max_tokens=item["max_tokens"])
+            res[tag] = {"decode_train": _np(train), "tokens": tokens.numpy(), "step_logits": rec.logits}
+        out[f"int{bits}"] = res
     return out
 
 
@@ -232,16 +365,24 @@ def _moe(inp):
 
 def task_pair(rank, world, inp):
     """The world of 2: ctc_infer --tensor_parallel 2 on the seeded tiny
-    wav2vec2, shard_train_step over 2 data ranks, the tarred interleave
-    and a cross-process all-reduce, and replicate."""
+    wav2vec2 and whisper_infer --tensor_parallel 2 on the seeded tiny
+    Whisper, the quantized Whisper at tp 2, shard_train_step over 2 data
+    ranks, the tarred interleave and a cross-process all-reduce, and
+    replicate."""
     from ssak_tpu_torch.infer.ctc_infer import ctc_infer
     from ssak_tpu_torch.models import wav2vec2 as W2V
     from ssak_tpu_torch.models.convert import wav2vec2_from_tree, wav2vec2_to_tree
     from ssak_tpu_torch.parallel.mesh import make_mesh
     from ssak_tpu_torch.train.steps import init_train_state, make_ctc_train_step, make_optimizer, shard_train_step
 
+    from ssak_tpu_torch.infer.whisper_infer import whisper_infer
+
     out = {"texts": list(ctc_infer(None, inp["files"], seeded_test_config="wav2vec2", tensor_parallel=2,
                                    device="cpu", output_ids=True))}
+    out["whisper_texts"] = {bits: list(whisper_infer(None, inp["files"], seeded_test_config="whisper", tensor_parallel=2,
+                                                     quantize_bits=bits, device="cpu", output_ids=True,
+                                                     max_tokens=inp["whisper_max_tokens"])) for bits in (0, 8)}
+    out["whisper_quantized"] = _whisper_quantized_tp(inp["whisper"])
     d = inp["dp"]
     cfg = W2V.Wav2Vec2Config(**d["cfg"])
     model = wav2vec2_from_tree(d["tree"])

@@ -192,8 +192,10 @@ class _OneRankMesh:
 def test_moe_and_unported_raise():
     """The Mixture-of-Experts FFN is ported (slice 8g): a seeded model and
     an ssak_tpu tree both build, each block's `moe` in place of its `mlp`.
-    What stays unported still raises: a tensor-parallel cut of a leaf that
-    only Whisper's decode shards (its token embedding, slice 8h)."""
+    Whisper's tensor-parallel cut is ported too (slice 8h): shard_params
+    with WHISPER_RULES cuts its token embedding along the vocabulary (rank
+    0's ids of 2) and marks its module, and splits each attention by its
+    own head count."""
     from ssak_tpu_torch.models import whisper as TWh
     from ssak_tpu_torch.parallel.mesh import shard_params
     from ssak_tpu_torch.parallel.sharding import WHISPER_RULES
@@ -203,7 +205,12 @@ def test_moe_and_unported_raise():
     cfg = JW.make_config("tiny_test", num_experts=2)
     blk = wav2vec2_from_tree(_tree(cfg)).encoder.blocks[0]
     assert blk.mlp is None and tuple(blk.moe.w1.shape) == (2, cfg.hidden_size, cfg.intermediate_size)
-    wcfg = TWh.make_config("tiny_test")
+    wcfg = TWh.make_config("tiny_test", n_text_head=4)
     whisper = TWh.init_params(torch.Generator().manual_seed(0), wcfg)
-    with pytest.raises(NotImplementedError, match="8h"):
-        shard_params(whisper, _OneRankMesh("model", 2), WHISPER_RULES, num_heads=wcfg.n_audio_head)
+    table = whisper.decoder.token_embedding.clone()
+    shard_params(whisper, _OneRankMesh("model", 2), WHISPER_RULES,
+                 num_heads={"encoder": wcfg.n_audio_head, "decoder": wcfg.n_text_head})
+    assert torch.equal(whisper.decoder.token_embedding, table[: wcfg.n_vocab // 2])
+    assert whisper.decoder.vocab_tp.mode == "vocab"
+    assert whisper.encoder.blocks[0].attn.tp_size == whisper.decoder.blocks[0].cross_attn.tp_size == 2
+    assert tuple(whisper.decoder.blocks[0].attn.query.weight.shape) == (wcfg.n_text_state // 2, wcfg.n_text_state)

@@ -155,12 +155,15 @@ def test_transcribe_batch_from_wav_files(tiny, tmp_path):
 
 
 def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
-    """What still needs a later slice raises at the call: tensor-parallel
-    Whisper decode (8h); a quantized CTC model (slice 8b) loads. NeMo checkpoints are read
-    (slice 7): an archive that is not there, or a directory without its
-    weights, raises FileNotFoundError. A model without a tokenizer ignores
-    language= and task=, as ssak_tpu's does. Long-form audio and the
-    accurate chain run."""
+    """Paths of later slices run or raise for what they lack: a quantized
+    CTC model (slice 8b) loads; tensor-parallel Whisper (slice 8h) shards
+    (on a mesh, here one rank's view of a 'model' dim of 2: half of every
+    attention and MLP, the token embedding's first half of the ids), and
+    without a process group shard_model raises ValueError. NeMo
+    checkpoints are read (slice 7): an archive that is not there, or a
+    directory without its weights, raises FileNotFoundError. A model
+    without a tokenizer ignores language= and task=, as ssak_tpu's does.
+    Long-form audio and the accurate chain run."""
     from ssak_tpu_torch.infer.general import load_model, shard_model
     from ssak_tpu_torch.infer.whisper_infer import transcribe_longform_batch, whisper_infer
 
@@ -175,8 +178,18 @@ def test_transcribe_batch_not_ported_paths_raise(tiny, tmp_path):
         whisper_infer(str(tmp_path / "nemo"), [long_audio], device="cpu")
     q = load_model(None, seeded_test_config="wav2vec2", quantize_bits=8, device="cpu")
     assert q.module.encoder.blocks[0].mlp.fc1.bits == 8 and not hasattr(q.cfg, "kv_int8")
-    with pytest.raises(NotImplementedError, match="8h"):
+    with pytest.raises(ValueError, match="process group"):
         shard_model(m)
+    half = from_tree(params, _port_cfg(cfg), device="cpu")
+    mesh = type("OneRankMesh", (), {"mesh_dim_names": ("model",), "size": lambda self, i: 2,
+                                    "__getitem__": lambda self, name: type("Dim", (), {"get_group": lambda self: None})(),
+                                    "get_local_rank": lambda self, name: 0})()
+    assert shard_model(half, mesh=mesh).mesh is mesh
+    dec = half.module.decoder
+    assert dec.vocab_tp.mode == "vocab" and dec.token_embedding.shape[0] == cfg.n_vocab // 2
+    np.testing.assert_array_equal(dec.token_embedding.numpy(), params["decoder"]["token_embedding"][: cfg.n_vocab // 2])
+    assert dec.blocks[0].cross_attn.tp_size == half.module.encoder.blocks[1].attn.tp_size == 2
+    assert dec.blocks[1].mlp.fc2.tp.mode == "row" and dec.blocks[1].mlp.fc2.weight.shape[1] == 2 * cfg.n_text_state
     short = long_audio[:3000]
     assert whisper_transcribe_batch(m, [short], language="fr", max_tokens=3) == whisper_transcribe_batch(m, [short], max_tokens=3)
     assert len(whisper_transcribe_batch(m, [short], task="translate", beam_size=5, max_tokens=3)) == 1
