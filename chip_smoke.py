@@ -6,7 +6,9 @@
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. build   compile csrc/*.cu with nvcc for sm_90a (one process per source);
-             L1's wgmma kernels batched in their SASS (cuobjdump)
+             L1's wgmma kernels batched in their SASS (cuobjdump); the
+             card's dense bf16 peak read by utils.flops.peak_flops (every
+             bound's), and whether matplotlib is installed on this host
   2. kernels each kernel's wrapper at the main path's shapes against its
              plain PyTorch version on the card, with CUDA-event timings of
              the kernel, the plain version and one library call, and the
@@ -141,6 +143,15 @@ and prints no result):
              log-probs correlated >= 0.999 with the unsharded model's; CER
              logged) and sp_serving (ctc_log_probs_sp of a 140 s row over
              'seq' 2 against compute_log_probas through L1, >= 0.999); then
+             host_modules (slice 8i) on the same directory, loaded once with
+             a seeded two-class classifier head: utils.gender.classify_speech
+             on a serving file of >= 90 s (L1 forward once a layer, nothing
+             else), untraced and inside utils.monitoring.profile_trace and
+             annotate (the Chrome-trace JSON holds the region and >= 24 L1
+             kernels; probabilities finite, summing to 1 within 1e-6);
+             device_memory_stats against torch.cuda.max_memory_allocated;
+             utils.flops.peak_flops beside the card's name and power limit;
+             predict_gender_kaldi_dir over the corpus's first 8 files; then
              moe_training (wav2vec2-base with 4 experts, top 2, through
              shard_train_step at world size 1, B=8 x 15 s, 4 steps, K1 4)
              and pp_training (make_pp_ctc_train_step, pipe 1, 2
@@ -181,6 +192,7 @@ The last line is {"ok": true, "device": {...}}.
 
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -202,7 +214,7 @@ ACC_FILES, ACC_SECONDS = 4, 20.0  # the accurate chain's Kaldi dir: one window b
 LF_FILES, LF_SECONDS = 4, 70.0  # long-form: 3 windows a file, 4 rows (x 5 candidates = 20 rows)
 TP_HEADS = 10  # large-v3's 20 heads on each of 2 tensor-parallel ranks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+BF16_FLOPS = None  # the card's dense bf16 tensor-core peak: card_peak()
 F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
 CTC_FILES, CTC_EVAL_FILES, CTC_BATCH, CTC_STEPS = 64, 32, 32, 8
 L2_BYTES = 50 * 2**20
@@ -216,8 +228,24 @@ def log(msg):
     print(f"[chip_smoke {time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
-def bound(n_bytes, n_flops, peak=BF16_FLOPS):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
+def card_peak():
+    """The card's dense bf16 tensor-core peak FLOP/s, read once from
+    utils.flops.peak_flops; raises for a card outside its table."""
+    global BF16_FLOPS
+    if BF16_FLOPS is None:
+        import torch
+
+        from ssak_tpu_torch.utils.flops import peak_flops
+
+        BF16_FLOPS = peak_flops()
+        if BF16_FLOPS is None:
+            raise RuntimeError(f"utils.flops.peak_flops knows no bf16 peak for {torch.cuda.get_device_name(0)}: "
+                               "the kernels' bounds need one")
+    return BF16_FLOPS
+
+
+def bound(n_bytes, n_flops, peak=None):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / (card_peak() if peak is None else peak)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3928,6 +3956,115 @@ def run_vad(torch, dev):
     return res
 
 
+# --- phase 3: the host-only modules (slice 8i) -------------------------------------------------
+
+HOST_MIN_SECONDS = 90.0  # the classified file: at least this long, so the encoder runs >= FLASH_MIN_SEQ frames (L1)
+HOST_GENDER_FILES = 8  # predict_gender_kaldi_dir over the serving corpus's first 8 files (12-28 s; the line's 20 s)
+L1_FWD_KERNEL = "fwd_kernel"  # L1 forward's __global__ in csrc/flash_attention.cu, as the trace names it
+
+
+def run_host_modules(torch, dev, root, model_dir, corpus, ids, lens, card):
+    """Slice 8i on the card: the xlsr directory loaded once (timed) with a
+    seeded two-class classifier head; utils.gender.classify_speech on one
+    serving-corpus file of >= 90 s, untraced and then inside
+    utils.monitoring.profile_trace and annotate("host_modules.classify"):
+    L1 forward exactly once a layer in each call and no other kernel, the
+    probabilities finite and summing to 1 within 1e-6, the trace's JSON
+    holding the annotated region and >= 24 L1 forward kernels;
+    device_memory_stats("cuda") after the traced call: its peak > 0, <= the
+    card's memory, equal to torch.cuda.max_memory_allocated; utils.flops.
+    peak_flops beside the card's name and power limit (989e12 on an H100
+    SXM); predict_gender_kaldi_dir over the serving corpus's first files,
+    on the host, timed."""
+    import numpy as np
+
+    from ssak_tpu_torch.audio import load_audio
+    from ssak_tpu_torch.infer.general import load_model
+    from ssak_tpu_torch.models import layers as L
+    from ssak_tpu_torch.models.layers import FLASH_MIN_SEQ
+    from ssak_tpu_torch.models.wav2vec2 import feature_extract_output_length
+    from ssak_tpu_torch.utils.flops import peak_flops
+    from ssak_tpu_torch.utils.gender import classify_speech, predict_gender_kaldi_dir
+    from ssak_tpu_torch.utils.monitoring import annotate, device_memory_stats, profile_trace
+
+    tag = "host_modules"
+    t_line = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = load_model(model_dir, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model.module.classifier = L.linear_init(torch.Generator().manual_seed(8), model.cfg.hidden_size, 2).to(dev)
+    i = max((j for j, n in enumerate(lens) if HOST_MIN_SECONDS * 16000 <= n <= 140 * 16000), key=lambda j: lens[j])
+    audio = load_audio(os.path.join(corpus, ids[i] + ".wav"))
+    frames = int(feature_extract_output_length(model.cfg, len(audio)))
+    if frames < FLASH_MIN_SEQ:
+        raise AssertionError(f"{tag}: {ids[i]} gives {frames} frames, under L1's {FLASH_MIN_SEQ}")
+    classify_speech(model, audio)  # first call: allocator and library warm-up
+    want = {k: 0 for k in kernel_launches()}
+    want["flash_attention"] = model.cfg.num_layers
+
+    def classify():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = classify_speech(model, audio)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernel_launches()
+        p = np.array(list(probs.values()), np.float64)
+        if launches != want:
+            raise AssertionError(f"{tag}: launch counters {launches} != {want}")
+        if list(probs) != ["m", "f"] or not np.isfinite(p).all() or abs(p.sum() - 1.0) > 1e-6:
+            raise AssertionError(f"{tag}: probabilities {probs}")
+        return probs, secs, launches
+
+    probs, untraced_s, _ = classify()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile_trace(os.path.join(root, "trace")) as tr:
+        with annotate("host_modules.classify"):
+            traced_probs, traced_s, launches = classify()
+    mem = device_memory_stats("cuda")
+    max_alloc = torch.cuda.max_memory_allocated(dev)
+    if not 0 < mem["peak_bytes_in_use"] <= mem["bytes_limit"] or mem["peak_bytes_in_use"] != max_alloc:
+        raise AssertionError(f"{tag}: device_memory_stats {mem}, max_memory_allocated {max_alloc}")
+    if any(abs(traced_probs[k] - probs[k]) > 1e-6 for k in probs):
+        raise AssertionError(f"{tag}: traced probabilities {traced_probs} against untraced {probs}")
+    with open(tr.path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    regions = [e for e in events if e.get("name") == "host_modules.classify"]
+    l1_events = [e for e in events if e.get("cat") == "kernel" and L1_FWD_KERNEL in e.get("name", "")]
+    if not regions or len(l1_events) < model.cfg.num_layers:
+        raise AssertionError(f"{tag}: trace {tr.path}: {len(regions)} annotated regions, {len(l1_events)} L1 kernels")
+    peak = peak_flops()
+    name = torch.cuda.get_device_name(0)
+    if peak is None or ("H100 80GB HBM3" in name and peak != 989e12):
+        raise AssertionError(f"{tag}: peak_flops {peak} on {name}")
+    n = min(HOST_GENDER_FILES, len(ids))
+    gender_dir = kaldi_subset(os.path.join(root, "gender"), corpus, n)
+    t0 = time.perf_counter()
+    s2g = predict_gender_kaldi_dir(gender_dir, output_path=os.path.join(gender_dir, "spk2gender"))
+    gender_s = time.perf_counter() - t0
+    if sorted(s2g) != sorted(ids[:n]) or set(s2g.values()) - {"m", "f"}:
+        raise AssertionError(f"{tag}: spk2gender {s2g}")
+    res = dict(config=tag, load_s=load_s, file=ids[i], seconds=len(audio) / 16000, frames=frames, probs=probs,
+               untraced_s=untraced_s, traced_s=traced_s, launches=launches, trace_bytes=os.path.getsize(tr.path),
+               trace_events=len(events), trace_l1_kernels=len(l1_events),
+               trace_l1_device_ms=sum(e.get("dur", 0) for e in l1_events) / 1e3, memory=mem,
+               max_memory_allocated=max_alloc, peak_flops=peak, card=card,
+               gender=dict(files=n, audio_s=sum(lens[:n]) / 16000, seconds=gender_s,
+                           genders={g: sum(v == g for v in s2g.values()) for g in "mf"}))
+    res["line_s"] = time.perf_counter() - t_line
+    log(f"{tag}: classify_speech over {res['seconds']:.1f} s ({frames} frames): untraced {untraced_s:.3f} s, traced "
+        f"{traced_s:.3f} s; peak_flops {peak:.4g} on {card}")
+    log(f"slice {json.dumps(res)}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # --- phase 3: parallel/ (slice 8g) ----------------------------------------------------------
 
 PROBE_BYTES = 7001 * 1024 * 4  # one row-parallel f32 partial product of xlsr at the 140 s bucket
@@ -5528,7 +5665,9 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; tf32 off")
-    log(f"card: {card}")
+    log(f"card: {card}; dense bf16 peak {card_peak():.4g} FLOP/s (utils.flops.peak_flops)")
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    log(f"matplotlib on this host: {'found' if matplotlib else 'not found'} (importlib.util.find_spec)")
 
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -5582,7 +5721,9 @@ def main():
         "alignment and training data (long Kaldi utterances split by CTC forced alignment through xlsr; the train CLI "
         "with --data_augment; the voice converter trained and run over a Kaldi dir; the NN VAD); parallel/ (a probe "
         "of the card's process groups; tensor-parallel and sequence-parallel xlsr serving over ranks sharing the card, "
-        "through torchrun and spawned ranks; MoE wav2vec2-base training through shard_train_step; GPipe training)")
+        "through torchrun and spawned ranks; MoE wav2vec2-base training through shard_train_step; GPipe training); the "
+        "host-only modules (classify_speech through L1 inside profile_trace, device memory, the card's peak, speaker "
+        "genders)")
     tmp = tempfile.mkdtemp(prefix="ssak_smoke_")
     try:
         model_dir = os.path.join(tmp, "whisper-large-v3")
@@ -5630,6 +5771,8 @@ def main():
         align = {"split": run_align(torch, dev, os.path.join(tmp, "align"), model_dir, corpus, ids, lens)}
         parallel = {"probe": probe_collectives(torch)}
         parallel["tp_serving"] = run_tp_serving(torch, dev, tmp, model_dir, corpus, ids, lens, parallel["probe"])
+        slices["host_modules"] = run_host_modules(torch, dev, os.path.join(tmp, "host"), model_dir, corpus, ids, lens,
+                                                  card)
         shutil.rmtree(model_dir)
         nemo = run_nemo(torch, dev, tmp, (corpus, ids, lens))
         dirs["nemo_conformer_ctc_large"] = nemo.pop("nemo_archive")
@@ -5715,7 +5858,7 @@ def main():
          sum(slices[k]["launches"]["flash_attention"] for k in ("ctc_serving_greedy", "ctc_serving_int8",
                                                                   "ctc_serving_int4", "ctc_serving_beam", "ctc_long"))
          + slices["align"]["split"]["launches"]["flash_attention"]
-         + sum(parallel["tp_serving"]["l1_launches_per_rank"])),
+         + sum(parallel["tp_serving"]["l1_launches_per_rank"]) + slices["host_modules"]["launches"]["flash_attention"]),
         ("flash_attention_bwd_dkv", "ssak_tpu_torch/csrc/flash_attention_bwd.cu",
          "ssak_tpu/models/layers.py:290 -> jax/experimental/pallas/ops/tpu/flash_attention.py:941 _flash_attention_bwd_dkv",
          bwd_rows["dkv"], max(bwd_err["dk"], bwd_err["dv"]), dict(B=1, T=6999),
@@ -5731,7 +5874,8 @@ def main():
             max_abs_err=err, ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by=h["bound_by"],
             library_ms=h["library_ms"], max_err=err, kernel_ms=h["ms"], shape=shape, shapes=rows,
         ))
-    log("summary " + json.dumps({"slices": slices, "model_dirs": dirs, "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
+    log("summary " + json.dumps({"slices": slices, "model_dirs": dirs, "matplotlib": matplotlib,
+                                 "card_vs_cpu_correlation": corr, "train_step_card_vs_cpu": train_parity,
                                  "ctc_serving_card_vs_cpu": serving_parity, "long_train_step_card_vs_cpu": long_step_parity,
                                  "quantized_ctc_card_vs_cpu": quantized_parity, "dense_card_vs_cpu": dense_parity,
                                  "nemo_card_vs_cpu": nemo_parity, "nemo_train_step_card_vs_cpu": nemo_step_parity,

@@ -7,4 +7,6 @@ first use (ops/_build.py). Entry points run on `cuda` unless the caller
 passes device="cpu". Nothing here imports JAX or ssak_tpu.
 """
 
-__version__ = "0.1.0"
+from ssak_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -15,6 +15,8 @@ import numpy as np
 from ssak_tpu_torch.audio import wav as _wav
 from ssak_tpu_torch.audio.resample import resample, to_mono
 
+SUPPORTED_EXTENSIONS = (".wav", ".mp3", ".flac")  # files that a list or a path names as audio (data.dataset)
+
 
 def _window(audio, sr, start, end):
     s = int(round(start * sr)) if start else 0

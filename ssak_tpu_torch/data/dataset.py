@@ -1,7 +1,8 @@
 """Manifests and audio batching (counterpart of ssak_tpu.data.dataset).
 
 `to_audio_batches` (serving): a np.ndarray, a list of arrays, audio paths
-and/or wav.scp command pipes, a single audio path, a list file of audio
+and/or wav.scp command pipes, a single audio path (optionally with
+':start-end,...' windows in seconds, one row each), a list file of audio
 paths or Kaldi dirs, or a Kaldi dir (with `segments` windows).
 
 Training: `kaldi_folder_to_manifest` turns Kaldi dirs (one dir, a list of
@@ -23,9 +24,30 @@ import random
 
 import numpy as np
 
+from ssak_tpu_torch.audio.io import SUPPORTED_EXTENSIONS
 from ssak_tpu_torch.data import kaldi as K
 from ssak_tpu_torch.utils.misc import get_cache_dir, hashmd5
 from ssak_tpu_torch.utils.monitoring import logger
+
+
+AUDIO_SPEC_SEP = ":"
+
+
+def _parse_audio_spec(spec: str):
+    """'file.wav:3.2-5.4,7-8.5' -> (path, [(3.2, 5.4), (7.0, 8.5)]); a spec
+    without windows, or whose path does not exist, -> (spec, None)."""
+    if AUDIO_SPEC_SEP in spec:
+        path, ranges = spec.rsplit(AUDIO_SPEC_SEP, 1)
+        try:
+            windows = []
+            for rng in ranges.split(","):
+                a, b = rng.split("-")
+                windows.append((float(a), float(b)))
+            if os.path.exists(path):
+                return path, windows
+        except ValueError:
+            pass
+    return spec, None
 
 
 def to_audio_batches(
@@ -63,10 +85,15 @@ def to_audio_batches(
         raise ValueError(f"unsupported audio source: {type(source)}")
 
     def _file_rows(item):
-        path = str(item)
+        path, windows = _parse_audio_spec(str(item))
         ext = os.path.splitext(path)[1].lower()
-        if ext in (".wav", ".mp3", ".flac") or path.rstrip().endswith("|"):
-            yield {"id": os.path.splitext(os.path.basename(path))[0], "audio": path}
+        if ext in SUPPORTED_EXTENSIONS or path.rstrip().endswith("|"):
+            base = os.path.splitext(os.path.basename(path))[0]
+            if windows:
+                for start, end in windows:
+                    yield {"id": f"{base}_{start:.2f}-{end:.2f}", "audio": path, "start": start, "end": end}
+            else:
+                yield {"id": base, "audio": path}
         elif os.path.isfile(path):
             # a list file of audio paths or Kaldi dirs
             with open(path, encoding="utf-8") as f:

@@ -502,3 +502,9 @@ def _backtrace(best, srcs, toks, lengths, T: int):
         out[b, : len(seq)] = seq
         out_lens[b] = len(seq)
     return out, out_lens
+
+
+def decode_beam_to_text(tokens, lengths, tokenizer):
+    """(B, T) token ids and (B,) lengths from a beam (ctc_beam_search_device)
+    -> one text a row, through the tokenizer."""
+    return [tokenizer.decode(tokens[b, : lengths[b]]) for b in range(tokens.shape[0])]

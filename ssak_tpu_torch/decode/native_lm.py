@@ -54,6 +54,17 @@ def _load_lib():
     return lib
 
 
+def native_available() -> bool:
+    """True when the C++ scorer builds (g++ at first use) and loads on this
+    host; a failed build is reported here as False, and raises where the
+    scorer is used."""
+    try:
+        _load_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 class NativeNgramLM:
     """Backoff n-gram LM scored by the C++ core, from an ARPA file or a
     binary image of save_binary. Scores are log10."""

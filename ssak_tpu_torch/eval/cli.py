@@ -5,8 +5,8 @@
 
 The scoring runs on the host; like every entry point of the port it asks
 for the card unless --device cpu is given, and raises without one. --plot
-needs eval/plots (matplotlib), which waits among the host-only utilities of
-ROADMAP.md for a plotting route that the card host can run.
+draws the WER bar plot with eval.plots (matplotlib, imported when the plot
+is drawn: where it is absent, --plot raises ImportError naming it).
 """
 
 import argparse
@@ -21,7 +21,7 @@ def main(argv=None):
     p.add_argument("--char", action="store_true", help="character error rate")
     p.add_argument("--details", action="store_true", help="print per-utterance alignments")
     p.add_argument("--bootstrap_ci", action="store_true")
-    p.add_argument("--plot", default=None, help="save a WER bar plot to this path (not ported yet)")
+    p.add_argument("--plot", default=None, help="save a WER bar plot to this path")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; the scoring runs on the host, the option only follows the port's "
                         "rule that an entry point asks for the card unless told otherwise")
@@ -29,9 +29,6 @@ def main(argv=None):
     from ssak_tpu_torch.utils.env import resolve_device
 
     resolve_device(args.device)
-    if args.plot:
-        raise NotImplementedError("--plot needs eval/plots (matplotlib), one of the host-only utilities of ROADMAP.md "
-                                  "that wait for a plotting route the card host can run")
 
     from ssak_tpu_torch.eval.wer import compute_wer
 
@@ -47,6 +44,10 @@ def main(argv=None):
             print(f"--- {a['id']} (wer {a['wer']:.3f})")
             print(a["viz"])
         result = {k: v for k, v in result.items() if k != "alignments"}
+    if args.plot:
+        from ssak_tpu_torch.eval.plots import plot_wer
+
+        plot_wer(result, output=args.plot)
     print(json.dumps(result))
 
 

@@ -35,6 +35,7 @@ import sys
 import numpy as np
 
 MAX_CHUNK_SAMPLES = 2_240_400  # ~140 s
+CHUNK_OVERLAP = 0  # samples shared by consecutive chunks: none, they abut (ssak_tpu's value)
 
 _BUCKETS_SAMPLES = (16000, 32000, 64000, 160000, 320000, 480000, MAX_CHUNK_SAMPLES)
 

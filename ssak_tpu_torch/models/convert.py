@@ -94,8 +94,8 @@ def _moe_from_tree(p, device):
 
 def wav2vec2_from_tree(params, device="cpu") -> W2V.Wav2Vec2Model:
     """ssak_tpu wav2vec2 tree (`wav2vec2.init_params` layout, or its encoder
-    blocks layer-stacked by `stack_wav2vec2_params`; dense or MoE blocks)
-    -> Wav2Vec2Model."""
+    blocks layer-stacked by `stack_wav2vec2_params`; dense or MoE blocks;
+    a 'classifier' {kernel, bias} head where present) -> Wav2Vec2Model."""
     blocks_t = params["encoder"]["blocks"]
     if isinstance(blocks_t, dict):
         from ssak_tpu_torch.parallel.pipeline import unstack_blocks
@@ -125,6 +125,7 @@ def wav2vec2_from_tree(params, device="cpu") -> W2V.Wav2Vec2Model:
         W2V.FeatureProjection(ln_from_tree(fp["layer_norm"], device), linear_from_tree(fp["projection"], device)),
         W2V.Encoder(conv_from_tree(enc["pos_conv"], device), ln_from_tree(enc["layer_norm"], device), blocks),
         linear_from_tree(params["lm_head"], device),
+        linear_from_tree(params["classifier"], device) if "classifier" in params else None,
     )
 
 
@@ -213,7 +214,8 @@ def _conv_to_tree(p):
 def wav2vec2_to_tree(model) -> dict:
     """Wav2Vec2Model -> ssak_tpu wav2vec2 tree with f32 numpy leaves (dense
     kernels (in, out), conv kernels (K, Cin/groups, Cout), MoE blocks'
-    gate kernel (D, E) and expert-stacked w1, b1, w2, b2), list layout."""
+    gate kernel (D, E) and expert-stacked w1, b1, w2, b2), list layout; the
+    classifier head, where the model has one, as 'classifier'."""
     convs = []
     for c in model.feature_extractor:
         layer = {"conv": _conv_to_tree(c.conv)}
@@ -238,13 +240,16 @@ def wav2vec2_to_tree(model) -> dict:
                               "up": _linear_to_tree(b.adapter.up)}
         blocks.append(blk)
     fp = model.feature_projection
-    return {
+    tree = {
         "feature_extractor": {"convs": convs},
         "feature_projection": {"layer_norm": _ln_to_tree(fp.layer_norm), "projection": _linear_to_tree(fp.projection)},
         "encoder": {"pos_conv": _conv_to_tree(model.encoder.pos_conv), "layer_norm": _ln_to_tree(model.encoder.layer_norm),
                     "blocks": blocks},
         "lm_head": _linear_to_tree(model.lm_head),
     }
+    if model.classifier is not None:
+        tree["classifier"] = _linear_to_tree(model.classifier)
+    return tree
 
 
 # --- conformer -------------------------------------------------------------------------

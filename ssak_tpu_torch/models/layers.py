@@ -390,6 +390,13 @@ def self_attention_int8(q, cache, mask=None, dtype=torch.bfloat16, scale=None):
     return out.to(dtype)
 
 
+def decode_attention_int8(q, kv8, mask=None, dtype=torch.bfloat16, scale=None):
+    """decode_attention against int8 K/V with per-position scales (the
+    quantize_decode_kv / init_int8_cache format): self_attention_int8's
+    arithmetic under ssak_tpu's cross-attention name."""
+    return self_attention_int8(q, kv8, mask=mask, dtype=dtype, scale=scale)
+
+
 def decode_attention_bounded(q, kv, lo, hi, dtype=torch.bfloat16, scale=None):
     """Single-query decode attention with an inclusive index-range mask.
 

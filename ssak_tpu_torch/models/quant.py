@@ -1,6 +1,7 @@
 """Weight-only int8 / int4 quantization (counterpart of
-ssak_tpu.models.quant: quantize_kernel, dequantize_kernel,
-quantize_params, quantized_bytes, partition_trainable, merge_partition).
+ssak_tpu.models.quant: is_quantized_kernel, quantize_kernel,
+dequantize_kernel, quantize_params, dequantize_params, quantized_bytes,
+partition_trainable, merge_partition).
 
 A quantized dense layer is a `layers.QuantLinear` holding ssak_tpu's
 payload, bit for bit the numpy original's (f32 division,
@@ -14,13 +15,24 @@ The scale's rank tells the two apart. Quantization runs on whatever device
 the weights are on.
 """
 
+import copy
 import re
+import types
 
+import numpy as np
 import torch
 
 DEFAULT_TARGETS = r"/kernel$"
 MIN_SIZE = 64 * 64
 INT4_BLOCK = 64
+
+
+def is_quantized_kernel(leaf) -> bool:
+    """True for a quantized kernel in either form: ssak_tpu's leaf dict
+    (with q8 or q4) or the port's layers.QuantLinear."""
+    from ssak_tpu_torch.models.layers import QuantLinear
+
+    return isinstance(leaf, QuantLinear) or (isinstance(leaf, dict) and ("q8" in leaf or "q4" in leaf))
 
 
 def quantize_kernel(w, bits: int = 8):
@@ -92,21 +104,54 @@ def quantize_params(module, bits: int = 8, targets: str = DEFAULT_TARGETS, min_s
     from ssak_tpu_torch.models.layers import Linear, QuantLinear
 
     rx = re.compile(targets)
-    todo = []
-    for name, sub in module.named_modules():
-        if isinstance(sub, Linear) and sub.weight.numel() >= min_size:
-            if rx.search("/" + name.replace(".", "/") + "/kernel"):
-                todo.append(name)
-    for name in todo:
+    todo = [name for name, sub in module.named_modules()
+            if isinstance(sub, Linear) and sub.weight.numel() >= min_size
+            and rx.search("/" + name.replace(".", "/") + "/kernel")]
+    return _swap_layers(module, todo, lambda lin: QuantLinear(*quantize_kernel(lin.weight.t(), bits=bits), lin.bias))
+
+
+def _swap_layers(module, names, make):
+    """Replace, IN PLACE, each named dense layer of `module` by make(layer),
+    its LoRA adapter moved onto the new layer. Returns the module."""
+    for name in names:
         parent_name, _, attr = name.rpartition(".")
         parent = module.get_submodule(parent_name) if parent_name else module
-        lin = getattr(parent, attr)
-        q, scale = quantize_kernel(lin.weight.t(), bits=bits)
-        ql = QuantLinear(q, scale, lin.bias)
-        if lin.lora_A is not None:
-            ql.set_lora(lin.lora_A, lin.lora_B, lin.lora_scale)
-        setattr(parent, attr, ql)
+        old = getattr(parent, attr)
+        new = make(old)
+        if old.lora_A is not None:
+            new.set_lora(old.lora_A, old.lora_B, old.lora_scale)
+        setattr(parent, attr, new)
     return module
+
+
+def dequantize_params(params, dtype=torch.float32):
+    """Fully materialize dense weights (export / debugging); the input is
+    left as it is. A module comes back as a copy in which every
+    QuantLinear is a layers.Linear holding its dequantized weight (out, in)
+    in `dtype`, its bias and LoRA adapter kept. An ssak_tpu-layout tree
+    (nested dicts, lists, tuples) comes back with every quantized leaf
+    dict replaced by its dense (d_in, d_out) numpy array: bf16, which numpy
+    lacks, is carried in f32."""
+    from ssak_tpu_torch.models.layers import Linear, QuantLinear
+
+    if isinstance(params, torch.nn.Module):
+        module = copy.deepcopy(params)
+        todo = [name for name, sub in module.named_modules() if isinstance(sub, QuantLinear)]
+        return _swap_layers(module, todo, lambda ql: Linear(dequantize_kernel(ql, dtype).t().contiguous(), ql.bias))
+
+    def rec(node):
+        if is_quantized_kernel(node):
+            qd = types.SimpleNamespace(**{k: torch.as_tensor(np.asarray(v)) for k, v in node.items()})
+            w = dequantize_kernel(qd, dtype)
+            return (w.float() if w.dtype == torch.bfloat16 else w).numpy()
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            vals = [rec(v) for v in node]
+            return vals if isinstance(node, list) else tuple(vals)
+        return node
+
+    return rec(params)
 
 
 def quantized_bytes(module) -> tuple:

@@ -119,12 +119,16 @@ class Encoder(nn.Module):
 
 
 class Wav2Vec2Model(nn.Module):
-    def __init__(self, convs, feature_projection, encoder, lm_head):
+    """classifier: an optional dense head over the mean-pooled hidden states
+    (ssak_tpu's 'classifier' leaf; utils.gender.classify_speech)."""
+
+    def __init__(self, convs, feature_projection, encoder, lm_head, classifier=None):
         super().__init__()
         self.feature_extractor = nn.ModuleList(convs)
         self.feature_projection = feature_projection
         self.encoder = encoder
         self.lm_head = lm_head
+        self.classifier = classifier
 
 
 def init_params(cfg: Wav2Vec2Config, seed: int = 0, device="cpu") -> Wav2Vec2Model:

@@ -76,17 +76,26 @@ def mel_filterbank(n_mels: int = N_MELS, n_fft: int = N_FFT, sample_rate: int = 
     return fb.astype(np.float32)
 
 
+def frame_signal(audio, n_fft: int = N_FFT, hop: int = HOP_LENGTH):
+    """(..., T) tensor -> (..., 1 + T // hop, n_fft) frames, with whisper's
+    reflect padding of n_fft // 2 on both sides (a view of the padded
+    signal, on the same device and in the same dtype)."""
+    import torch.nn.functional as F
+
+    lead = audio.shape[:-1]
+    pad = n_fft // 2
+    x = F.pad(audio.reshape(-1, 1, audio.shape[-1]), (pad, pad), mode="reflect")[:, 0]  # reflect needs (B, C, T)
+    frames = x.unfold(-1, n_fft, hop)
+    return frames.reshape(*lead, *frames.shape[-2:])
+
+
 def log_mel_spectrogram(audio, n_mels: int = N_MELS):
     """audio: (..., T) float32 tensor at 16 kHz -> (..., n_mels, n_frames)
     f32 on the same device, with n_frames = T // 160."""
     import torch
-    import torch.nn.functional as F
 
     lead = audio.shape[:-1]
-    x = audio.reshape(-1, 1, audio.shape[-1]).to(torch.float32)
-    pad = N_FFT // 2
-    x = F.pad(x, (pad, pad), mode="reflect")[:, 0]  # reflect needs the (B, C, T) view
-    frames = x.unfold(-1, N_FFT, HOP_LENGTH)[:, :-1]  # (B, F, n_fft); whisper drops the final frame
+    frames = frame_signal(audio.reshape(-1, audio.shape[-1]).to(torch.float32))[:, :-1]  # whisper drops the last frame
     cos_m, sin_m = dft_matrices()
     dev = audio.device
     re = torch.matmul(frames, torch.from_numpy(cos_m).to(dev))

@@ -1,3 +1,3 @@
-from ssak_tpu_torch.remote.client import remote_streaming
+from ssak_tpu_torch.remote.client import build_transcription_config, remote_streaming, remote_transcribe
 
-__all__ = ["remote_streaming"]
+__all__ = ["remote_transcribe", "remote_streaming", "build_transcription_config"]

@@ -7,11 +7,13 @@ tools/kaldi_tools.py): stats, split, subsample, validate/fix.
     ... fix <dir> [--language fr]
     ... glue <dir> <out> [--max_silence 0.5 --max_duration 15 --mode overlap|all]
     ... rename <dir> <out> --char : --replacement - [--utt_ids_only|--audio_ids_only]
-    ... spk2gender <dir>      (raises: utils/gender is a host-only utility not ported yet)
+    ... spk2gender <dir> [--force] [--device cpu]
     ... duration <files/dirs...>
     ... move <dataset_dir> <target_dir> [--kaldi_annotations d]
 
-Host only: no card is used.
+Host only: no card is used. spk2gender (utils.gender's pitch heuristic)
+follows the port's rule for entry points all the same: it asks for the
+card unless --device cpu is given, and raises without one.
 """
 
 import argparse
@@ -108,8 +110,16 @@ def cmd_rename(args):
 
 
 def cmd_spk2gender(args):
-    raise NotImplementedError("spk2gender needs utils/gender, one of the host-only utilities that are ported only "
-                              "where a ported CLI calls them (ROADMAP.md §1); it is not ported yet")
+    from ssak_tpu_torch.utils.env import resolve_device
+    from ssak_tpu_torch.utils.gender import predict_gender_kaldi_dir
+
+    resolve_device(args.device)
+    out = os.path.join(args.dir, "spk2gender")
+    if os.path.exists(out) and not args.force:
+        print(f"WARNING: {out} already exists (use --force to overwrite)")
+        return
+    spk2gender = predict_gender_kaldi_dir(args.dir, output_path=out)
+    print(json.dumps({"speakers": len(spk2gender), "genders": {g: sum(1 for v in spk2gender.values() if v == g) for g in "mf"}}))
 
 
 def _second2time(val: float) -> str:
@@ -216,6 +226,9 @@ def main(argv=None):
     s = sub.add_parser("spk2gender")
     s.add_argument("dir")
     s.add_argument("--force", action="store_true")
+    s.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; the heuristic runs on the host, the option only follows the port's "
+                        "rule that an entry point asks for the card unless told otherwise")
     s.set_defaults(fn=cmd_spk2gender)
 
     s = sub.add_parser("duration")

@@ -1,10 +1,12 @@
 """Small host-side helpers (counterpart of ssak_tpu.utils.misc:
-`get_cache_dir`, `hashmd5`, `walk_files`, `save_source_dir`)."""
+`get_cache_dir`, `hashmd5`, `walk_files`, `save_source_dir`,
+`run_command`)."""
 
 import hashlib
 import json
 import os
 import shutil
+import subprocess
 
 
 def get_cache_dir(name: str = "ssak_tpu_torch") -> str:
@@ -58,3 +60,16 @@ def save_source_dir(dest_dir: str) -> str:
         shutil.rmtree(dest)
     shutil.copytree(src, dest, ignore=shutil.ignore_patterns("__pycache__", "*.so", "*.o"))
     return dest
+
+
+def run_command(cmd, check: bool = True, capture: bool = True) -> str:
+    """Run a command (a string through the shell, a list without it) and
+    return its stdout; raises CalledProcessError on failure when `check`."""
+    result = subprocess.run(
+        cmd,
+        shell=isinstance(cmd, str),
+        check=check,
+        stdout=subprocess.PIPE if capture else None,
+        stderr=subprocess.PIPE if capture else None,
+    )
+    return result.stdout.decode("utf-8", errors="replace") if capture else ""

@@ -145,8 +145,15 @@ def test_sak_wer_cli_prints_jax_json(tmp_path, flags):
     json.loads(got.stdout.strip().splitlines()[-1])
 
 
-def test_sak_wer_plot_is_refused():
+def test_sak_wer_plot_is_refused(tmp_path, monkeypatch):
+    """Where matplotlib is absent, --plot is refused by an ImportError that
+    names it, and no plot file is left behind."""
     from ssak_tpu_torch.eval import cli
 
-    with pytest.raises(NotImplementedError, match="host-only utilities"):
-        cli.main(["r", "h", "--plot", "x.png", "--device", "cpu"])
+    rf, hf = tmp_path / "ref.txt", tmp_path / "hyp.txt"
+    rf.write_text("".join(f"{k} {v}\n" for k, v in REFS.items()), encoding="utf-8")
+    hf.write_text("".join(f"{k} {v}\n" for k, v in HYPS.items()), encoding="utf-8")
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        cli.main([str(rf), str(hf), "--plot", str(tmp_path / "x.png"), "--device", "cpu"])
+    assert not (tmp_path / "x.png").exists()

@@ -606,8 +606,14 @@ def test_kaldi_tools_cli_matches_jax(corpus, capsys):
         for f in files:
             rel = os.path.relpath(os.path.join(dirpath, f), j)
             assert (t / rel).read_bytes().replace(bytes(t), b"BASE") == (j / rel).read_bytes().replace(bytes(j), b"BASE"), rel
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.main(["spk2gender", str(corpus / "t" / "src")])
+    # spk2gender (utils.gender's pitch heuristic): the same votes and file; an existing file is kept without --force
+    for tag, mod, extra in (("t", T, ["--device", "cpu"]), ("j", J, [])):
+        src = str(corpus / tag / "src")
+        mod.main(["spk2gender", src] + extra)
+        mod.main(["spk2gender", src, "--force"] + extra)
+        outs[tag] = capsys.readouterr().out.replace(str(corpus / tag), "BASE")
+    assert outs["t"] == outs["j"] and "already exists" in outs["t"] and '"speakers": 3' in outs["t"]
+    assert (t / "src" / "spk2gender").read_bytes() == (j / "src" / "spk2gender").read_bytes()
 
 
 def test_ingest_clis_run_as_modules(corpus):
